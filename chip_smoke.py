@@ -4,7 +4,9 @@
 
 Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
-calls, `TorchSigBackend().bls_verify_committees`:
+calls, `TorchSigBackend().bls_verify_committees`, on both of its paths:
+the precomp path (with `pk_row_keys`, the notary's default: line tables
+resident on the card) and the recompute path (without keys):
 
 1. names the card and its power limit (nvidia-smi);
 2. builds the CUDA kernels of `gethsharding_tpu_torch/csrc/` (timed);
@@ -12,19 +14,37 @@ calls, `TorchSigBackend().bls_verify_committees`:
    votes (j+1)·H(m_s) and pubkeys (j+1)·G2 by repeated point addition,
    the committee order rotated per shard, and hostile rows with known
    answers (a forged vote, a missing signature whose pubkey is kept, an
-   empty committee, two shards with swapped messages);
-4. holds every kernel (G1 and G2 committee sums, Miller product, final
-   exponentiation) against its plain PyTorch version on the card, on the
-   tensors and shapes the audit gives it: the limbs must be equal;
-5. sets every launch count to 0, runs the audit once, and requires one
-   launch of each kernel and every verdict equal to the expected list;
-   the same batch through the plain versions on the card must agree;
-6. times the cold audit of a period whose messages are new (median of 3,
-   host clock, hashing included), the warm audit (median of 7, hashes
-   cached) and its stages (host marshal, transfer, device path with the
-   pull), each kernel and its plain version (CUDA events), and the
-   message hashing; each kernel's bound counts the work this period
-   needs (m - 1 additions for m votes, one pairing per non-empty row).
+   empty committee, two shards with swapped messages, and a committee
+   whose votes and pubkeys cancel, so that its pairing is 1 and only the
+   identity check rejects it);
+4. holds the audit's four kernels (G1 and G2 committee sums, Miller
+   product, final exponentiation) against their plain PyTorch versions
+   on the card, on the tensors and shapes the audit gives them, and the
+   tower's two kernels (conv, normalize) on every combine and width of
+   the path, with partial blocks, leading dims, a broadcast constant,
+   negative and bound-edge limbs: the limbs must be equal;
+5. recompute path: sets every launch count to 0, runs the keyless audit
+   once, and requires one launch of each audit kernel (normalizes are
+   counted apart) and every verdict equal to the expected list; the same
+   batch through the plain versions on the card must agree;
+6. precomp path: counts from 0 again around a cold audit (tables built)
+   and around a warm one; both must give the expected verdicts, which
+   equal the recompute path's; the warm audit must ship 0 G2 bytes and
+   hit every non-empty row. The tower kernels' inputs of the warm audit,
+   one per shape, are held against the plain versions, and the batch's
+   line tables and Miller product f must equal the plain route's limb
+   for limb;
+7. times both paths (cold median of 3 with hashing and, on the precomp
+   path, table building included; warm median of 7), the recompute
+   audit's stages, each kernel and its plain version (CUDA events, the
+   launches queued before the first runs; conv and normalize at their
+   most frequent shapes of the warm audit), their launches and summed
+   device time per warm audit and the card's idle share (torch.profiler),
+   and the Miller loop's host time against its summed kernel time. Each
+   kernel's bound counts the
+   work the period needs (m - 1 additions for m votes, one pairing per
+   non-empty row; for conv and normalize, the multiply-adds and bytes of
+   the launch timed).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -35,6 +55,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import subprocess
@@ -47,9 +68,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # int32 multiply-adds: 64 per clock per SM on compute capability 9.0 (CUDA
 # programming guide's throughput table) × 132 SMs × 1.98 GHz boost clock
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
+MAX_LIMB = int(2 ** 30.7) - 1   # the accumulators' limb bound
 
 SHARDS = 100
 COMMITTEE = 135
+HOSTILE = (3, 17, 42, 60, 61, 80)
 
 
 def fail(msg: str) -> None:
@@ -66,7 +89,7 @@ def card_line() -> str:
 
 
 def make_period(bls, seed: int):
-    """One audit period with known verdicts."""
+    """One audit period with known verdicts, and one key per committee."""
     msgs = [b"period-%d/shard-%d/header" % (seed, s) for s in range(SHARDS)]
     pks, acc = [], None
     for _ in range(COMMITTEE):
@@ -82,30 +105,70 @@ def make_period(bls, seed: int):
         order = [(j + s) % COMMITTEE for j in range(COMMITTEE)]
         sig_rows.append([mults[j] for j in order])
         pk_rows.append([pks[j] for j in order])
-    want = [True] * SHARDS
     sig_rows[3][7] = bls.g1_add(sig_rows[3][7], bls.G1_GEN)   # forged vote
-    want[3] = False
     sig_rows[17][5] = None          # missing signature, pubkey kept
-    want[17] = False
     sig_rows[42], pk_rows[42] = [], []                        # empty committee
-    want[42] = False
     msgs[60], msgs[61] = msgs[61], msgs[60]                   # swapped messages
-    want[60] = want[61] = False
-    return msgs, sig_rows, pk_rows, want
+    vote, pk = sig_rows[80][0], pk_rows[80][0]                # cancelling
+    sig_rows[80] = [vote, bls.g1_neg(vote)]
+    pk_rows[80] = [pk, bls.g2_neg(pk)]
+    want = [s not in HOSTILE for s in range(SHARDS)]
+    keys = [("committee", seed, s) for s in range(SHARDS)]
+    return msgs, sig_rows, pk_rows, keys, want
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over `reps` warm calls, CUDA events."""
+def cuda_ms(fn, reps: int, queued: bool = True) -> float:
+    """Mean milliseconds per call over `reps` warm calls, CUDA events.
+    `queued`: the card first sleeps ~10 ms, so that the host has queued
+    every launch before the first runs, and a kernel shorter than its
+    launch's host cost is timed on the card, back to back, not at the
+    host's pace (the plain versions are timed at the host's pace)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_times(fn):
+    """Run `fn` once under torch.profiler: (kernel device milliseconds
+    summed by kernel name, from the card's own trace; host wall
+    milliseconds of the run, synchronized). Empty where the profiler
+    saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+    return by_name, wall_ms
+
+
+def kernel_split(by_name) -> dict:
+    """Device ms by the port's kernels (conv, norm, the audit kernels)
+    and PyTorch's own (glue: elementwise ops, copies)."""
+    split = collections.Counter()
+    for name, ms in by_name.items():
+        label = next((k for k in ("conv_kernel", "norm_kernel", "agg_kernel",
+                                  "miller_kernel", "finalexp_kernel")
+                      if k in name), "glue")
+        split[label] += ms
+    return split
 
 
 def host_ms(fn, reps: int) -> float:
@@ -154,6 +217,114 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def bound(macs: int, moved: int) -> dict:
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = macs / INT32_MAD_PER_S * 1e3
+    return {"multiply_adds": macs, "bytes": moved,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+class TowerLaunches:
+    """While open, records every launch of the tower's two kernels (conv,
+    normalize): the shape it ran at, and the first input of each shape,
+    which `check_samples` holds against the plain version afterwards."""
+
+    def __init__(self, conv, norm, comb_names: dict):
+        self.conv, self.norm, self.comb_names = conv, norm, comb_names
+        self.counts = collections.Counter()   # shape key -> launches
+        self.samples = {}                     # shape key -> inputs
+
+    def __enter__(self):
+        self._kernels = (self.conv.conv_kernel, self.norm.normalize_kernel)
+        conv_kernel, normalize_kernel = self._kernels
+        self.conv.conv_kernel = lambda x, y, comb: self._record(
+            ("conv", self.comb_names[id(comb)], tuple(x.shape),
+             tuple(y.shape)), conv_kernel, x, y, comb)
+        self.norm.normalize_kernel = lambda arith, z: self._record(
+            ("norm", tuple(z.shape)), normalize_kernel, arith, z)
+        return self
+
+    def __exit__(self, *exc):
+        self.conv.conv_kernel, self.norm.normalize_kernel = self._kernels
+
+    def _record(self, key, fn, *args):
+        if key not in self.samples:
+            self.samples[key] = tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        self.counts[key] += 1
+        return fn(*args)
+
+
+def conv_work(key, comb) -> dict:
+    """Multiply-adds and bytes of one conv launch at `key`'s shapes: every
+    nonzero combine term is one 25×25 convolution per row."""
+    from gethsharding_tpu_torch.ops import conv
+
+    (_, _, xs, ys), table = key, conv.term_table(comb)
+    n = xs[0]
+    out_ints = n * comb.shape[3] * comb.shape[4] * conv.NCOLS
+    return bound(n * table.shape[0] * 625,
+                 4 * (n * (xs[1] * xs[2] + ys[1] * ys[2]) * 25 + out_ints
+                      + table.size))
+
+
+def norm_work(key) -> dict:
+    """Multiply-adds and bytes of one normalize launch at `key`'s shape:
+    22 per folded limb (W + 3 - 22 of them) per row."""
+    n, w = key[1]
+    return bound(n * (w + 3 - 22) * 22, 4 * (n * w + n * 25 + 33 * 22 + 22))
+
+
+def check_samples(samples, conv, norm) -> dict:
+    """Each recorded input through the kernel and the plain version."""
+    errs = {"conv": 0, "norm": 0}
+    for key, args in samples.items():
+        if key[0] == "conv":
+            got = conv.conv_kernel(*args)
+            want = conv.pair_conv_combine_plain(*args)
+        else:
+            got = norm.normalize_kernel(*args)
+            want = norm.normalize_plain(*args)
+        errs[key[0]] = max(errs[key[0]], max_abs_err(got, want))
+    return errs
+
+
+def check_tower_edges(bn, conv, norm, combs: dict, dev) -> dict:
+    """Conv on every combine of the path at 112 rows, at the stacked
+    Fp12 shape, with a partial last block, extra leading dims and a
+    broadcast constant; normalize at every width 25..52 with negative
+    and bound-edge limbs. Returns the largest |kernel - plain| of each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    canon = lambda shape: torch.randint(0, 1 << 12, shape + (25,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32)
+    errs = {"conv": 0, "norm": 0}
+    for comb in combs.values():
+        G, A, B = comb.shape[:3]
+        for lead in ((112,), (113,), (112 * 6,), (4, 29)):
+            x, y = canon(lead + (G, A)), canon(lead + (G, B))
+            errs["conv"] = max(errs["conv"], max_abs_err(
+                conv.pair_conv_combine(x, y, comb),
+                conv.pair_conv_combine_plain(x, y, comb)))
+        x, y = canon((112, G, A)), canon((G, B))
+        for a, b in ((x, y), (canon((G, A)), canon((112, G, B)))):
+            errs["conv"] = max(errs["conv"], max_abs_err(
+                conv.pair_conv_combine(a, b, comb),
+                conv.pair_conv_combine_plain(a, b, comb)))
+    for w in range(25, norm.MAX_WIDTH + 1):
+        z = torch.randint(-MAX_LIMB, MAX_LIMB + 1, (1000, w), generator=gen,
+                          device=dev, dtype=torch.int32)
+        z[:, -1] = z[:, -1].abs().clamp(min=1 << 29)   # value >= 0
+        z[:3] = torch.where(z[:3] < 0, -MAX_LIMB, MAX_LIMB)
+        z[:3, -1] = MAX_LIMB
+        errs["norm"] = max(errs["norm"], max_abs_err(
+            bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, 25),
+            norm.normalize_plain(bn.FP, z)))
+    return errs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -162,7 +333,7 @@ def main() -> int:
         fail("no CUDA device")
 
     from gethsharding_tpu_torch.crypto import bn256 as bls
-    from gethsharding_tpu_torch.ops import _build
+    from gethsharding_tpu_torch.ops import _build, conv, limb, norm
     from gethsharding_tpu_torch.ops import bn256 as bn
     from gethsharding_tpu_torch.ops import megakernels as mk
     from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -178,7 +349,7 @@ def main() -> int:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
 
     t0 = time.perf_counter()
-    msgs, sig_rows, pk_rows, want = make_period(bls, args.seed)
+    msgs, sig_rows, pk_rows, keys, want = make_period(bls, args.seed)
     print(f"period: {SHARDS} shards × {COMMITTEE} votes, made in "
           f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
 
@@ -186,7 +357,7 @@ def main() -> int:
     dev = torch.device("cuda")
     planes = committee_planes(msgs, sig_rows, pk_rows)
     on_card = [torch.as_tensor(a, device=dev) for a in planes]
-    hx, hy, sx, sy, sm, gx, gy, gm, _ = on_card
+    hx, hy, sx, sy, sm, gx, gy, gm, hok = on_card
     n = hx.shape[0]
     sm32, gm32 = sm.to(torch.int32), gm.to(torch.int32)
 
@@ -235,40 +406,120 @@ def main() -> int:
         want_limbs = plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want_limbs)
-        print(f"kernel {name}: max |kernel - plain| over limbs = {err}",
-              flush=True)
+        print(f"kernel {name}: max |kernel - plain| over limbs = {err} "
+              f"(tolerance 0)", flush=True)
         if err != 0:
             fail(f"{name} disagrees with its plain version")
-        macs = count_multiply_adds(mk, unit) * units
-        t_bytes = moved / HBM_BYTES_PER_S * 1e3
-        t_ops = macs / INT32_MAD_PER_S * 1e3
-        results[name] = {"max_abs_err": err, "multiply_adds": macs,
-                         "units": units, "bytes": moved,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "operations" if t_ops >= t_bytes
-                         else "bytes"}
+        results[name] = dict(bound(count_multiply_adds(mk, unit) * units,
+                                   moved), max_abs_err=err, units=units)
     verdict_k = mk.finalexp_is_one(f)
     verdict_p = mk.finalexp_is_one(f, plain=True)
     if not torch.equal(verdict_k, verdict_p):
         fail("finalexp verdicts differ from the plain version")
 
-    # -- the main path, counted --------------------------------------------
+    combs = {"_COMB_FP2": bn._COMB_FP2, "_COMB_FP2_SQR": bn._COMB_FP2_SQR,
+             "_COMB": bn._COMB, "_LCOMB": bn._LCOMB,
+             "identity": limb._IDENTITY}
+    comb_names = {id(c): name for name, c in combs.items()}
+    edge = check_tower_edges(bn, conv, norm, combs, dev)
+    cover = {"conv": "every combine of the path, 112 to 672 rows, a "
+                     "partial block, leading dims, a broadcast constant",
+             "norm": f"widths 25-{norm.MAX_WIDTH}, negative and "
+                     f"±2^30.7 limbs, a partial block, leading dims"}
+    for name in ("conv", "norm"):
+        print(f"kernel {name}: max |kernel - plain| over limbs = "
+              f"{edge[name]} (tolerance 0; {cover[name]})", flush=True)
+        if edge[name] != 0:
+            fail(f"{name} disagrees with its plain version")
+
+    # -- the recompute path (no keys), counted ------------------------------
     backend = TorchSigBackend()
-    for k in mk.KERNELS.values():
+    for k in _build.KERNELS.values():
         k.launches = 0
     got = backend.bls_verify_committees(msgs, sig_rows, pk_rows)
-    launches = {name: k.launches for name, k in mk.KERNELS.items()}
-    print(f"main path: launches per audit {launches}")
-    if any(v != 1 for v in launches.values()):
-        fail(f"the audit did not launch each kernel once: {launches}")
+    rec_launches = _build.launch_counts()
+    print(f"recompute path: launches per audit {rec_launches}")
+    if any(rec_launches[name] != 1 for name in mk.KERNELS):
+        fail(f"the audit did not launch each audit kernel once: "
+             f"{rec_launches}")
+    if rec_launches["norm"] < 1:
+        fail("the recompute audit launched no normalize kernel")
     if got != want:
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         fail(f"verdicts differ from the expected list at rows {bad}")
     plain_got = bn.bls_aggregate_verify_committee_batch(*on_card, plain=True)
     if plain_got.cpu()[:SHARDS].tolist() != got:
         fail("the plain versions on the card give other verdicts")
-    print(f"main path: {sum(got)} of {SHARDS} rows verified, hostile rows "
-          f"3, 17, 42, 60, 61 rejected; plain versions agree")
+    print(f"recompute path: {sum(got)} of {SHARDS} rows verified, hostile "
+          f"rows {', '.join(map(str, HOSTILE))} rejected; plain versions "
+          f"agree")
+    recompute_got = got
+
+    # -- the precomp path (keys), counted: cold, then warm ------------------
+    pbackend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    got = pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys)
+    cold_launches = _build.launch_counts()
+    cold_timing = pbackend.last_timing
+    print(f"precomp path, cold: launches {cold_launches}, G2 bytes "
+          f"{cold_timing['g2_wire_bytes']}, hit rows "
+          f"{cold_timing['hit_rows']}")
+    if got != want or got != recompute_got:
+        fail("cold precomp verdicts differ from the expected list or the "
+             "recompute path's")
+    for name in ("agg_g1", "agg_g2", "conv", "norm", "finalexp"):
+        if cold_launches[name] < 1:
+            fail(f"the cold precomp audit launched no {name} kernel")
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    with TowerLaunches(conv, norm, comb_names) as warm_log:
+        got = pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                             pk_row_keys=keys)
+    warm_launches = _build.launch_counts()
+    warm_timing = pbackend.last_timing
+    pointful = sum(1 for r in pk_rows if r)
+    print(f"precomp path, warm: launches {warm_launches}, G2 bytes "
+          f"{warm_timing['g2_wire_bytes']}, hit rows "
+          f"{warm_timing['hit_rows']} of {pointful} non-empty")
+    if got != want:
+        fail("warm precomp verdicts differ from the expected list")
+    if warm_timing["g2_wire_bytes"] != 0 or warm_timing["hit_rows"] != pointful:
+        fail("the warm precomp audit shipped G2 bytes or missed a row")
+    for name in ("agg_g1", "conv", "norm", "finalexp"):
+        if warm_launches[name] < 1:
+            fail(f"the warm precomp audit launched no {name} kernel")
+    if warm_launches["agg_g2"] or warm_launches["miller"]:
+        fail("the warm precomp audit ran the G2 sums or the Miller kernel")
+    sample_err = check_samples(warm_log.samples, conv, norm)
+    for name in ("conv", "norm"):
+        shapes = sum(1 for key in warm_log.samples if key[0] == name)
+        print(f"kernel {name}: max |kernel - plain| over limbs = "
+              f"{sample_err[name]} (tolerance 0) on the warm audit's "
+              f"inputs ({shapes} shapes)")
+        if sample_err[name] != 0:
+            fail(f"{name} disagrees with its plain version on the audit")
+
+    table, inf = bn.precompute_g2_lines(gx, gy, gm)
+    table_p, inf_p = bn.precompute_g2_lines(gx, gy, gm, plain=True)
+    fk, ok = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table, inf,
+                                             hok)
+    fp, ok_p = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table_p,
+                                               inf_p, hok, plain=True)
+    err_table, err_f = max_abs_err(table, table_p), max_abs_err(fk, fp)
+    verdict_plain = bn.bls_committee_precomp_finalexp(fp, ok_p, plain=True)
+    print(f"precomp path: line tables {tuple(table.shape)} and f "
+          f"{tuple(fk.shape)} against the plain route on the card: max "
+          f"|kernel - plain| = {err_table} and {err_f}")
+    if err_table or err_f or not torch.equal(inf, inf_p) \
+            or not torch.equal(ok, ok_p):
+        fail("the precomp tables or f differ from the plain route")
+    if verdict_plain.cpu()[:SHARDS].tolist() != want:
+        fail("the plain route's precomp verdicts differ from the expected "
+             "list")
+    print(f"precomp path: {sum(got)} of {SHARDS} rows verified cold and "
+          f"warm, the same rows as the recompute path")
 
     # -- times ---------------------------------------------------------------
     audit_s, marshal_s = [], []
@@ -283,6 +534,29 @@ def main() -> int:
         t0 = time.perf_counter()
         backend.bls_verify_committees(msgs, sig_rows, pk_rows)
         cold_s.append(time.perf_counter() - t0)
+    pwarm_s, pmarshal_s = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                       pk_row_keys=keys)
+        pwarm_s.append(time.perf_counter() - t0)
+        pmarshal_s.append(pbackend.last_timing["marshal_s"])
+    psteady_s = []  # the notary's period: new messages, resident tables
+    for _ in range(3):
+        bls.hash_to_g1.cache_clear()
+        t0 = time.perf_counter()
+        pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                       pk_row_keys=keys)
+        psteady_s.append(time.perf_counter() - t0)
+    pcold_s, pcold_marshal_s = [], []   # new messages, a new backend
+    for _ in range(3):
+        bls.hash_to_g1.cache_clear()
+        fresh = TorchSigBackend()
+        t0 = time.perf_counter()
+        fresh.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                    pk_row_keys=keys)
+        pcold_s.append(time.perf_counter() - t0)
+        pcold_marshal_s.append(fresh.last_timing["marshal_s"])
 
     def transfer():
         out = [torch.as_tensor(p, device=dev) for p in planes]
@@ -297,10 +571,46 @@ def main() -> int:
     for m in msgs:
         bls.hash_to_g1(m)
     hash_ms = (time.perf_counter() - t0) * 1e3 / len(msgs)
+
+    build = lambda: bn.precompute_g2_lines(gx, gy, gm)
+    build_ms = host_ms(lambda: (build(), torch.cuda.synchronize()), 3)
+    build_split = kernel_split(device_times(build)[0])
+    print(f"time table build (precompute_g2_lines, {n} rows): host "
+          f"{build_ms:.2f} ms with synchronize; device kernels under the "
+          f"profiler {sum(build_split.values()):.2f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in build_split.items())}) "
+          f"[{card}]")
+    psig = mk.aggregate_proj(sx, sy, sm, fp2=False)
+    loop = lambda: bn.miller_loop_precomp(psig, hx, hy, table)
+    loop_ms = host_ms(lambda: (loop(), torch.cuda.synchronize()), 5)
+    with TowerLaunches(conv, norm, comb_names) as loop_log:
+        loop()
+    loop_counts = collections.Counter()
+    for key, count in loop_log.counts.items():
+        loop_counts[key[0]] += count
+    loop_dev, loop_wall = device_times(loop)
+    loop_split = kernel_split(loop_dev)
+    print(f"time Miller loop (precomp, {n} rows): host {loop_ms:.2f} ms "
+          f"with synchronize; {sum(loop_counts.values())} kernel launches "
+          f"({dict(loop_counts)}); under the profiler {loop_wall:.2f} ms "
+          f"host, device kernels {sum(loop_split.values()):.2f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in loop_split.items())}; "
+          f"{len(loop_dev)} kernel names) [{card}]")
+    warm_dev, warm_wall = device_times(lambda: pbackend.bls_verify_committees(
+        msgs, sig_rows, pk_rows, pk_row_keys=keys))
+    warm_split = kernel_split(warm_dev)
+    busy = sum(warm_split.values())
+    pwarm_ms = statistics.median(pwarm_s) * 1e3
+    split = ", ".join(f"{k} {v:.2f}" for k, v in warm_split.items())
+    print(f"time precomp audit, warm: device kernels {busy:.2f} ms under "
+          f"the profiler ({split}) against {pwarm_ms:.1f} ms unprofiled (host {warm_wall:.1f} ms "
+          f"profiled): device idle share {1 - busy / pwarm_ms:.3f} "
+          f"[{card}]")
+
     kernels = []
     for name, (kern, plain, _, _) in cases.items():
         ms = cuda_ms(kern, 10)
-        plain_ms = cuda_ms(plain, 1)
+        plain_ms = cuda_ms(plain, 1, queued=False)
         r = results[name]
         k = mk.KERNELS[name]
         print(f"time {name}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
@@ -309,25 +619,66 @@ def main() -> int:
               f"needed units, {r['bytes']} B) [{card}]")
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
-            "replaces": k.replaces, "launches": launches[name],
+            "replaces": k.replaces, "launches": rec_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
     kernel_ms = sum(k["ms"] for k in kernels)
+
+    warm_counts = warm_log.counts
+    for name, work, call, plain_call in (
+            ("conv", lambda key, a: conv_work(key, a[2]), conv.conv_kernel,
+             conv.pair_conv_combine_plain),
+            ("norm", lambda key, a: norm_work(key), norm.normalize_kernel,
+             norm.normalize_plain)):
+        key = max((k for k in warm_counts if k[0] == name),
+                  key=lambda k: warm_counts[k])
+        sample = warm_log.samples[key]
+        ms = cuda_ms(lambda: call(*sample), 50)
+        plain_ms = cuda_ms(lambda: plain_call(*sample), 5, queued=False)
+        r = work(key, sample)
+        per_audit = [work(k, warm_log.samples[k]) for k in warm_counts
+                     if k[0] == name for _ in range(warm_counts[k])]
+        audit_bound = sum(w["bound_ms"] for w in per_audit)
+        print(f"time {name}: kernel {ms:.4f} ms per launch at its most "
+              f"frequent shape {key[1:]} ({warm_counts[key]} of "
+              f"{warm_launches[name]} launches per warm audit), plain "
+              f"{plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}: {r['multiply_adds']} multiply-adds, "
+              f"{r['bytes']} B); per warm audit: {warm_launches[name]} "
+              f"launches, {warm_split[name + '_kernel']:.2f} ms summed "
+              f"kernel time (profiler), bound {audit_bound:.4f} ms [{card}]")
+        kernel = _build.KERNELS[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": warm_launches[name],
+            "max_abs_err": max(edge[name], sample_err[name]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+
     votes = SHARDS * COMMITTEE
-    warm_ms = statistics.median(audit_s) * 1e3
-    cold_ms = statistics.median(cold_s) * 1e3
-    print(f"time audit, cold period (messages hashed, {SHARDS} shards × "
-          f"{COMMITTEE} votes): median {cold_ms:.1f} ms of {len(cold_s)}, "
-          f"{votes / cold_ms * 1e3:.0f} votes/s [{card}]")
-    print(f"time audit, warm (hashes cached; excludes hashing): median "
-          f"{warm_ms:.1f} ms of {len(audit_s)}, {votes / warm_ms * 1e3:.0f} "
-          f"votes/s; stages: host marshal "
-          f"{statistics.median(marshal_s) * 1e3:.1f} ms, transfer "
-          f"{transfer_ms:.2f} ms, device path with pull {device_ms:.2f} ms "
-          f"(kernels {kernel_ms:.2f} ms, limb glue and pull "
-          f"{device_ms - kernel_ms:.2f} ms); hash_to_g1 {hash_ms:.3f} ms per "
-          f"message (host) [{card}]")
+    steady_ms = statistics.median(psteady_s) * 1e3
+    print(f"time precomp audit, a period of new messages with resident "
+          f"tables (the notary's steady state): median {steady_ms:.1f} ms "
+          f"of {len(psteady_s)}, {votes / steady_ms * 1e3:.0f} votes/s; "
+          f"cold audit's host marshal with hashing and the miss rows' G2 "
+          f"planes median {statistics.median(pcold_marshal_s) * 1e3:.1f} "
+          f"ms [{card}]")
+    for label, cold, warm, marshal in (
+            ("recompute (no keys)", cold_s, audit_s, marshal_s),
+            ("precomp (keys)", pcold_s, pwarm_s, pmarshal_s)):
+        cold_ms = statistics.median(cold) * 1e3
+        warm_ms = statistics.median(warm) * 1e3
+        print(f"time audit, {label}: cold period (messages hashed"
+              f"{', tables built' if 'precomp' in label else ''}) median "
+              f"{cold_ms:.1f} ms of {len(cold)}, {votes / cold_ms * 1e3:.0f} "
+              f"votes/s; warm median {warm_ms:.1f} ms of {len(warm)}, "
+              f"{votes / warm_ms * 1e3:.0f} votes/s, host marshal "
+              f"{statistics.median(marshal) * 1e3:.1f} ms [{card}]")
+    print(f"time recompute stages, warm: transfer {transfer_ms:.2f} ms, "
+          f"device path with pull {device_ms:.2f} ms (audit kernels "
+          f"{kernel_ms:.2f} ms, glue and pull {device_ms - kernel_ms:.2f} "
+          f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

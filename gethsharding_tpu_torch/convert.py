@@ -2,7 +2,9 @@
 
 `to_port` turns the reference's numpy limb planes (any integer dtype,
 22-limb exact or 25-limb wide form) into port tensors: int32, 25 limbs,
-on the port's device. `reference_tables` reads the reference's constant
+on the port's device. `line_tables_from_reference` carries the state of
+the precomp path across: a resident line table and its infinity flags.
+`reference_tables` reads the reference's constant
 tables and kernel programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
 for byte against the port's own re-derived tables (`port_tables`).
@@ -37,6 +39,21 @@ def to_port(plane, device=None) -> torch.Tensor:
                            arr.dtype)], axis=-1)
     return torch.as_tensor(arr.astype(np.int32),
                            device=resolve_device(device))
+
+
+def line_tables_from_reference(tab, inf, device=None):
+    """A reference line table (..., 88, 3, 2, 22 | 25) and its infinity
+    flags (...,) -> the port's (int32 (..., 88, 3, 2, 25), bool (...))
+    tensors, ready for `LineTableCache.insert` or the precomp audit."""
+    tab = np.asarray(tab)
+    if tab.shape[-4:-1] != bn.LINE_TABLE_SHAPE[:3]:
+        raise ValueError(f"not a line table: shape {tab.shape}")
+    inf = np.asarray(inf, dtype=bool)
+    if inf.shape != tab.shape[:-4]:
+        raise ValueError(f"infinity flags {inf.shape} do not match the "
+                         f"tables {tab.shape[:-4]}")
+    return (to_port(tab, device),
+            torch.as_tensor(inf, device=resolve_device(device)))
 
 
 def reference_tables(pallas_finalexp, bn256_jax) -> dict:

@@ -1,4 +1,4 @@
-"""Build and load the audit kernels: `csrc/*.cu` -> `_build/libmegakernels.so`.
+"""Build, load and launch the kernels: `csrc/*.cu` -> `_build/libmegakernels.so`.
 
 Each `.cu` file is compiled by its own `nvcc` process for `sm_90a`, all
 started together, and the objects are linked into one shared library with
@@ -8,6 +8,11 @@ sources come from this package's `csrc/` only.
 
 The build runs at the first kernel launch, so a fresh checkout needs no
 step of its own. Nothing here runs at import.
+
+`Kernel` binds one entry point: it launches on PyTorch's current stream,
+raises on a non-zero CUDA error, and counts its launches. Every `Kernel`
+made is listed in `KERNELS`, so a caller can count the launches of a
+whole run (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PACKAGE_DIR / "csrc"
@@ -37,6 +44,8 @@ SIGNATURES = {
     "gs_agg_g2": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "gs_miller": [_P] * 9 + [_I, _P, _P, _P, _I, _P, _P],
     "gs_finalexp": [_P, _P, _I, _P, _I, _P, _P],
+    "gs_norm": [_P, _I, _I, _P, _P, _P, _P],
+    "gs_conv": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -127,3 +136,52 @@ def error_string(code: int) -> str:
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return f"cudaError {code} ({fn(code).decode()})"
+
+
+class Kernel:
+    """One hand-written CUDA kernel: its C entry point in the built
+    library, where its source is, which TPU kernel it replaces, and how
+    many times it was launched (one per launch, nowhere else)."""
+
+    def __init__(self, name: str, symbol: str, source: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+        KERNELS[name] = self
+
+    def launch(self, *args) -> None:
+        fn = getattr(library(), self.symbol)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"{self.name}: kernel launch failed with "
+                               f"{error_string(err)}")
+        self.launches += 1
+
+
+KERNELS: dict = {}
+
+
+def launch_counts() -> dict:
+    """Launches so far of every kernel, by name."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_tensor(t, shape, name: str) -> None:
+    """What every entry point takes: a contiguous int32 CUDA tensor of
+    the given shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.int32:
+        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -10,12 +10,21 @@ stays below 2^30.7.
 `ModArith.normalize` follows the reference's wide exact branch step for
 step (three relaxed carry rounds, one fold through the 2^(12(22+k)) mod p
 rows, a lift, one exact carry), so its limbs equal the reference's limb
-for limb. Only the exact carry differs in how it is computed: the
-reference ripples limb by limb, this one ripples over int64 words of three
-limbs, which gives the same canonical limbs in a third of the steps.
-`canon` reaches the unique representative below p through a float64
-quotient estimate and one corrected subtraction instead of the
-reference's 46-step descent; the result is the same unique value.
+for limb; it is the route of `ops/norm.py`: its CUDA kernel for a CUDA
+tensor, its plain version for a CPU tensor. Only the exact carry of the
+plain version differs in how it is computed: the reference ripples limb
+by limb, this one ripples over int64 words of three limbs, which gives
+the same canonical limbs in a third of the steps. `canon` reaches the
+unique representative below p through a float64 quotient estimate and
+one corrected subtraction instead of the reference's 46-step descent;
+the result is the same unique value.
+
+`ModArith.mul_cols` sends every schoolbook product on a CUDA tensor
+through the conv kernel of `ops/conv.py` with the identity combine of one
+plane, which gives the same integer columns as `conv_cols`. The JAX
+package computes its `mul_cols` outside any Pallas kernel; this routing
+is the port's own choice, so that every product on the card runs in a
+hand-written kernel.
 
 The 22-limb exact form, the relaxed normalize option and the secp256k1
 moduli are not part of this module yet.
@@ -31,6 +40,7 @@ import torch
 LIMB_BITS = 12
 LIMB_MASK = (1 << LIMB_BITS) - 1
 NLIMBS = 25        # operand width: 300 bits of capacity
+LAZY_BITS = 273    # lazy-form value bound
 FOLD_BASE = 22     # limbs >= FOLD_BASE fold back under the modulus
 FOLD_ROWS = 33     # max high limbs a single fold can absorb
 
@@ -125,6 +135,18 @@ def _relax(z: torch.Tensor) -> torch.Tensor:
                           dim=-1)
 
 
+def conv_cols(prod: torch.Tensor) -> torch.Tensor:
+    """Anti-diagonal column sums (..., L, M) -> (..., L+M-1), out[n] =
+    sum over l of prod[l, n-l]: each row padded by L zeros and re-viewed
+    at width M+L-1 puts element (l, m) at column l+m (the reference's
+    "shift" form)."""
+    L, M = prod.shape[-2:]
+    batch = prod.shape[:-2]
+    flat = pad_last(prod, M + L).reshape(batch + (L * (M + L),))
+    cols = flat[..., : L * (M + L - 1)].reshape(batch + (L, M + L - 1))
+    return cols.sum(dim=-2, dtype=torch.int32)
+
+
 _WORD = 3 * LIMB_BITS
 _WORD_MASK = (1 << _WORD) - 1
 
@@ -170,17 +192,40 @@ class ModArith:
                                     -(-(cover_bits + 1) // LIMB_BITS))
         self.lift = int_to_limbs(-(-(1 << 261) // p) * p, FOLD_BASE)
         self.p_limbs = int_to_limbs(p, NLIMBS + 1)
+        self._pad_cache: dict = {}
 
     def normalize(self, z: torch.Tensor) -> torch.Tensor:
         """Reduce any accumulator (..., L) with |limb| < 2^30.7 and value
         >= 0 to lazy form: 25 canonical limbs, value < 2^273, same
         residue mod p."""
-        z = _relax(_relax(_relax(z)))
-        hi = z[..., FOLD_BASE:]
-        fold = const(self.fold_j, z.device)[: hi.shape[-1]]
-        folded = (hi.unsqueeze(-1) * fold).sum(dim=-2, dtype=torch.int32)
-        z = z[..., :FOLD_BASE] + folded + const(self.lift, z.device)
-        return carry(pad_last(z, NLIMBS))[1]
+        return norm.normalize(self, z)
+
+    def add(self, x, y):
+        return self.normalize(x + y)
+
+    def mul_small(self, x, c: int):
+        """Multiply by a small non-negative int (c < 2^16)."""
+        return self.normalize(x * c)
+
+    def mul_cols(self, x, y):
+        """Raw schoolbook product columns (..., 49), each < 25·2^24;
+        leading dims broadcast."""
+        cols = conv.pair_conv_combine(x[..., None, None, :],
+                                      y[..., None, None, :], _IDENTITY)
+        return cols[..., 0, 0, :]
+
+    def mul(self, x, y):
+        return self.normalize(self.mul_cols(x, y))
+
+    def pad_mult(self, bits: int) -> np.ndarray:
+        """Limb form of the smallest multiple of p >= 2^bits (cached):
+        added to an accumulator before subtracting values below 2^bits."""
+        cached = self._pad_cache.get(bits)
+        if cached is None:
+            value = -(-(1 << bits) // self.p) * self.p
+            cached = int_to_limbs(value, -(-value.bit_length() // LIMB_BITS))
+            self._pad_cache[bits] = cached
+        return cached
 
     def sub(self, x, y):
         w = max(x.shape[-1], self.sub_pad.shape[0])
@@ -220,3 +265,10 @@ class ModArith:
 
     def eq(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return (self.canon(x) == self.canon(y)).all(dim=-1)
+
+
+# the identity combine of one product plane (`ModArith.mul_cols`)
+_IDENTITY = np.ones((1, 1, 1, 1, 1), np.int32)
+
+# imported last: both build on this module's helpers
+from gethsharding_tpu_torch.ops import conv, norm  # noqa: E402

@@ -13,24 +13,26 @@ helpers below work on that layout too (the JAX helpers put the batch on
 the minor axis; the values are the same limb for limb).
 
 Each public function (`aggregate_proj`, `miller_f`, `finalexp_is_one`)
-takes its route from the device of its inputs: a CUDA tensor goes through
-the hand-written kernel in `csrc/` (built by `ops/_build.py`), a CPU
-tensor through the plain version; `plain=True` runs the plain version on
-any device, and `chip_smoke.py` holds every kernel against it on the card. The
-kernels follow the plain versions operation for operation, so both give
-the same limbs, not only the same values mod p.
+takes its route from the device of its inputs (`ops/route.py`): a CUDA
+tensor goes through the hand-written kernel in `csrc/` (built by
+`ops/_build.py`), a CPU tensor through the plain version; `plain=True`
+runs the plain versions on any device, and `chip_smoke.py` holds every
+kernel against them on the card. The kernels follow the plain versions
+operation for operation, so both give the same limbs, not only the same
+values mod p.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as ref
+from gethsharding_tpu_torch.ops import route
 from gethsharding_tpu_torch.ops import bn256 as bn
+from gethsharding_tpu_torch.ops._build import Kernel, check_tensor, ptr
 from gethsharding_tpu_torch.ops.limb import (LIMB_BITS, LIMB_MASK, const,
                                              int_to_limbs, pad_last)
 
@@ -76,16 +78,8 @@ _FP2_PAD[0] = _rows(_PAD547, KNCOLS)
 _NEG_PAD = _rows(_PAD274, KNL)                     # negation and differences
 
 
-def _const_fp2_25(a: int, b: int) -> np.ndarray:
-    return np.stack([int_to_limbs(a % P, KNL), int_to_limbs(b % P, KNL)])
-
-
 # Frobenius constants gamma_{n,k} = xi^(k(p^n-1)/6)
-_GAMMA = np.stack([
-    np.stack([_const_fp2_25(*(lambda g: (g.a, g.b))(
-        ref._fp2_pow(ref.XI, k * (P ** n - 1) // 6)))
-        for k in range(6)])
-    for n in (1, 2, 3)]).astype(np.int32)          # (3, 6, 2, 25)
+_GAMMA = np.stack([bn._GAMMA[n] for n in (1, 2, 3)])  # (3, 6, 2, 25)
 
 # cyclic convolution of the w-basis product: output k takes operand
 # j = (k - i) mod 6 of y when i <= k, of xi·y on wrap-around
@@ -536,30 +530,8 @@ def _committee_pad(cdim: int) -> int:
 # == the kernels ===========================================================
 
 
-class Kernel:
-    """One hand-written CUDA kernel: its C entry point in the built
-    library, where its source is, which TPU kernel it replaces, and how
-    many times it was launched (one per launch, nowhere else)."""
-
-    def __init__(self, name: str, symbol: str, source: str, replaces: str):
-        self.name = name
-        self.symbol = symbol
-        self.source = source
-        self.replaces = replaces
-        self.launches = 0
-
-    def launch(self, *args) -> None:
-        from gethsharding_tpu_torch.ops import _build
-
-        fn = getattr(_build.library(), self.symbol)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
-        if err != 0:
-            raise RuntimeError(f"{self.name}: kernel launch failed with "
-                               f"{_build.error_string(err)}")
-        self.launches += 1
-
-
+# the four kernels of the committee audit (`_build.KERNELS` lists every
+# kernel of the port)
 KERNELS = {
     "agg_g1": Kernel("agg_g1", "gs_agg_g1", "gethsharding_tpu_torch/csrc/agg.cu",
                      "gethsharding_tpu/ops/pallas_finalexp.py:1062"),
@@ -572,22 +544,6 @@ KERNELS = {
                        "gethsharding_tpu_torch/csrc/finalexp.cu",
                        "gethsharding_tpu/ops/pallas_finalexp.py:488"),
 }
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _check(t: torch.Tensor, shape, name: str) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def _kernel_consts(device) -> torch.Tensor:
@@ -609,9 +565,9 @@ def agg_kernel(xs, ys, mask, *, fp2: bool):
     canonical limbs, equal to `run_agg_plain` limb for limb."""
     n, cdim = xs.shape[:2]
     point = (2, KNL) if fp2 else (KNL,)
-    _check(xs, (n, cdim) + point, "xs")
-    _check(ys, (n, cdim) + point, "ys")
-    _check(mask, (n, cdim), "mask")
+    check_tensor(xs, (n, cdim) + point, "xs")
+    check_tensor(ys, (n, cdim) + point, "ys")
+    check_tensor(mask, (n, cdim), "mask")
     cp = _committee_pad(cdim)
     scratch = torch.empty((n, cp, 3) + point, dtype=torch.int32,
                           device=xs.device)
@@ -620,8 +576,8 @@ def agg_kernel(xs, ys, mask, *, fp2: bool):
     if n == 0:
         return tuple(out)
     KERNELS["agg_g2" if fp2 else "agg_g1"].launch(
-        _ptr(xs), _ptr(ys), _ptr(mask), n, cdim, cp,
-        _ptr(_kernel_consts(xs.device)), _ptr(scratch), *map(_ptr, out))
+        ptr(xs), ptr(ys), ptr(mask), n, cdim, cp,
+        ptr(_kernel_consts(xs.device)), ptr(scratch), *map(ptr, out))
     return tuple(out)
 
 
@@ -630,18 +586,18 @@ def miller_kernel(sig, h, pk):
     returns f (n, 6, 2, 25), equal to `run_miller_plain` limb for limb."""
     n = sig[0].shape[0]
     for i, v in enumerate(sig + h):
-        _check(v, (n, KNL), f"fp plane {i}")
+        check_tensor(v, (n, KNL), f"fp plane {i}")
     for i, v in enumerate(pk):
-        _check(v, (n, 2, KNL), f"fp2 plane {i}")
+        check_tensor(v, (n, 2, KNL), f"fp2 plane {i}")
     dev = sig[0].device
     out = torch.empty((n, 6, 2, KNL), dtype=torch.int32, device=dev)
     if n == 0:
         return out
     KERNELS["miller"].launch(
-        *map(_ptr, sig + h + pk), _ptr(const(_MILLER_OPS, dev)),
-        len(_MILLER_OPS), _ptr(const(_MILLER_LINES, dev)),
-        _ptr(const(_MILLER_TWF, dev)), _ptr(_kernel_consts(dev)), n,
-        _ptr(out))
+        *map(ptr, sig + h + pk), ptr(const(_MILLER_OPS, dev)),
+        len(_MILLER_OPS), ptr(const(_MILLER_LINES, dev)),
+        ptr(const(_MILLER_TWF, dev)), ptr(_kernel_consts(dev)), n,
+        ptr(out))
     return out
 
 
@@ -650,24 +606,14 @@ def finalexp_kernel(nd):
     int32 (row-major per batch row); returns the result register in the
     same layout, equal to `run_program_plain` limb for limb."""
     n = nd.shape[0]
-    _check(nd, (n, 2, 6, 2, KNL), "nd")
+    check_tensor(nd, (n, 2, 6, 2, KNL), "nd")
     out = torch.empty_like(nd)
     if n == 0:
         return out
     KERNELS["finalexp"].launch(
-        _ptr(nd), _ptr(const(_PROGRAM, nd.device)), len(_PROGRAM),
-        _ptr(_kernel_consts(nd.device)), n, _ptr(out))
+        ptr(nd), ptr(const(_PROGRAM, nd.device)), len(_PROGRAM),
+        ptr(_kernel_consts(nd.device)), n, ptr(out))
     return out
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """The route: the kernel for a CUDA tensor, the plain version for a
-    CPU tensor, nothing else."""
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
 
 
 # == public functions ======================================================
@@ -690,12 +636,13 @@ def aggregate_proj(xs, ys, mask, *, fp2: bool, plain: bool = False):
     xs2 = _i32(xs.reshape((-1, cdim) + point))
     ys2 = _i32(ys.reshape((-1, cdim) + point))
     m2 = mask.reshape(-1, cdim)
-    if plain or not _on_cuda(xs2):
-        out = run_agg_plain(xs2, ys2, m2.to(torch.bool), fp2=fp2)
-    else:
-        out = agg_kernel(xs2, ys2, _i32(m2), fp2=fp2)
-    return tuple(bn.FP.normalize(v).reshape(lead + point) for v in out)
-
+    with route.plain_versions(plain):
+        if route.use_kernel(xs2):
+            out = agg_kernel(xs2, ys2, _i32(m2), fp2=fp2)
+        else:
+            out = run_agg_plain(xs2, ys2, m2.to(torch.bool), fp2=fp2)
+        out = bn.FP.normalize(torch.stack(out))
+    return tuple(v.reshape(lead + point) for v in out)
 
 
 def miller_f(sig, hx, hy, pk, *, plain: bool = False):
@@ -708,12 +655,12 @@ def miller_f(sig, hx, hy, pk, *, plain: bool = False):
     s = tuple(map(flat, sig))
     h = (flat(hx), flat(hy))
     q = tuple(map(flat, pk))
-    if plain or not _on_cuda(s[0]):
-        f = run_miller_plain(s, h, q)
-    else:
-        f = miller_kernel(s, h, q)
-    return bn.FP.normalize(f).reshape(lead + (6, 2, KNL))
-
+    with route.plain_versions(plain):
+        if route.use_kernel(s[0]):
+            f = miller_kernel(s, h, q)
+        else:
+            f = run_miller_plain(s, h, q)
+        return bn.FP.normalize(f).reshape(lead + (6, 2, KNL))
 
 
 def finalexp_is_one(f, *, plain: bool = False):
@@ -721,11 +668,11 @@ def finalexp_is_one(f, *, plain: bool = False):
     `finalexp_is_one`): f (..., 6, 2, 25) lazy limbs -> bool (...)."""
     lead = f.shape[:-3]
     f = _i32(f.reshape((-1, 6, 2, KNL)))
-    nd = torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1)
-    if plain or not _on_cuda(f):
-        out = run_program_plain(nd)
-    else:
-        out = finalexp_kernel(nd)
-    num = bn.FP.normalize(out[:, 0])
-    den = bn.FP.normalize(out[:, 1])
-    return bn.fp12_eq(num, den).reshape(lead)
+    with route.plain_versions(plain):
+        nd = torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1)
+        if route.use_kernel(f):
+            out = finalexp_kernel(nd)
+        else:
+            out = run_program_plain(nd)
+        out = bn.FP.normalize(out)
+        return bn.fp12_eq(out[:, 0], out[:, 1]).reshape(lead)

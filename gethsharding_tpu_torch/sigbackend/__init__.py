@@ -2,8 +2,11 @@
 package's `SigBackend` API, with the `torch` backend behind
 `get_backend("torch")`.
 
-- ``marshal.py``: host -> limb planes and the padding policy.
-- ``dispatch.py``: `TorchSigBackend`, the four-kernel audit dispatch.
+- ``marshal.py``: host -> limb planes, the padding policy, row keys.
+- ``cache.py``: `LineTableCache`, the resident line tables of the
+  precomp path.
+- ``dispatch.py``: `TorchSigBackend`, the precomp audit (with keys) and
+  the four-launch recompute audit (without).
 """
 
 from __future__ import annotations

@@ -1,11 +1,20 @@
 """`TorchSigBackend`: the notary's committee audit on the card.
 
-One audit is: marshal on the host (hash each message to G1, limb planes
-for signatures and pubkeys, padded rows and committee width), one
-`torch.as_tensor` per plane onto the device, then four kernel launches on
-the current stream (G1 committee sums, G2 committee sums, the Miller
-product, the final exponentiation) and a `.cpu()` pull of the verdicts in
-`VerdictFuture.result()`.
+An audit with `pk_row_keys` (the notary always passes them) takes the
+fixed-base precomputation path, the reference's default:
+
+1. marshal on the host the message hashes and signature planes, and the
+   pubkey planes of the rows whose line table is not resident (misses);
+2. one `precompute_g2_lines` over all misses (G2 sums, then the pubkey
+   walk) and insert their tables into the `LineTableCache`;
+3. stack the tables of hits, misses and empty rows on the device;
+4. the G1 sums, `miller_loop_precomp` and the final exponentiation;
+5. a `.cpu()` pull of the verdicts in `VerdictFuture.result()`.
+
+A warm audit ships no G2 bytes. An audit without keys takes the recompute
+path, as the reference falls back: every pubkey plane shipped, then four
+launches (G1 sums, G2 sums, the Miller kernel, the final exponentiation).
+Normalizes and tower products between them run in their own kernels.
 """
 
 from __future__ import annotations
@@ -15,9 +24,11 @@ import time
 import torch
 
 from gethsharding_tpu_torch.device import resolve_device
+from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.sigbackend import SigBackend, VerdictFuture
 from gethsharding_tpu_torch.sigbackend import marshal
+from gethsharding_tpu_torch.sigbackend.cache import LineTableCache
 
 
 def committee_planes(messages, sig_rows, pk_rows):
@@ -35,31 +46,62 @@ def committee_planes(messages, sig_rows, pk_rows):
 
 class TorchSigBackend(SigBackend):
     """The committee audit through the CUDA kernels (`device=None` is the
-    card) or, with `device="cpu"`, through their plain versions."""
+    card) or, with `device="cpu"`, through their plain versions. Line
+    tables stay resident under `line_budget_bytes`."""
 
     name = "torch"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, line_budget_bytes: int = 256 << 20):
         self.device = resolve_device(device)
-        # host seconds of the last audit's marshal and launch staging
+        self.lines = LineTableCache(self.device, line_budget_bytes)
+        # host seconds of the last audit's marshal and launch staging, its
+        # path, G2 bytes shipped, resident rows and kernel launches
         self.last_timing: dict | None = None
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
                                     pk_row_keys=None) -> VerdictFuture:
-        # pk_row_keys is accepted for the API's sake: the port has no
-        # resident pubkey cache yet, so every audit ships its G2 planes
         n = len(messages)
         if n == 0:
             future = VerdictFuture(lambda: [])
             future.result()
             return future
+        before = _build.launch_counts()
         t0 = time.perf_counter()
-        planes = committee_planes(messages, sig_rows, pk_rows)
-        t1 = time.perf_counter()
-        out = bn.bls_aggregate_verify_committee_batch(
-            *(torch.as_tensor(a, device=self.device) for a in planes))
-        self.last_timing = {"marshal_s": t1 - t0,
-                            "launch_s": time.perf_counter() - t1,
-                            "rows": n, "bucket": planes[0].shape[0],
-                            "width": planes[2].shape[1]}
+        bucket = marshal.bucket_size(n)
+        keys = marshal.normalize_row_keys(pk_row_keys, bucket)
+        if keys is None:
+            planes = committee_planes(messages, sig_rows, pk_rows)
+            t1 = time.perf_counter()
+            out = bn.bls_aggregate_verify_committee_batch(
+                *(torch.as_tensor(a, device=self.device) for a in planes))
+            g2_bytes = sum(a.nbytes for a in planes[5:8])
+            hit_rows, width = 0, planes[2].shape[1]
+        else:
+            out, t1, g2_bytes, hit_rows, width = self._precomp_audit(
+                messages, sig_rows, pk_rows, keys, bucket)
+        after = _build.launch_counts()
+        self.last_timing = {
+            "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
+            "rows": n, "bucket": bucket, "width": width,
+            "precomp": keys is not None, "g2_wire_bytes": int(g2_bytes),
+            "hit_rows": hit_rows,
+            "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
         return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])
+
+    def _precomp_audit(self, messages, sig_rows, pk_rows, keys, bucket):
+        pad = bucket - len(messages)
+        width = marshal.committee_width(sig_rows, pk_rows)
+        host = marshal.committee_host_planes(messages, sig_rows, pad, width)
+        plan = self.lines.resolve(list(pk_rows) + [[]] * pad, keys, bucket)
+        g2 = ()
+        if plan.memo is None and plan.misses:
+            g2 = bn.g2_committee_to_limbs([row for row, _ in plan.misses],
+                                          width)
+        t1 = time.perf_counter()
+        dev = lambda a: torch.as_tensor(a, device=self.device)
+        missed = bn.precompute_g2_lines(*map(dev, g2)) if g2 else None
+        table, inf = self.lines.assemble(plan, missed)
+        out = bn.bls_verify_committee_precomp_batch(
+            dev(host["hx"]), dev(host["hy"]), dev(host["sx"]),
+            dev(host["sy"]), dev(host["sm"]), table, inf, dev(host["hok"]))
+        return (out, t1, sum(a.nbytes for a in g2), plan.hit_rows, width)

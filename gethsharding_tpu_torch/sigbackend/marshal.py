@@ -1,5 +1,6 @@
-"""Host -> limb marshalling for the committee audit: the padding policy
-and the fresh-per-period planes. Pure host arithmetic, no device."""
+"""Host -> limb marshalling for the committee audit: the padding policy,
+the fresh-per-period planes and the row keys of the line-table cache.
+Pure host arithmetic, no device."""
 
 from __future__ import annotations
 
@@ -44,3 +45,13 @@ def committee_host_planes(messages: Sequence[bytes],
     hx, hy, hok = bn.g1_to_limbs(hashes)
     sx, sy, sm = bn.g1_committee_to_limbs(list(sig_rows) + [[]] * pad, width)
     return {"hx": hx, "hy": hy, "hok": hok, "sx": sx, "sy": sy, "sm": sm}
+
+
+def normalize_row_keys(pk_row_keys, n_rows: int):
+    """Exactly one key per (padded) row: a short list leaves the trailing
+    rows uncached (None), a surplus is dropped; None stays None (no
+    cache)."""
+    if pk_row_keys is None:
+        return None
+    keys = list(pk_row_keys)[:n_rows]
+    return keys + [None] * (n_rows - len(keys))

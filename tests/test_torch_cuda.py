@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -57,6 +58,47 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mk.miller_kernel((fp, fp, fp), (fp, fp), (x[:, :2],) * 3)
     assert {n: k.launches for n, k in mk.KERNELS.items()} == before
+
+
+def test_tower_wrappers_refuse_cpu_tensors():
+    before = _build.launch_counts()
+    x = torch.zeros((3, 1, 2, 25), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv.conv_kernel(x, x, bn._COMB_FP2)
+    with pytest.raises(ValueError, match="CUDA"):
+        norm.normalize_kernel(bn.FP, torch.zeros((3, 49), dtype=torch.int32))
+    with pytest.raises(ValueError, match="width"):
+        norm.normalize_kernel(bn.FP, torch.zeros((3, 53), dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        route.use_kernel(torch.zeros(2, device="meta"))
+    assert _build.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["_COMB_FP2", "_COMB_FP2_SQR", "_COMB",
+                                  "_LCOMB", "identity"])
+def test_conv_kernel_equals_plain(cuda, name):
+    comb = limb._IDENTITY if name == "identity" else getattr(bn, name)
+    G, A, B = comb.shape[:3]
+    rng = np.random.default_rng(92)
+    for lead in ((113,), (3, 37)):   # a partial block, extra leading dims
+        x, y = _canon(rng, lead + (G, A), cuda), _canon(rng, lead + (G, B), cuda)
+        assert torch.equal(conv.pair_conv_combine(x, y, comb),
+                           conv.pair_conv_combine_plain(x, y, comb))
+    const = _canon(rng, (G, B), cuda)   # a constant against the batch
+    assert torch.equal(conv.pair_conv_combine(x, const, comb),
+                       conv.pair_conv_combine_plain(x, const, comb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [25, 26, 49, 52])
+def test_norm_kernel_equals_plain(cuda, width):
+    rng = np.random.default_rng(93)
+    z = rng.integers(-(1 << 30), 1 << 30, (300, width))
+    z[:, -1] = np.abs(z[:, -1]) + (1 << 29)    # value >= 0
+    z = torch.as_tensor(z.astype(np.int32), device=cuda)
+    assert torch.equal(bn.FP.normalize(z.reshape(3, 100, width)),
+                       norm.normalize_plain(bn.FP, z).reshape(3, 100, 25))
 
 
 @pytest.mark.cuda
@@ -108,3 +150,33 @@ def test_audit_on_card_launches_four_kernels(cuda):
               for a in committee_planes(msgs, sig_rows, pk_rows)]
     plain = bn.bls_aggregate_verify_committee_batch(*planes, plain=True)
     assert plain.cpu()[:len(msgs)].tolist() == want
+
+
+@pytest.mark.cuda
+def test_precomp_audit_on_card(cuda):
+    msgs, sig_rows, pk_rows, want = _committee_period(6, 4)
+    keys = [("cuda-test", s) for s in range(len(msgs))]
+    backend = TorchSigBackend()
+    assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys) == want
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys) == want
+    warm = backend.last_timing
+    assert warm["g2_wire_bytes"] == 0 and warm["hit_rows"] == 5
+    counts = _build.launch_counts()
+    assert counts["miller"] == counts["agg_g2"] == 0
+    assert counts["conv"] > 0 and counts["norm"] > 0
+    assert counts["agg_g1"] == counts["finalexp"] == 1
+    planes = [torch.as_tensor(a, device=cuda)
+              for a in committee_planes(msgs, sig_rows, pk_rows)]
+    hx, hy, sx, sy, sm, gx, gy, gm, hok = planes
+    routes = []
+    for plain in (False, True):
+        table, inf = bn.precompute_g2_lines(gx, gy, gm, plain=plain)
+        f, ok = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table,
+                                                inf, hok, plain=plain)
+        routes.append((table, inf, f, ok))
+    for got, plain in zip(*routes):
+        assert torch.equal(got, plain)

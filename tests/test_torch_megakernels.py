@@ -7,7 +7,8 @@ pallas_finalexp.py):
    CPU, limb for limb, on random quasi-canonical inputs (exact: integer
    arithmetic has no rounding);
 3. the plain committee sums give the scalar reference's points;
-4. the CUDA sources, compiled for the host with one thread per block,
+4. the CUDA sources (the audit kernels, and the tower's conv and
+   normalize kernels), compiled for the host with one thread per block,
    give the plain versions' limbs;
 5. (slow) the plain Miller program and final exponentiation equal the
    reference's XLA oracles on real committee inputs.
@@ -35,6 +36,7 @@ from gethsharding_tpu.ops import pallas_finalexp as m
 from gethsharding_tpu_torch import convert
 from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as pbn
+from gethsharding_tpu_torch.ops import conv, norm
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.ops.limb import limbs_to_int
 
@@ -267,6 +269,28 @@ extern "C" void run(const int* nd, const int* prog, int nsteps,
     gs::finalexp_kernel(nd, prog, nsteps, consts, out);
   }
 }""",
+    "norm": r"""
+extern "C" void run(const int* z, int n, int w, const int* fold,
+                    const int* lift, int* out) {
+  for (int b = 0; b < n; ++b) {
+    blockIdx.x = b;
+    if (w <= 25) gs::norm_kernel<25>(z, n, w, fold, lift, out);
+    else if (w == 26) gs::norm_kernel<26>(z, n, w, fold, lift, out);
+    else if (w <= 49) gs::norm_kernel<49>(z, n, w, fold, lift, out);
+    else gs::norm_kernel<52>(z, n, w, fold, lift, out);
+  }
+}""",
+    "conv": r"""
+namespace gs { int smem[1 << 16]; }
+extern "C" void run(const int* x, const int* y, int n, int xw, int yw,
+                    int a_dim, int b_dim, int g_dim, const int* terms,
+                    int nterms, int planes, int* out) {
+  for (int b = 0; b * gs::CONV_ROWS < n; ++b) {
+    blockIdx.x = b;
+    gs::conv_kernel(x, y, n, xw, yw, a_dim, b_dim, g_dim, terms, nterms,
+                    planes, out);
+  }
+}""",
 }
 
 
@@ -288,7 +312,7 @@ def host_kernels(tmp_path_factory):
                         str(lib)], check=True, capture_output=True)
         return name, ctypes.CDLL(str(lib))
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(len(_DRIVERS)) as pool:
         return dict(pool.map(compile_one, _DRIVERS))
 
 
@@ -347,6 +371,37 @@ def test_finalexp_source_on_host_equals_plain(host_kernels):
         _p(mk._kernel_consts("cpu")), n, _p(out))
     want = mk.run_program_plain(nd)
     assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("width", [19, 25, 26, 37, 49, norm.MAX_WIDTH])
+def test_norm_source_on_host_equals_plain(host_kernels, width):
+    rng = np.random.default_rng(86)
+    n = 7
+    z = rng.integers(-(1 << 30), 1 << 30, (n, width)).astype(np.int32)
+    z[:, -1] = np.abs(z[:, -1]) + (1 << 29)    # value >= 0
+    z[0] = int(2 ** 30.7) - 1                   # the bound edge
+    z = torch.as_tensor(z)
+    out = torch.zeros((n, 25), dtype=torch.int32)
+    host_kernels["norm"].run(_p(z), n, width,
+                             _p(mk.const(pbn.FP.fold_j, "cpu")),
+                             _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
+    assert torch.equal(out, norm.normalize_plain(pbn.FP, z))
+
+
+@pytest.mark.parametrize("name", ["_COMB_FP2", "_COMB_FP2_SQR", "_COMB",
+                                  "_LCOMB", "identity"])
+def test_conv_source_on_host_equals_plain(host_kernels, name):
+    comb = (np.ones((1,) * 5, np.int32) if name == "identity"
+            else getattr(pbn, name))
+    G, A, B, C, Gr = comb.shape
+    rng = np.random.default_rng(87)
+    n = 11                                      # a partial last block
+    x, y = _canon(rng, (n, G, A)), _canon(rng, (n, G, B))
+    table = mk.const(conv.term_table(comb), "cpu")
+    out = torch.zeros((n, C, Gr, 49), dtype=torch.int32)
+    host_kernels["conv"].run(_p(x), _p(y), n, G * A * 25, G * B * 25, A, B,
+                             Gr, _p(table), table.shape[0], C * Gr, _p(out))
+    assert torch.equal(out, conv.pair_conv_combine_plain(x, y, comb))
 
 
 # == slow: whole programs against the reference's XLA oracles ==============
