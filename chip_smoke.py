@@ -27,15 +27,18 @@ resident on the card) and the recompute path (without keys):
    once, and requires one launch of each audit kernel (normalizes are
    counted apart) and every verdict equal to the expected list; the same
    batch through the plain versions on the card must agree;
-6. precomp path: counts from 0 again around a cold audit (tables built)
-   and around a warm one; both must give the expected verdicts, which
-   equal the recompute path's; the warm audit must ship 0 G2 bytes and
-   hit every non-empty row. The tower kernels' inputs of the warm audit,
-   one per shape, are held against the plain versions, and the batch's
-   line tables and Miller product f must equal the plain route's limb
-   for limb;
+6. precomp path: counts from 0 again around a cold audit (tables built),
+   around a warm one (the batch memo: the previous audit's key tuple) and
+   around a warm one of the same committees in another shard order (the
+   memo misses; every row's table comes from the LRU); all must give the
+   expected verdicts, which equal the recompute path's; both warm audits
+   must ship 0 G2 bytes and hit every non-empty row. The tower kernels'
+   inputs of the warm audit, one per shape, are held against the plain
+   versions, and the batch's line tables and Miller product f must equal
+   the plain route's limb for limb;
 7. times both paths (cold median of 3 with hashing and, on the precomp
-   path, table building included; warm median of 7), the recompute
+   path, table building included; warm median of 7, on the precomp path
+   with and without the batch memo), the recompute
    audit's stages, each kernel and its plain version (CUDA events, the
    launches queued before the first runs; conv and normalize at their
    most frequent shapes of the warm audit), their launches and summed
@@ -44,7 +47,8 @@ resident on the card) and the recompute path (without keys):
    kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; for conv and normalize, the multiply-adds and bytes of
-   the launch timed).
+   the launch timed, each operand counted once as the kernel reads it,
+   before any broadcast).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -57,6 +61,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -226,9 +231,12 @@ def bound(macs: int, moved: int) -> dict:
 
 
 class TowerLaunches:
-    """While open, records every launch of the tower's two kernels (conv,
-    normalize): the shape it ran at, and the first input of each shape,
-    which `check_samples` holds against the plain version afterwards."""
+    """While open, records the shapes at which the tower's two kernels
+    (conv, normalize) launch: per shape, its launches (read from the
+    kernel's own counter, so a call that launches nothing is not one)
+    and its first input, which `check_samples` holds against the plain
+    version afterwards. conv's shapes are its operands' own, before they
+    broadcast."""
 
     def __init__(self, conv, norm, comb_names: dict):
         self.conv, self.norm, self.comb_names = conv, norm, comb_names
@@ -240,33 +248,39 @@ class TowerLaunches:
         conv_kernel, normalize_kernel = self._kernels
         self.conv.conv_kernel = lambda x, y, comb: self._record(
             ("conv", self.comb_names[id(comb)], tuple(x.shape),
-             tuple(y.shape)), conv_kernel, x, y, comb)
+             tuple(y.shape)), self.conv.KERNEL, conv_kernel, x, y, comb)
         self.norm.normalize_kernel = lambda arith, z: self._record(
-            ("norm", tuple(z.shape)), normalize_kernel, arith, z)
+            ("norm", tuple(z.shape)), self.norm.KERNEL, normalize_kernel,
+            arith, z)
         return self
 
     def __exit__(self, *exc):
         self.conv.conv_kernel, self.norm.normalize_kernel = self._kernels
 
-    def _record(self, key, fn, *args):
-        if key not in self.samples:
-            self.samples[key] = tuple(
-                a.clone() if isinstance(a, torch.Tensor) else a for a in args)
-        self.counts[key] += 1
-        return fn(*args)
+    def _record(self, key, kernel, fn, *args):
+        before = kernel.launches
+        out = fn(*args)
+        if kernel.launches > before:
+            if key not in self.samples:
+                self.samples[key] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            self.counts[key] += 1
+        return out
 
 
 def conv_work(key, comb) -> dict:
-    """Multiply-adds and bytes of one conv launch at `key`'s shapes: every
-    nonzero combine term is one 25×25 convolution per row."""
+    """Multiply-adds and bytes of one conv launch at `key`'s operand
+    shapes: every nonzero combine term is one 25×25 convolution per row
+    of the broadcast lead; each operand is read once, in its own shape
+    (a broadcast operand is not copied out to the rows)."""
     from gethsharding_tpu_torch.ops import conv
 
     (_, _, xs, ys), table = key, conv.term_table(comb)
-    n = xs[0]
+    n = math.prod(torch.broadcast_shapes(xs[:-3], ys[:-3]))
     out_ints = n * comb.shape[3] * comb.shape[4] * conv.NCOLS
     return bound(n * table.shape[0] * 625,
-                 4 * (n * (xs[1] * xs[2] + ys[1] * ys[2]) * 25 + out_ints
-                      + table.size))
+                 4 * (math.prod(xs) + math.prod(ys) + out_ints + table.size))
 
 
 def norm_work(key) -> dict:
@@ -308,8 +322,13 @@ def check_tower_edges(bn, conv, norm, combs: dict, dev) -> dict:
             errs["conv"] = max(errs["conv"], max_abs_err(
                 conv.pair_conv_combine(x, y, comb),
                 conv.pair_conv_combine_plain(x, y, comb)))
-        x, y = canon((112, G, A)), canon((G, B))
-        for a, b in ((x, y), (canon((G, A)), canon((112, G, B)))):
+        pairs = (   # broadcast constants; x along the six outputs of an
+                    # Fp12 product; x a view with gaps between its rows
+            (canon((112, G, A)), canon((G, B))),
+            (canon((G, A)), canon((112, G, B))),
+            (canon((112, 1, G, A)), canon((112, 6, G, B))),
+            (canon((113, 2, G, A))[:, 1], canon((113, G, B))))
+        for a, b in pairs:
             errs["conv"] = max(errs["conv"], max_abs_err(
                 conv.pair_conv_combine(a, b, comb),
                 conv.pair_conv_combine_plain(a, b, comb)))
@@ -333,7 +352,7 @@ def main() -> int:
         fail("no CUDA device")
 
     from gethsharding_tpu_torch.crypto import bn256 as bls
-    from gethsharding_tpu_torch.ops import _build, conv, limb, norm
+    from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route
     from gethsharding_tpu_torch.ops import bn256 as bn
     from gethsharding_tpu_torch.ops import megakernels as mk
     from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -413,7 +432,8 @@ def main() -> int:
         results[name] = dict(bound(count_multiply_adds(mk, unit) * units,
                                    moved), max_abs_err=err, units=units)
     verdict_k = mk.finalexp_is_one(f)
-    verdict_p = mk.finalexp_is_one(f, plain=True)
+    with route.plain_versions():
+        verdict_p = mk.finalexp_is_one(f)
     if not torch.equal(verdict_k, verdict_p):
         fail("finalexp verdicts differ from the plain version")
 
@@ -447,7 +467,8 @@ def main() -> int:
     if got != want:
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         fail(f"verdicts differ from the expected list at rows {bad}")
-    plain_got = bn.bls_aggregate_verify_committee_batch(*on_card, plain=True)
+    with route.plain_versions():
+        plain_got = bn.bls_aggregate_verify_committee_batch(*on_card)
     if plain_got.cpu()[:SHARDS].tolist() != got:
         fail("the plain versions on the card give other verdicts")
     print(f"recompute path: {sum(got)} of {SHARDS} rows verified, hostile "
@@ -485,8 +506,10 @@ def main() -> int:
           f"{warm_timing['hit_rows']} of {pointful} non-empty")
     if got != want:
         fail("warm precomp verdicts differ from the expected list")
-    if warm_timing["g2_wire_bytes"] != 0 or warm_timing["hit_rows"] != pointful:
-        fail("the warm precomp audit shipped G2 bytes or missed a row")
+    if not warm_timing["memo"] or warm_timing["g2_wire_bytes"] != 0 \
+            or warm_timing["hit_rows"] != pointful:
+        fail("the warm precomp audit missed the memo, shipped G2 bytes or "
+             "missed a row")
     for name in ("agg_g1", "conv", "norm", "finalexp"):
         if warm_launches[name] < 1:
             fail(f"the warm precomp audit launched no {name} kernel")
@@ -501,14 +524,40 @@ def main() -> int:
         if sample_err[name] != 0:
             fail(f"{name} disagrees with its plain version on the audit")
 
+    # the same committees in another shard order: a new key tuple, so the
+    # batch memo misses and every row's table is stacked from the LRU
+    turn = lambda rows: rows[1:] + rows[:1]
+    turned = (turn(msgs), turn(sig_rows), turn(pk_rows))
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    got = pbackend.bls_verify_committees(*turned, pk_row_keys=turn(keys))
+    lru_launches = _build.launch_counts()
+    lru_timing = pbackend.last_timing
+    print(f"precomp path, warm from the LRU (shards in another order, the "
+          f"batch memo missed): launches {lru_launches}, G2 bytes "
+          f"{lru_timing['g2_wire_bytes']}, hit rows {lru_timing['hit_rows']} "
+          f"of {pointful} non-empty")
+    if got != turn(want):
+        fail("warm precomp verdicts from the LRU differ from the expected "
+             "list")
+    if lru_timing["memo"] or lru_timing["g2_wire_bytes"] != 0 \
+            or lru_timing["hit_rows"] != pointful:
+        fail("the warm precomp audit from the LRU took the memo, shipped "
+             "G2 bytes or missed a row")
+    if lru_launches["agg_g2"] or lru_launches["miller"] \
+            or lru_launches["finalexp"] != 1:
+        fail("the warm precomp audit from the LRU ran the G2 sums or the "
+             "Miller kernel, or not one final exponentiation")
+
     table, inf = bn.precompute_g2_lines(gx, gy, gm)
-    table_p, inf_p = bn.precompute_g2_lines(gx, gy, gm, plain=True)
     fk, ok = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table, inf,
                                              hok)
-    fp, ok_p = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table_p,
-                                               inf_p, hok, plain=True)
+    with route.plain_versions():
+        table_p, inf_p = bn.precompute_g2_lines(gx, gy, gm)
+        fp, ok_p = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm,
+                                                   table_p, inf_p, hok)
+        verdict_plain = bn.bls_committee_precomp_finalexp(fp, ok_p)
     err_table, err_f = max_abs_err(table, table_p), max_abs_err(fk, fp)
-    verdict_plain = bn.bls_committee_precomp_finalexp(fp, ok_p, plain=True)
     print(f"precomp path: line tables {tuple(table.shape)} and f "
           f"{tuple(fk.shape)} against the plain route on the card: max "
           f"|kernel - plain| = {err_table} and {err_f}")
@@ -534,6 +583,17 @@ def main() -> int:
         t0 = time.perf_counter()
         backend.bls_verify_committees(msgs, sig_rows, pk_rows)
         cold_s.append(time.perf_counter() - t0)
+    plru_s = []     # two shard orders in turn: the memo misses every time
+    for i in range(7):
+        args = (msgs, sig_rows, pk_rows, keys) if i % 2 == 0 \
+            else turned + (turn(keys),)
+        t0 = time.perf_counter()
+        pbackend.bls_verify_committees(*args[:3], pk_row_keys=args[3])
+        plru_s.append(time.perf_counter() - t0)
+        if pbackend.last_timing["memo"] \
+                or pbackend.last_timing["hit_rows"] != pointful:
+            fail("an audit in another shard order took the memo or missed "
+                 "a row")
     pwarm_s, pmarshal_s = [], []
     for _ in range(7):
         t0 = time.perf_counter()
@@ -583,11 +643,11 @@ def main() -> int:
     psig = mk.aggregate_proj(sx, sy, sm, fp2=False)
     loop = lambda: bn.miller_loop_precomp(psig, hx, hy, table)
     loop_ms = host_ms(lambda: (loop(), torch.cuda.synchronize()), 5)
-    with TowerLaunches(conv, norm, comb_names) as loop_log:
-        loop()
-    loop_counts = collections.Counter()
-    for key, count in loop_log.counts.items():
-        loop_counts[key[0]] += count
+    before = _build.launch_counts()
+    loop()
+    loop_counts = {name: count - before[name]
+                   for name, count in _build.launch_counts().items()
+                   if count != before[name]}
     loop_dev, loop_wall = device_times(loop)
     loop_split = kernel_split(loop_dev)
     print(f"time Miller loop (precomp, {n} rows): host {loop_ms:.2f} ms "
@@ -658,6 +718,11 @@ def main() -> int:
 
     votes = SHARDS * COMMITTEE
     steady_ms = statistics.median(psteady_s) * 1e3
+    lru_ms = statistics.median(plru_s) * 1e3
+    print(f"time precomp audit, warm without the batch memo (two shard "
+          f"orders in turn, every table stacked from the LRU): median "
+          f"{lru_ms:.1f} ms of {len(plru_s)}, against {pwarm_ms:.1f} ms "
+          f"with the memo [{card}]")
     print(f"time precomp audit, a period of new messages with resident "
           f"tables (the notary's steady state): median {steady_ms:.1f} ms "
           f"of {len(psteady_s)}, {votes / steady_ms * 1e3:.0f} votes/s; "

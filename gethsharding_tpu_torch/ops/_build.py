@@ -45,7 +45,7 @@ SIGNATURES = {
     "gs_miller": [_P] * 9 + [_I, _P, _P, _P, _I, _P, _P],
     "gs_finalexp": [_P, _P, _I, _P, _I, _P, _P],
     "gs_norm": [_P, _I, _I, _P, _P, _P, _P],
-    "gs_conv": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P, _P],
+    "gs_conv": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lib = None

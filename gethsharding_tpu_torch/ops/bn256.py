@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as ref
-from gethsharding_tpu_torch.ops import conv, route
+from gethsharding_tpu_torch.ops import conv
 from gethsharding_tpu_torch.ops.limb import (LAZY_BITS, NLIMBS, ModArith,
                                              const, int_to_limbs,
                                              ints_to_limbs, pad_last)
@@ -453,8 +453,7 @@ def g2_committee_to_limbs(rows: Sequence[Sequence[ref.G2Point]], width: int):
 
 
 def bls_aggregate_verify_committee_batch(hx, hy, sigx, sigy, sig_mask,
-                                         pkx, pky, pk_mask, valid, *,
-                                         plain: bool = False):
+                                         pkx, pky, pk_mask, valid):
     """Aggregate and verify each row's committee votes.
 
     Per row: the masked sums of the vote signatures (G1) and the voter
@@ -466,16 +465,14 @@ def bls_aggregate_verify_committee_batch(hx, hy, sigx, sigy, sig_mask,
 
     On CUDA tensors this is four audit-kernel launches (G1 sum, G2 sum,
     Miller, final exponentiation) and a few normalize launches between
-    them; `plain=True` runs the plain PyTorch versions of the same
-    functions instead, on any device."""
+    them."""
     from gethsharding_tpu_torch.ops import megakernels as mk
 
-    sX, sY, sZ = mk.aggregate_proj(sigx, sigy, sig_mask, fp2=False,
-                                   plain=plain)
-    pX, pY, pZ = mk.aggregate_proj(pkx, pky, pk_mask, fp2=True, plain=plain)
+    sX, sY, sZ = mk.aggregate_proj(sigx, sigy, sig_mask, fp2=False)
+    pX, pY, pZ = mk.aggregate_proj(pkx, pky, pk_mask, fp2=True)
     inf = FP.is_zero(sZ) | fp2_is_zero(pZ)
-    f = mk.miller_f((sX, sY, sZ), hx, hy, (pX, pY, pZ), plain=plain)
-    return mk.finalexp_is_one(f, plain=plain) & valid & ~inf
+    f = mk.miller_f((sX, sY, sZ), hx, hy, (pX, pY, pZ))
+    return mk.finalexp_is_one(f) & valid & ~inf
 
 
 # == fixed-base precomputation (the notary's default path) =================
@@ -524,7 +521,7 @@ def precompute_lines(pkx, pky, pkz):
     return torch.stack(lines, dim=-4)
 
 
-def precompute_g2_lines(pkx, pky, pk_mask, *, plain: bool = False):
+def precompute_g2_lines(pkx, pky, pk_mask):
     """Sum each committee's pubkeys (..., C, 2, 25) under pk_mask (..., C)
     and precompute the sum's line table. Returns (table (..., 88, 3, 2,
     25), pk_inf (...,) bool): pk_inf marks identity sums (an empty or
@@ -532,9 +529,8 @@ def precompute_g2_lines(pkx, pky, pk_mask, *, plain: bool = False):
     are defined but never decide a verdict."""
     from gethsharding_tpu_torch.ops import megakernels as mk
 
-    with route.plain_versions(plain):
-        pX, pY, pZ = mk.aggregate_proj(pkx, pky, pk_mask, fp2=True)
-        return precompute_lines(pX, pY, pZ), fp2_is_zero(pZ)
+    pX, pY, pZ = mk.aggregate_proj(pkx, pky, pk_mask, fp2=True)
+    return precompute_lines(pX, pY, pZ), fp2_is_zero(pZ)
 
 
 def miller_loop_precomp(sig, hx, hy, table, gen_lines=None):
@@ -568,35 +564,29 @@ def miller_loop_precomp(sig, hx, hy, table, gen_lines=None):
 
 
 def bls_committee_precomp_miller(hx, hy, sigx, sigy, sig_mask, table,
-                                 pk_inf, valid, gen_lines=None, *,
-                                 plain: bool = False):
+                                 pk_inf, valid, gen_lines=None):
     """Miller stage of the precomp committee audit: the G1 vote sums,
     then the table-fed Miller loop. Returns (f (B, 6, 2, 25), ok (B,)),
     ok False for invalid rows and identity sums."""
     from gethsharding_tpu_torch.ops import megakernels as mk
 
-    with route.plain_versions(plain):
-        sX, sY, sZ = mk.aggregate_proj(sigx, sigy, sig_mask, fp2=False)
-        ok = valid & ~(FP.is_zero(sZ) | pk_inf)
-        return miller_loop_precomp((sX, sY, sZ), hx, hy, table,
-                                   gen_lines), ok
+    sX, sY, sZ = mk.aggregate_proj(sigx, sigy, sig_mask, fp2=False)
+    ok = valid & ~(FP.is_zero(sZ) | pk_inf)
+    return miller_loop_precomp((sX, sY, sZ), hx, hy, table, gen_lines), ok
 
 
-def bls_committee_precomp_finalexp(f, ok, *, plain: bool = False):
+def bls_committee_precomp_finalexp(f, ok):
     """Final-exponentiation stage of the precomp committee audit."""
     from gethsharding_tpu_torch.ops import megakernels as mk
 
-    return mk.finalexp_is_one(f, plain=plain) & ok
+    return mk.finalexp_is_one(f) & ok
 
 
 def bls_verify_committee_precomp_batch(hx, hy, sigx, sigy, sig_mask, table,
-                                       pk_inf, valid, gen_lines=None, *,
-                                       plain: bool = False):
+                                       pk_inf, valid, gen_lines=None):
     """The precomp twin of `bls_aggregate_verify_committee_batch`: the G2
     sums and the pubkey walk were paid once in `precompute_g2_lines`;
-    this consumes their tables. Returns (B,) bool on the inputs' device.
-    `plain=True` runs the plain versions of every kernel."""
+    this consumes their tables. Returns (B,) bool on the inputs' device."""
     f, ok = bls_committee_precomp_miller(hx, hy, sigx, sigy, sig_mask,
-                                         table, pk_inf, valid, gen_lines,
-                                         plain=plain)
-    return bls_committee_precomp_finalexp(f, ok, plain=plain)
+                                         table, pk_inf, valid, gen_lines)
+    return bls_committee_precomp_finalexp(f, ok)

@@ -15,9 +15,9 @@ the minor axis; the values are the same limb for limb).
 Each public function (`aggregate_proj`, `miller_f`, `finalexp_is_one`)
 takes its route from the device of its inputs (`ops/route.py`): a CUDA
 tensor goes through the hand-written kernel in `csrc/` (built by
-`ops/_build.py`), a CPU tensor through the plain version; `plain=True`
-runs the plain versions on any device, and `chip_smoke.py` holds every
-kernel against them on the card. The kernels follow the plain versions
+`ops/_build.py`), a CPU tensor through the plain version; inside
+`route.plain_versions()` the plain versions run on any device, and
+`chip_smoke.py` holds every kernel against them on the card. The kernels follow the plain versions
 operation for operation, so both give the same limbs, not only the same
 values mod p.
 """
@@ -623,7 +623,7 @@ def _i32(t) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def aggregate_proj(xs, ys, mask, *, fp2: bool, plain: bool = False):
+def aggregate_proj(xs, ys, mask, *, fp2: bool):
     """Masked committee sum (JAX package's `aggregate_proj`).
 
     xs/ys: (..., C, 25) G1 or (..., C, 2, 25) G2 affine limbs; mask
@@ -636,16 +636,15 @@ def aggregate_proj(xs, ys, mask, *, fp2: bool, plain: bool = False):
     xs2 = _i32(xs.reshape((-1, cdim) + point))
     ys2 = _i32(ys.reshape((-1, cdim) + point))
     m2 = mask.reshape(-1, cdim)
-    with route.plain_versions(plain):
-        if route.use_kernel(xs2):
-            out = agg_kernel(xs2, ys2, _i32(m2), fp2=fp2)
-        else:
-            out = run_agg_plain(xs2, ys2, m2.to(torch.bool), fp2=fp2)
-        out = bn.FP.normalize(torch.stack(out))
+    if route.use_kernel(xs2):
+        out = agg_kernel(xs2, ys2, _i32(m2), fp2=fp2)
+    else:
+        out = run_agg_plain(xs2, ys2, m2.to(torch.bool), fp2=fp2)
+    out = bn.FP.normalize(torch.stack(out))
     return tuple(v.reshape(lead + point) for v in out)
 
 
-def miller_f(sig, hx, hy, pk, *, plain: bool = False):
+def miller_f(sig, hx, hy, pk):
     """Projective shared-accumulator Miller product e(sig, G2)·e(-H, pk)
     before the final exponentiation (JAX package's `miller_f`): sig =
     (sx, sy, sz) (..., 25), hx/hy (..., 25), pk = (pkx, pky, pkz)
@@ -655,24 +654,22 @@ def miller_f(sig, hx, hy, pk, *, plain: bool = False):
     s = tuple(map(flat, sig))
     h = (flat(hx), flat(hy))
     q = tuple(map(flat, pk))
-    with route.plain_versions(plain):
-        if route.use_kernel(s[0]):
-            f = miller_kernel(s, h, q)
-        else:
-            f = run_miller_plain(s, h, q)
-        return bn.FP.normalize(f).reshape(lead + (6, 2, KNL))
+    if route.use_kernel(s[0]):
+        f = miller_kernel(s, h, q)
+    else:
+        f = run_miller_plain(s, h, q)
+    return bn.FP.normalize(f).reshape(lead + (6, 2, KNL))
 
 
-def finalexp_is_one(f, *, plain: bool = False):
+def finalexp_is_one(f):
     """Fraction-stacked final exponentiation == 1? (JAX package's
     `finalexp_is_one`): f (..., 6, 2, 25) lazy limbs -> bool (...)."""
     lead = f.shape[:-3]
     f = _i32(f.reshape((-1, 6, 2, KNL)))
-    with route.plain_versions(plain):
-        nd = torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1)
-        if route.use_kernel(f):
-            out = finalexp_kernel(nd)
-        else:
-            out = run_program_plain(nd)
-        out = bn.FP.normalize(out)
-        return bn.fp12_eq(out[:, 0], out[:, 1]).reshape(lead)
+    nd = torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1)
+    if route.use_kernel(f):
+        out = finalexp_kernel(nd)
+    else:
+        out = run_program_plain(nd)
+    out = bn.FP.normalize(out)
+    return bn.fp12_eq(out[:, 0], out[:, 1]).reshape(lead)

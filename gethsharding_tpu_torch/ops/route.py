@@ -29,10 +29,9 @@ def use_kernel(t: torch.Tensor) -> bool:
 
 
 @contextlib.contextmanager
-def plain_versions(enabled: bool = True):
-    """Run the plain versions of every kernel inside the block (a no-op
-    with `enabled=False`, so entry points can pass their `plain=`)."""
-    token = _FORCE_PLAIN.set(_FORCE_PLAIN.get() or enabled)
+def plain_versions():
+    """Run the plain versions of every kernel inside the block."""
+    token = _FORCE_PLAIN.set(True)
     try:
         yield
     finally:

@@ -8,7 +8,8 @@ in the device's memory under a byte-budgeted LRU: one (88, 3, 2, 25)
 int32 tensor (52.8 KB) and one bool per key. A cold row pays one
 precompute; a warm audit ships no G2 bytes. A batch memo reuses the
 stacked tables whole when an audit repeats the previous audit's key
-tuple, the steady state of a notary. Empty rows take a shared zero table
+tuple, the steady state of a notary; a memo hit refreshes its keys in the
+LRU as a per-key hit would. Empty rows take a shared zero table
 marked infinite, so the audit rejects them.
 
 The backend is shared by every caller thread, so each structure is
@@ -74,6 +75,9 @@ class LineTableCache:
                     and self._memo[0] == plan.batch_key:
                 plan.memo = self._memo[1]
                 plan.hit_rows = pk_rows
+                for row, key in zip(rows, keys):
+                    if row and key in self._tables:
+                        self._tables.move_to_end(key)
                 return plan
             for row, key in zip(rows, keys):
                 entry = self._tables.get(key) if row and key is not None \

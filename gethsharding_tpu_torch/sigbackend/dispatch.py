@@ -47,15 +47,17 @@ def committee_planes(messages, sig_rows, pk_rows):
 class TorchSigBackend(SigBackend):
     """The committee audit through the CUDA kernels (`device=None` is the
     card) or, with `device="cpu"`, through their plain versions. Line
-    tables stay resident under `line_budget_bytes`."""
+    tables stay resident in `lines`, a `LineTableCache` under its default
+    budget."""
 
     name = "torch"
 
-    def __init__(self, device=None, line_budget_bytes: int = 256 << 20):
+    def __init__(self, device=None):
         self.device = resolve_device(device)
-        self.lines = LineTableCache(self.device, line_budget_bytes)
+        self.lines = LineTableCache(self.device)
         # host seconds of the last audit's marshal and launch staging, its
-        # path, G2 bytes shipped, resident rows and kernel launches
+        # path, G2 bytes shipped, resident rows, whether the batch memo
+        # served them, and kernel launches
         self.last_timing: dict | None = None
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
@@ -75,16 +77,16 @@ class TorchSigBackend(SigBackend):
             out = bn.bls_aggregate_verify_committee_batch(
                 *(torch.as_tensor(a, device=self.device) for a in planes))
             g2_bytes = sum(a.nbytes for a in planes[5:8])
-            hit_rows, width = 0, planes[2].shape[1]
+            hit_rows, memo, width = 0, False, planes[2].shape[1]
         else:
-            out, t1, g2_bytes, hit_rows, width = self._precomp_audit(
+            out, t1, g2_bytes, hit_rows, memo, width = self._precomp_audit(
                 messages, sig_rows, pk_rows, keys, bucket)
         after = _build.launch_counts()
         self.last_timing = {
             "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
             "rows": n, "bucket": bucket, "width": width,
             "precomp": keys is not None, "g2_wire_bytes": int(g2_bytes),
-            "hit_rows": hit_rows,
+            "hit_rows": hit_rows, "memo": memo,
             "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
         return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])
 
@@ -104,4 +106,5 @@ class TorchSigBackend(SigBackend):
         out = bn.bls_verify_committee_precomp_batch(
             dev(host["hx"]), dev(host["hy"]), dev(host["sx"]),
             dev(host["sy"]), dev(host["sm"]), table, inf, dev(host["hok"]))
-        return (out, t1, sum(a.nbytes for a in g2), plan.hit_rows, width)
+        return (out, t1, sum(a.nbytes for a in g2), plan.hit_rows,
+                plan.memo is not None, width)

@@ -148,7 +148,8 @@ def test_audit_on_card_launches_four_kernels(cuda):
         "agg_g1": 1, "agg_g2": 1, "miller": 1, "finalexp": 1}
     planes = [torch.as_tensor(a, device=cuda)
               for a in committee_planes(msgs, sig_rows, pk_rows)]
-    plain = bn.bls_aggregate_verify_committee_batch(*planes, plain=True)
+    with route.plain_versions():
+        plain = bn.bls_aggregate_verify_committee_batch(*planes)
     assert plain.cpu()[:len(msgs)].tolist() == want
 
 
@@ -172,11 +173,14 @@ def test_precomp_audit_on_card(cuda):
     planes = [torch.as_tensor(a, device=cuda)
               for a in committee_planes(msgs, sig_rows, pk_rows)]
     hx, hy, sx, sy, sm, gx, gy, gm, hok = planes
-    routes = []
-    for plain in (False, True):
-        table, inf = bn.precompute_g2_lines(gx, gy, gm, plain=plain)
+    def run():
+        table, inf = bn.precompute_g2_lines(gx, gy, gm)
         f, ok = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table,
-                                                inf, hok, plain=plain)
-        routes.append((table, inf, f, ok))
+                                                inf, hok)
+        return table, inf, f, ok
+
+    routes = [run()]
+    with route.plain_versions():
+        routes.append(run())
     for got, plain in zip(*routes):
         assert torch.equal(got, plain)

@@ -21,6 +21,7 @@ reference helpers take the batch on the minor axis; the port's on the
 leading one, so the tests move that axis and compare like with like."""
 
 import ctypes
+import math
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -284,11 +285,13 @@ extern "C" void run(const int* z, int n, int w, const int* fold,
 namespace gs { int smem[1 << 16]; }
 extern "C" void run(const int* x, const int* y, int n, int xw, int yw,
                     int a_dim, int b_dim, int g_dim, const int* terms,
-                    int nterms, int planes, int* out) {
+                    int nterms, int planes, int ndim, const long long* desc,
+                    int* out) {
+  const gs::ConvLead lead = gs::conv_lead(ndim, desc);
   for (int b = 0; b * gs::CONV_ROWS < n; ++b) {
     blockIdx.x = b;
     gs::conv_kernel(x, y, n, xw, yw, a_dim, b_dim, g_dim, terms, nterms,
-                    planes, out);
+                    planes, lead, out);
   }
 }""",
 }
@@ -388,20 +391,43 @@ def test_norm_source_on_host_equals_plain(host_kernels, width):
     assert torch.equal(out, norm.normalize_plain(pbn.FP, z))
 
 
+def _host_conv(kernel, x, y, comb):
+    """The conv source on x, y with the wrapper's broadcast plan: each
+    operand in place, with its strides over the common lead."""
+    G, A, B, C, Gr = comb.shape
+    lead = tuple(torch.broadcast_shapes(x.shape[:-3], y.shape[:-3]))
+    x, x_strides = conv._operand(x, lead)
+    y, y_strides = conv._operand(y, lead)
+    dims = conv._lead_desc(lead, x_strides, y_strides)
+    desc = (ctypes.c_longlong * max(1, 3 * len(dims)))(
+        *(v for dim in dims for v in dim))
+    table = mk.const(conv.term_table(comb), "cpu")
+    out = torch.zeros(lead + (C, Gr, 49), dtype=torch.int32)
+    kernel.run(_p(x), _p(y), math.prod(lead), G * A * 25, G * B * 25, A, B,
+               Gr, _p(table), table.shape[0], C * Gr, len(dims), desc,
+               _p(out))
+    return out
+
+
 @pytest.mark.parametrize("name", ["_COMB_FP2", "_COMB_FP2_SQR", "_COMB",
                                   "_LCOMB", "identity"])
 def test_conv_source_on_host_equals_plain(host_kernels, name):
     comb = (np.ones((1,) * 5, np.int32) if name == "identity"
             else getattr(pbn, name))
-    G, A, B, C, Gr = comb.shape
+    G, A, B = comb.shape[:3]
     rng = np.random.default_rng(87)
-    n = 11                                      # a partial last block
-    x, y = _canon(rng, (n, G, A)), _canon(rng, (n, G, B))
-    table = mk.const(conv.term_table(comb), "cpu")
-    out = torch.zeros((n, C, Gr, 49), dtype=torch.int32)
-    host_kernels["conv"].run(_p(x), _p(y), n, G * A * 25, G * B * 25, A, B,
-                             Gr, _p(table), table.shape[0], C * Gr, _p(out))
-    assert torch.equal(out, conv.pair_conv_combine_plain(x, y, comb))
+    cases = [   # a partial last block; x broadcast along a middle dim (the
+                # Fp12 product's f); a constant y; a constant x; x a view
+                # with gaps between its rows
+        (_canon(rng, (11, G, A)), _canon(rng, (11, G, B))),
+        (_canon(rng, (3, 1, G, A)), _canon(rng, (3, 4, G, B))),
+        (_canon(rng, (2, 5, G, A)), _canon(rng, (G, B))),
+        (_canon(rng, (G, A)), _canon(rng, (9, G, B))),
+        (_canon(rng, (10, 2, G, A))[:, 1], _canon(rng, (10, G, B))),
+    ]
+    for x, y in cases:
+        assert torch.equal(_host_conv(host_kernels["conv"], x, y, comb),
+                           conv.pair_conv_combine_plain(x, y, comb))
 
 
 # == slow: whole programs against the reference's XLA oracles ==============

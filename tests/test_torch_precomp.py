@@ -64,6 +64,7 @@ def test_precomp_cold_and_warm_match_python_backend(period):
     warm = backend.last_timing
     assert warm["precomp"] and warm["g2_wire_bytes"] == 0
     assert warm["hit_rows"] == sum(1 for r in pk_rows if r) == 5
+    assert warm["memo"] and not cold["memo"]
     assert warm["bucket"] == 8
     assert set(warm["launches"]) >= {"agg_g1", "conv", "norm", "finalexp"}
     assert not any(warm["launches"].values())   # CPU: the plain versions
@@ -86,7 +87,8 @@ def test_short_key_list_and_keyless_audits(period):
 
 def test_eviction_churn_keeps_verdicts(period):
     msgs, sig_rows, pk_rows, row_keys, want = period
-    backend = TorchSigBackend(device="cpu", line_budget_bytes=2000)
+    backend = TorchSigBackend(device="cpu")
+    backend.lines = LineTableCache("cpu", budget_bytes=2000)
     for rnd in range(2):   # fresh keys: every insert evicts at once
         keys = [(rnd,) + key for key in row_keys]
         assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
@@ -117,6 +119,24 @@ def test_line_cache_lru_order():
     assert marshal.normalize_row_keys(None, 3) is None
 
 
+def test_memo_hit_refreshes_lru_order():
+    """A batch-memo hit keeps its committees young in the LRU, so another
+    batch's insert evicts a table the steady batch does not use."""
+    cache = LineTableCache("cpu", budget_bytes=3 * 52_801)
+    table = torch.zeros(bn.LINE_TABLE_SHAPE, dtype=torch.int32)
+    flag = torch.zeros((), dtype=torch.bool)
+    rows, keys = [[1], [1]], ["a", "b"]
+    plan = cache.resolve(rows, keys, 2)
+    cache.assemble(plan, (table[None].expand(2, *table.shape), flag[None]
+                          .expand(2)))
+    cache.insert("c", table, flag)           # LRU: a, b, c
+    assert cache.resolve(rows, keys, 2).memo is not None
+    cache.insert("d", table, flag)           # evicts c, not a
+    plan = cache.resolve([[1]] * 4, ["a", "b", "c", "d"], 4)
+    assert [s[0] for s in plan.steps] == ["hit", "hit", "miss", "hit"]
+    assert cache.evictions == 1
+
+
 def test_reference_line_tables_cross_into_the_port(period):
     """The reference's `precompute_lines` of the port's committee sums,
     carried over by `convert.line_tables_from_reference` (in both limb
@@ -143,5 +163,7 @@ def test_reference_line_tables_cross_into_the_port(period):
         assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
                                              pk_row_keys=row_keys) == want
         assert backend.last_timing["g2_wire_bytes"] == 0
+        assert backend.last_timing["hit_rows"] == 5
+        assert not backend.last_timing["memo"]     # stacked from the LRU
     with pytest.raises(ValueError, match="not a line table"):
         convert.line_tables_from_reference(tab[..., :2, :, :, :], inf)
