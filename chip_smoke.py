@@ -19,10 +19,13 @@ resident on the card) and the recompute path (without keys):
    identity check rejects it);
 4. holds the audit's four kernels (G1 and G2 committee sums, Miller
    product, final exponentiation) against their plain PyTorch versions
-   on the card, on the tensors and shapes the audit gives them, and the
+   on the card, on the tensors and shapes the audit gives them; the
    tower's two kernels (conv, normalize) on every combine and width of
    the path, with partial blocks, leading dims, a broadcast constant,
-   negative and bound-edge limbs: the limbs must be equal;
+   negative and bound-edge limbs; and the tower kernel (one launch per
+   product: Fp, Fp2, Fp12 and line products) against each product's
+   plain route on the same kinds of edge inputs: the limbs must be
+   equal;
 5. recompute path: sets every launch count to 0, runs the keyless audit
    once, and requires one launch of each audit kernel (normalizes are
    counted apart) and every verdict equal to the expected list; the same
@@ -32,22 +35,27 @@ resident on the card) and the recompute path (without keys):
    around a warm one of the same committees in another shard order (the
    memo misses; every row's table comes from the LRU); all must give the
    expected verdicts, which equal the recompute path's; both warm audits
-   must ship 0 G2 bytes and hit every non-empty row. The tower kernels'
-   inputs of the warm audit, one per shape, are held against the plain
-   versions, and the batch's line tables and Miller product f must equal
-   the plain route's limb for limb;
+   must ship 0 G2 bytes and hit every non-empty row. The tower
+   kernel's and normalize's inputs of the warm audit, one per shape, are
+   held against the plain versions, and the batch's line tables and
+   Miller product f must equal the plain route's limb for limb. The
+   Miller loop must run every tower product as one tower launch: at most
+   300 launches, no conv launch, and only the loop's three normalizes
+   outside its products;
 7. times both paths (cold median of 3 with hashing and, on the precomp
    path, table building included; warm median of 7, on the precomp path
    with and without the batch memo), the recompute
    audit's stages, each kernel and its plain version (CUDA events, the
-   launches queued before the first runs; conv and normalize at their
-   most frequent shapes of the warm audit), their launches and summed
+   launches queued before the first runs; the tower kernel at each of
+   its shapes in the warm audit, conv at the line product and normalize
+   at its most frequent shape of the warm audit), their launches and summed
    device time per warm audit and the card's idle share (torch.profiler),
    and the Miller loop's host time against its summed kernel time. Each
    kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
-   non-empty row; for conv and normalize, the multiply-adds and bytes of
-   the launch timed, each operand counted once as the kernel reads it,
+   non-empty row; for conv, normalize and the tower kernel, the
+   multiply-adds (625 per conv term, 22 per folded limb) and bytes of the
+   launch timed, each operand counted once as the kernel reads it,
    before any broadcast).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
@@ -67,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -169,7 +178,8 @@ def kernel_split(by_name) -> dict:
     and PyTorch's own (glue: elementwise ops, copies)."""
     split = collections.Counter()
     for name, ms in by_name.items():
-        label = next((k for k in ("conv_kernel", "norm_kernel", "agg_kernel",
+        label = next((k for k in ("tower_kernel", "conv_kernel",
+                                  "norm_kernel", "agg_kernel",
                                   "miller_kernel", "finalexp_kernel")
                       if k in name), "glue")
         split[label] += ms
@@ -231,31 +241,31 @@ def bound(macs: int, moved: int) -> dict:
 
 
 class TowerLaunches:
-    """While open, records the shapes at which the tower's two kernels
-    (conv, normalize) launch: per shape, its launches (read from the
-    kernel's own counter, so a call that launches nothing is not one)
-    and its first input, which `check_samples` holds against the plain
-    version afterwards. conv's shapes are its operands' own, before they
-    broadcast."""
+    """While open, records the shapes at which the tower kernel and
+    normalize launch: per shape, its launches (read from the kernel's own
+    counter, so a call that launches nothing is not one) and its first
+    input, which `check_samples` holds against the plain version
+    afterwards. The tower kernel's shapes are its operands' own, before
+    they broadcast."""
 
-    def __init__(self, conv, norm, comb_names: dict):
-        self.conv, self.norm, self.comb_names = conv, norm, comb_names
+    def __init__(self, tower, norm, plan_names: dict):
+        self.tower, self.norm, self.plan_names = tower, norm, plan_names
         self.counts = collections.Counter()   # shape key -> launches
         self.samples = {}                     # shape key -> inputs
 
     def __enter__(self):
-        self._kernels = (self.conv.conv_kernel, self.norm.normalize_kernel)
-        conv_kernel, normalize_kernel = self._kernels
-        self.conv.conv_kernel = lambda x, y, comb: self._record(
-            ("conv", self.comb_names[id(comb)], tuple(x.shape),
-             tuple(y.shape)), self.conv.KERNEL, conv_kernel, x, y, comb)
+        self._kernels = (self.tower.tower_kernel, self.norm.normalize_kernel)
+        tower_kernel, normalize_kernel = self._kernels
+        self.tower.tower_kernel = lambda plan, u, v: self._record(
+            ("tower", self.plan_names[id(plan)], tuple(u.shape),
+             tuple(v.shape)), self.tower.KERNEL, tower_kernel, plan, u, v)
         self.norm.normalize_kernel = lambda arith, z: self._record(
             ("norm", tuple(z.shape)), self.norm.KERNEL, normalize_kernel,
             arith, z)
         return self
 
     def __exit__(self, *exc):
-        self.conv.conv_kernel, self.norm.normalize_kernel = self._kernels
+        self.tower.tower_kernel, self.norm.normalize_kernel = self._kernels
 
     def _record(self, key, kernel, fn, *args):
         before = kernel.launches
@@ -269,6 +279,12 @@ class TowerLaunches:
         return out
 
 
+def lead_rows(*shapes) -> int:
+    """Batch rows of (..., G, A, 25) operands whose leading dims
+    broadcast."""
+    return math.prod(torch.broadcast_shapes(*(s[:-3] for s in shapes)))
+
+
 def conv_work(key, comb) -> dict:
     """Multiply-adds and bytes of one conv launch at `key`'s operand
     shapes: every nonzero combine term is one 25×25 convolution per row
@@ -276,27 +292,56 @@ def conv_work(key, comb) -> dict:
     (a broadcast operand is not copied out to the rows)."""
     from gethsharding_tpu_torch.ops import conv
 
-    (_, _, xs, ys), table = key, conv.term_table(comb)
-    n = math.prod(torch.broadcast_shapes(xs[:-3], ys[:-3]))
+    _, _, xs, ys = key
+    n = lead_rows(xs, ys)
+    nterms = int(np.count_nonzero(comb))
     out_ints = n * comb.shape[3] * comb.shape[4] * conv.NCOLS
-    return bound(n * table.shape[0] * 625,
-                 4 * (math.prod(xs) + math.prod(ys) + out_ints + table.size))
+    plan_ints = conv.plane_plan(comb).size
+    return bound(n * nterms * 625,
+                 4 * (math.prod(xs) + math.prod(ys) + out_ints + plan_ints))
+
+
+def fold_work(width: int) -> int:
+    """Multiply-adds of one normalize of a `width`-limb row: 22 per
+    folded limb (width + 3 - 22 of them)."""
+    return max(0, width + 3 - 22) * 22
 
 
 def norm_work(key) -> dict:
-    """Multiply-adds and bytes of one normalize launch at `key`'s shape:
-    22 per folded limb (W + 3 - 22 of them) per row."""
+    """Multiply-adds and bytes of one normalize launch at `key`'s shape."""
     n, w = key[1]
-    return bound(n * (w + 3 - 22) * 22, 4 * (n * w + n * 25 + 33 * 22 + 22))
+    return bound(n * fold_work(w), 4 * (n * w + n * 25 + 33 * 22 + 22))
 
 
-def check_samples(samples, conv, norm) -> dict:
+def tower_work(key, plan) -> dict:
+    """Multiply-adds and bytes of one tower launch at `key`'s operand
+    shapes, per row of the broadcast lead: 625 per conv term of each
+    output k, and the folds of its normalizes (xi·v's 12 rows once per
+    row for the Fp12 kinds; every (k, c, g) plane at 49 limbs; the group
+    merges at 25). Each operand is read once in its own shape, the output
+    written once, the pack read once."""
+    from gethsharding_tpu_torch.ops import tower
+
+    _, _, us, vs = key
+    n = lead_rows(us, vs)
+    _, _, _, C, Gr, K = tower.SHAPES[plan.kind]
+    per_row = (K * plan.nterms * 625 + K * C * Gr * fold_work(49)
+               + (Gr - 1) * K * C * fold_work(25))
+    if K > 1:
+        per_row += 12 * fold_work(25)
+    out_ints = n * math.prod(plan.out_block)
+    return bound(n * per_row, 4 * (math.prod(us) + math.prod(vs) + out_ints
+                                   + plan.pack.size))
+
+
+def check_samples(samples, tower, norm, route) -> dict:
     """Each recorded input through the kernel and the plain version."""
-    errs = {"conv": 0, "norm": 0}
+    errs = {"tower": 0, "norm": 0}
     for key, args in samples.items():
-        if key[0] == "conv":
-            got = conv.conv_kernel(*args)
-            want = conv.pair_conv_combine_plain(*args)
+        if key[0] == "tower":
+            got = tower.tower_kernel(*args)
+            with route.plain_versions():
+                want = args[0].plain(*args[1:])
         else:
             got = norm.normalize_kernel(*args)
             want = norm.normalize_plain(*args)
@@ -304,17 +349,21 @@ def check_samples(samples, conv, norm) -> dict:
     return errs
 
 
-def check_tower_edges(bn, conv, norm, combs: dict, dev) -> dict:
+def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
+                      combs: dict, dev) -> dict:
     """Conv on every combine of the path at 112 rows, at the stacked
     Fp12 shape, with a partial last block, extra leading dims and a
     broadcast constant; normalize at every width 25..52 with negative
-    and bound-edge limbs. Returns the largest |kernel - plain| of each."""
+    and bound-edge limbs; the tower kernel on every product kind with the
+    same leads and broadcasts, an operand with gaps between its rows, and
+    all-4095 and all-zero limbs. Returns the largest |kernel - plain| of
+    each."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     canon = lambda shape: torch.randint(0, 1 << 12, shape + (25,),
                                         generator=gen, device=dev,
                                         dtype=torch.int32)
-    errs = {"conv": 0, "norm": 0}
+    errs = {"tower": 0, "conv": 0, "norm": 0}
     for comb in combs.values():
         G, A, B = comb.shape[:3]
         for lead in ((112,), (113,), (112 * 6,), (4, 29)):
@@ -332,6 +381,26 @@ def check_tower_edges(bn, conv, norm, combs: dict, dev) -> dict:
             errs["conv"] = max(errs["conv"], max_abs_err(
                 conv.pair_conv_combine(a, b, comb),
                 conv.pair_conv_combine_plain(a, b, comb)))
+    for plan in plans.values():
+        ub, vb = plan.u_block, plan.v_block
+        cases = [(canon(lead + ub[:2]), canon(lead + vb[:2]))
+                 for lead in ((112,), (113,), (4, 29))]
+        cases += [
+            (canon((112,) + ub[:2]), canon(vb[:2])),
+            (canon(ub[:2]), canon((112,) + vb[:2])),
+            (canon((112, 1) + ub[:2]), canon((112, 6) + vb[:2])),
+            (canon((113, 2) + ub[:2])[:, 1], canon((113,) + vb[:2])),
+            (torch.full((112,) + ub, 4095, dtype=torch.int32, device=dev),
+             torch.full((112,) + vb, 4095, dtype=torch.int32, device=dev)),
+            (torch.zeros((112,) + ub, dtype=torch.int32, device=dev),
+             canon((112,) + vb[:2]))]
+        for u, v in cases:
+            if plan is plans["fp2_sqr"]:
+                v = u
+            got = tower.tower_kernel(plan, u, v)
+            with route.plain_versions():
+                want = plan.plain(u, v)
+            errs["tower"] = max(errs["tower"], max_abs_err(got, want))
     for w in range(25, norm.MAX_WIDTH + 1):
         z = torch.randint(-MAX_LIMB, MAX_LIMB + 1, (1000, w), generator=gen,
                           device=dev, dtype=torch.int32)
@@ -352,7 +421,8 @@ def main() -> int:
         fail("no CUDA device")
 
     from gethsharding_tpu_torch.crypto import bn256 as bls
-    from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route
+    from gethsharding_tpu_torch.ops import (_build, conv, limb, norm, route,
+                                            tower)
     from gethsharding_tpu_torch.ops import bn256 as bn
     from gethsharding_tpu_torch.ops import megakernels as mk
     from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -440,13 +510,20 @@ def main() -> int:
     combs = {"_COMB_FP2": bn._COMB_FP2, "_COMB_FP2_SQR": bn._COMB_FP2_SQR,
              "_COMB": bn._COMB, "_LCOMB": bn._LCOMB,
              "identity": limb._IDENTITY}
-    comb_names = {id(c): name for name, c in combs.items()}
-    edge = check_tower_edges(bn, conv, norm, combs, dev)
-    cover = {"conv": "every combine of the path, 112 to 672 rows, a "
+    plans = {"fp_mul": bn.FP.mul_plan, "fp2_mul": bn._FP2_MUL,
+             "fp2_sqr": bn._FP2_SQR, "fp12_mul": bn._FP12_MUL,
+             "fp12_mul_line": bn._LINE_MUL}
+    plan_names = {id(p): name for name, p in plans.items()}
+    edge = check_tower_edges(bn, tower, conv, norm, route, plans, combs, dev)
+    cover = {"tower": "every product kind (Fp, Fp2 mul and sqr, Fp12, "
+                      "line), 112 and 113 rows, leading dims, broadcast "
+                      "constants and middle dims, gapped rows, all-4095 "
+                      "and all-zero limbs",
+             "conv": "every combine of the path, 112 to 672 rows, a "
                      "partial block, leading dims, a broadcast constant",
              "norm": f"widths 25-{norm.MAX_WIDTH}, negative and "
                      f"±2^30.7 limbs, a partial block, leading dims"}
-    for name in ("conv", "norm"):
+    for name in ("tower", "conv", "norm"):
         print(f"kernel {name}: max |kernel - plain| over limbs = "
               f"{edge[name]} (tolerance 0; {cover[name]})", flush=True)
         if edge[name] != 0:
@@ -490,12 +567,12 @@ def main() -> int:
     if got != want or got != recompute_got:
         fail("cold precomp verdicts differ from the expected list or the "
              "recompute path's")
-    for name in ("agg_g1", "agg_g2", "conv", "norm", "finalexp"):
+    for name in ("agg_g1", "agg_g2", "tower", "norm", "finalexp"):
         if cold_launches[name] < 1:
             fail(f"the cold precomp audit launched no {name} kernel")
     for k in _build.KERNELS.values():
         k.launches = 0
-    with TowerLaunches(conv, norm, comb_names) as warm_log:
+    with TowerLaunches(tower, norm, plan_names) as warm_log:
         got = pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
                                              pk_row_keys=keys)
     warm_launches = _build.launch_counts()
@@ -510,13 +587,15 @@ def main() -> int:
             or warm_timing["hit_rows"] != pointful:
         fail("the warm precomp audit missed the memo, shipped G2 bytes or "
              "missed a row")
-    for name in ("agg_g1", "conv", "norm", "finalexp"):
+    for name in ("agg_g1", "tower", "norm", "finalexp"):
         if warm_launches[name] < 1:
             fail(f"the warm precomp audit launched no {name} kernel")
+    if cold_launches["conv"] or warm_launches["conv"]:
+        fail("a tower product launched the conv kernel on its own")
     if warm_launches["agg_g2"] or warm_launches["miller"]:
         fail("the warm precomp audit ran the G2 sums or the Miller kernel")
-    sample_err = check_samples(warm_log.samples, conv, norm)
-    for name in ("conv", "norm"):
+    sample_err = check_samples(warm_log.samples, tower, norm, route)
+    for name in ("tower", "norm"):
         shapes = sum(1 for key in warm_log.samples if key[0] == name)
         print(f"kernel {name}: max |kernel - plain| over limbs = "
               f"{sample_err[name]} (tolerance 0) on the warm audit's "
@@ -648,6 +727,12 @@ def main() -> int:
     loop_counts = {name: count - before[name]
                    for name, count in _build.launch_counts().items()
                    if count != before[name]}
+    products = 2 * len(bn._OPT_OPS) + int((bn._OPT_OPS == 0).sum()) + 2
+    if sum(loop_counts.values()) > 300 or loop_counts.get("conv", 0) \
+            or loop_counts.get("norm", 0) > 3 \
+            or loop_counts.get("tower", 0) != products:
+        fail(f"the Miller loop did not run each of its {products} tower "
+             f"products as one tower launch: {loop_counts}")
     loop_dev, loop_wall = device_times(loop)
     loop_split = kernel_split(loop_dev)
     print(f"time Miller loop (precomp, {n} rows): host {loop_ms:.2f} ms "
@@ -686,34 +771,75 @@ def main() -> int:
     kernel_ms = sum(k["ms"] for k in kernels)
 
     warm_counts = warm_log.counts
-    for name, work, call, plain_call in (
-            ("conv", lambda key, a: conv_work(key, a[2]), conv.conv_kernel,
-             conv.pair_conv_combine_plain),
-            ("norm", lambda key, a: norm_work(key), norm.normalize_kernel,
-             norm.normalize_plain)):
-        key = max((k for k in warm_counts if k[0] == name),
-                  key=lambda k: warm_counts[k])
+    tower_keys = sorted((k for k in warm_counts if k[0] == "tower"),
+                        key=lambda k: -warm_counts[k])
+    tower_bound = sum(tower_work(k, warm_log.samples[k][0])["bound_ms"]
+                      * warm_counts[k] for k in tower_keys)
+    for key in tower_keys:
         sample = warm_log.samples[key]
+        ms = cuda_ms(lambda: tower.tower_kernel(*sample), 50)
+        with route.plain_versions():
+            plain_ms = cuda_ms(lambda: sample[0].plain(*sample[1:]), 5,
+                               queued=False)
+        r = tower_work(key, sample[0])
+        print(f"time tower: kernel {ms:.4f} ms per launch at {key[1]} "
+              f"{key[2]} x {key[3]} ({warm_counts[key]} launches per warm "
+              f"audit), plain route {plain_ms:.3f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}: "
+              f"{r['multiply_adds']} multiply-adds, {r['bytes']} B) [{card}]")
+        if key == tower_keys[0]:
+            kernels.append({
+                "name": "tower", "route": "cuda",
+                "source": tower.KERNEL.source,
+                "replaces": tower.KERNEL.replaces,
+                "launches": warm_launches["tower"],
+                "max_abs_err": max(edge["tower"], sample_err["tower"]),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
+    print(f"time tower: per warm audit {warm_launches['tower']} launches, "
+          f"{warm_split['tower_kernel']:.2f} ms summed kernel time "
+          f"(profiler), bound {tower_bound:.4f} ms [{card}]")
+
+    # conv and normalize on their own, at fixed shapes: the line product
+    # (x read in place along the six outputs) and (1344, 25)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    lx = torch.randint(0, 1 << 12, (n, 1, 3, 2, 25), generator=gen,
+                       device=dev, dtype=torch.int32)
+    ly = torch.randint(0, 1 << 12, (n, 6, 3, 2, 25), generator=gen,
+                       device=dev, dtype=torch.int32)
+    nz = torch.randint(-(1 << 28), 1 << 28, (12 * n, 25), generator=gen,
+                       device=dev, dtype=torch.int32)
+    nz[:, -1] = nz[:, -1].abs()
+    standalone = (
+        ("conv", ("conv", "_LCOMB", tuple(lx.shape), tuple(ly.shape)),
+         (lx, ly, bn._LCOMB), conv.conv_kernel, conv.pair_conv_combine_plain,
+         lambda key: conv_work(key, bn._LCOMB)),
+        ("norm", ("norm", tuple(nz.shape)), (bn.FP, nz),
+         norm.normalize_kernel, norm.normalize_plain, norm_work))
+    for name, key, sample, call, plain_call, work in standalone:
+        err = max_abs_err(call(*sample), plain_call(*sample))
+        if err:
+            fail(f"{name} disagrees with its plain version at {key[1:]}")
         ms = cuda_ms(lambda: call(*sample), 50)
         plain_ms = cuda_ms(lambda: plain_call(*sample), 5, queued=False)
-        r = work(key, sample)
-        per_audit = [work(k, warm_log.samples[k]) for k in warm_counts
-                     if k[0] == name for _ in range(warm_counts[k])]
+        r = work(key)
+        per_audit = [work(k) for k in warm_counts if k[0] == name
+                     for _ in range(warm_counts[k])]
         audit_bound = sum(w["bound_ms"] for w in per_audit)
-        print(f"time {name}: kernel {ms:.4f} ms per launch at its most "
-              f"frequent shape {key[1:]} ({warm_counts[key]} of "
-              f"{warm_launches[name]} launches per warm audit), plain "
-              f"{plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
+        print(f"time {name}: kernel {ms:.4f} ms per launch at {key[1:]}, "
+              f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']}: {r['multiply_adds']} multiply-adds, "
               f"{r['bytes']} B); per warm audit: {warm_launches[name]} "
               f"launches, {warm_split[name + '_kernel']:.2f} ms summed "
-              f"kernel time (profiler), bound {audit_bound:.4f} ms [{card}]")
+              f"kernel time (profiler), bound {audit_bound:.4f} ms; cold "
+              f"audit {cold_launches[name]} launches [{card}]")
         kernel = _build.KERNELS[name]
         kernels.append({
             "name": name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": warm_launches[name],
-            "max_abs_err": max(edge[name], sample_err[name]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+            "max_abs_err": max(edge[name], sample_err.get(name, 0), err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
 
     votes = SHARDS * COMMITTEE

@@ -9,142 +9,109 @@
 //
 // with x (G, A, 25) and y (G, B, 25) limb planes per row and the output
 // (C, Gr, 49) raw column accumulators that the caller pads and
-// normalizes. The combine comes as a small int32 table of its nonzero
-// terms (ops/conv.py `term_table`), so one kernel serves every combine.
-// Each accumulator sums at most four 25-term columns of products of
-// canonical limbs (the reference's range contract), so every sum stays
-// below 2^30.7 and is the same integer in any order: the result equals
-// `pair_conv_combine_plain` limb for limb.
+// normalizes. The combine comes as a per-plane plan of its nonzero terms
+// (ops/conv.py `plane_plan`), so one kernel serves every combine, and the
+// result equals `pair_conv_combine_plain` limb for limb (csrc/conv.cuh).
+// The tower kernel (csrc/tower.cu) runs the same device code with the
+// pads and normalizes fused behind it; this entry is the counterpart of
+// `pair_conv_combine` for any combine table.
 //
 // The batch rows are the common broadcast of the two operands' leading
-// dims, walked in row-major order. Each operand comes with its own
-// element stride per leading dim, 0 where it is broadcast (a constant, or
-// the f of an Fp12 product against its six outputs), so a broadcast
-// operand is read in place and never copied out to every row. Each
-// row's (G, A, 25) or (G, B, 25) block is contiguous.
+// dims, walked in row-major order through each operand's own element
+// stride per leading dim (0 where it is broadcast), so a broadcast operand
+// is read in place and never copied out to every row. Each row's (G, A,
+// 25) or (G, B, 25) block is contiguous.
 //
 // What bounds it on this card: neither by much. Per row an Fp12 product
-// needs 24 × 625 int32 multiply-adds against ~2.6 KB read and written
-// (the broadcast f counted once), ~0.9 ns at the card's multiply-add
-// peak and ~0.8 ns at its memory rate; at a few hundred rows per launch
-// the launch and the serial column loops cost more than either. The
-// design: a block of 256 threads stages 8 rows of x and y (at most 4.8 KB
-// each for an Fp12 product) and the term table in shared memory with
-// coalesced loads, then gives each thread one output column (row, c, g,
-// n) at a time: neighbouring threads write neighbouring columns, and each
-// column walks its terms in registers.
+// needs 24 × 625 int32 multiply-adds against ~2.6 KB read and written;
+// at a few hundred rows per launch latency costs more than either. The
+// design: a block of 128 threads stages `rpb` rows of x and y and the
+// plan in shared memory (16-byte loads where aligned; the host picks rpb
+// so that the path's 112 to 672 rows spread over all SMs), then gives
+// each thread one balanced work item (row, plane, five column pairs)
+// that visits only its plane's terms, with its operand rows in
+// registers, so shared memory serves 50 loads per 125 multiply-adds.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
+#include "conv.cuh"
+
 namespace gs {
 
-constexpr int CONV_NL = 25;        // limbs per operand
-constexpr int CONV_NC = 2 * CONV_NL - 1;  // product columns
-constexpr int CONV_THREADS = 256;
-constexpr int CONV_ROWS = 8;       // batch rows per block
-constexpr int CONV_TERM = 6;       // ints per term: i, a, b, c, g, coef
-constexpr int CONV_MAX_DIMS = 6;   // leading dims after coalescing
+constexpr int CONV_THREADS = 128;
+constexpr int CONV_MAX_ROWS = 8;   // rows per block, at most
+constexpr int CONV_PAIRS = 5;      // column pairs per work item
+constexpr int CONV_ITEMS = CONV_NL / CONV_PAIRS;   // work items per plane
 
-// The batch rows' leading dims, outermost first, with each operand's
-// element stride (0 on a broadcast dim). Passed by value.
-struct ConvLead {
-  int ndim;
-  int size[CONV_MAX_DIMS];
-  long long xs[CONV_MAX_DIMS];
-  long long ys[CONV_MAX_DIMS];
-};
-
-// desc: ndim triples (size, x stride, y stride), outermost first.
-inline ConvLead conv_lead(int ndim, const long long* desc) {
-  ConvLead lead{};
-  lead.ndim = ndim;
-  for (int d = 0; d < ndim; ++d) {
-    lead.size[d] = (int)desc[3 * d];
-    lead.xs[d] = desc[3 * d + 1];
-    lead.ys[d] = desc[3 * d + 2];
-  }
-  return lead;
-}
-
-// x, y: the operands' first elements; n = the product of lead.size;
-// xw = G·A·25, yw = G·B·25; terms: (nterms, 6); out: (n, planes·49) with
-// planes = C·Gr.
+// x, y: the operands' first elements; n rows; xw = G·A·25, yw = G·B·25;
+// plan: (planes + 1) offsets, then (nterms, 4) terms (i, a, b, coef)
+// sorted by plane c·Gr + g; out: (n, planes·49). Dynamic shared memory:
+// rpb·(xw + yw) ints, each part rounded up to 4 ints, the plan, then the
+// block's rpb·planes·49 output columns, stored to out in one coalesced
+// pass.
 __global__ void __launch_bounds__(CONV_THREADS)
-    conv_kernel(const int* __restrict__ x, const int* __restrict__ y, int n,
-                int xw, int yw, int a_dim, int b_dim, int g_dim,
-                const int* __restrict__ terms, int nterms, int planes,
-                ConvLead lead, int* __restrict__ out) {
-  extern __shared__ int smem[];
-  __shared__ long long row_off[2 * CONV_ROWS];   // x, then y offsets
+    conv_kernel(const int* __restrict__ x, const int* __restrict__ y,
+                long long n, int xw, int yw, int a_dim, int b_dim,
+                const int* __restrict__ plan, int planes, int nterms,
+                int rpb, ConvLead lead, int* __restrict__ out) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ long long row_off[2 * CONV_MAX_ROWS];   // x, then y offsets
   int* sx = smem;
-  int* sy = sx + CONV_ROWS * xw;
-  int* st = sy + CONV_ROWS * yw;
+  int* sy = sx + ((rpb * xw + 3) & ~3);
+  int* sp = sy + ((rpb * yw + 3) & ~3);
+  int* s_out = sp + planes + 1 + PLAN_TERM * nterms;   // rpb·planes·49
 
-  const long r0 = (long)blockIdx.x * CONV_ROWS;
-  const int rows = n - r0 < CONV_ROWS ? (int)(n - r0) : CONV_ROWS;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    long long rest = r0 + r, ox = 0, oy = 0;
-    for (int d = lead.ndim - 1; d >= 0; --d) {
-      const long long c = rest % lead.size[d];
-      rest /= lead.size[d];
-      ox += c * lead.xs[d];
-      oy += c * lead.ys[d];
-    }
-    row_off[r] = ox;
-    row_off[CONV_ROWS + r] = oy;
-  }
+  const long long r0 = (long long)blockIdx.x * rpb;
+  const int rows = n - r0 < rpb ? (int)(n - r0) : rpb;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x)
+    lead_offsets(lead, (int)(r0 + r), row_off[r], row_off[CONV_MAX_ROWS + r]);
+  for (int i = threadIdx.x; i < planes + 1 + PLAN_TERM * nterms;
+       i += blockDim.x)
+    sp[i] = plan[i];
   __syncthreads();
-  for (int i = threadIdx.x; i < rows * xw; i += blockDim.x) {
-    const int r = i / xw;
-    sx[i] = x[row_off[r] + (i - r * xw)];
-  }
-  for (int i = threadIdx.x; i < rows * yw; i += blockDim.x) {
-    const int r = i / yw;
-    sy[i] = y[row_off[CONV_ROWS + r] + (i - r * yw)];
-  }
-  for (int i = threadIdx.x; i < nterms * CONV_TERM; i += blockDim.x)
-    st[i] = terms[i];
+  stage_rows(sx, xw, x, row_off, rows, xw);
+  stage_rows(sy, yw, y, row_off + CONV_MAX_ROWS, rows, yw);
   __syncthreads();
 
+  const int* terms = sp + planes + 1;
   const int ow = planes * CONV_NC;
-  for (int o = threadIdx.x; o < rows * ow; o += blockDim.x) {
-    const int r = o / ow;
-    const int rem = o - r * ow;
-    const int p = rem / CONV_NC;
-    const int col = rem - p * CONV_NC;
-    const int lo = col > CONV_NL - 1 ? col - (CONV_NL - 1) : 0;
-    const int hi = col < CONV_NL - 1 ? col : CONV_NL - 1;
-    int acc = 0;
-    for (int k = 0; k < nterms; ++k) {
-      const int* tk = st + k * CONV_TERM;
-      if (tk[3] * g_dim + tk[4] != p) continue;
-      const int* u = sx + r * xw + (tk[0] * a_dim + tk[1]) * CONV_NL;
-      const int* v = sy + r * yw + (tk[0] * b_dim + tk[2]) * CONV_NL;
-      int s = 0;
-      for (int l = lo; l <= hi; ++l) s += u[l] * v[col - l];
-      acc += tk[5] * s;
-    }
-    out[r0 * ow + o] = acc;
+  for (int t = threadIdx.x; t < rows * planes * CONV_ITEMS; t += blockDim.x) {
+    const int r = t / (planes * CONV_ITEMS);
+    const int rem = t - r * planes * CONV_ITEMS;
+    const int p = rem / CONV_ITEMS, j = rem - p * CONV_ITEMS;
+    const int* xr = sx + r * xw;
+    const int* yr = sy + r * yw;
+    plane_item<CONV_PAIRS>(
+        terms, sp[p], sp[p + 1],
+        [&](int i, int a) { return xr + (i * a_dim + a) * CONV_NL; },
+        [&](int i, int b) { return yr + (i * b_dim + b) * CONV_NL; }, j,
+        nullptr, s_out + t / CONV_ITEMS * CONV_NC);
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows * ow; i += blockDim.x)
+    out[r0 * ow + i] = s_out[i];
 }
 
 }  // namespace gs
 
 #ifdef __CUDACC__
-extern "C" int gs_conv(const int* x, const int* y, int n, int xw, int yw,
-                       int a_dim, int b_dim, int g_dim, const int* terms,
-                       int nterms, int planes, int ndim,
+extern "C" int gs_conv(const int* x, const int* y, long long n, int xw,
+                       int yw, int a_dim, int b_dim, const int* plan,
+                       int planes, int nterms, int rpb, int ndim,
                        const long long* lead_desc, int* out,
                        cudaStream_t stream) {
-  if (ndim < 0 || ndim > gs::CONV_MAX_DIMS) return (int)cudaErrorInvalidValue;
+  if (ndim < 0 || ndim > gs::CONV_MAX_DIMS || rpb < 1 ||
+      rpb > gs::CONV_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
   const gs::ConvLead lead = gs::conv_lead(ndim, lead_desc);
-  const int blocks = (n + gs::CONV_ROWS - 1) / gs::CONV_ROWS;
-  const int smem = (gs::CONV_ROWS * (xw + yw) + gs::CONV_TERM * nterms) *
+  const long long blocks = (n + rpb - 1) / rpb;
+  const int smem = (((rpb * xw + 3) & ~3) + ((rpb * yw + 3) & ~3) + planes +
+                    1 + gs::PLAN_TERM * nterms + rpb * planes * gs::CONV_NC) *
                    (int)sizeof(int);
-  gs::conv_kernel<<<blocks, gs::CONV_THREADS, smem, stream>>>(
-      x, y, n, xw, yw, a_dim, b_dim, g_dim, terms, nterms, planes, lead, out);
+  gs::conv_kernel<<<(unsigned)blocks, gs::CONV_THREADS, smem, stream>>>(
+      x, y, n, xw, yw, a_dim, b_dim, plan, planes, nterms, rpb, lead, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -9,10 +9,10 @@ sources come from this package's `csrc/` only.
 The build runs at the first kernel launch, so a fresh checkout needs no
 step of its own. Nothing here runs at import.
 
-`Kernel` binds one entry point: it launches on PyTorch's current stream,
-raises on a non-zero CUDA error, and counts its launches. Every `Kernel`
-made is listed in `KERNELS`, so a caller can count the launches of a
-whole run (`launch_counts`).
+`Kernel` binds one entry point (looked up once, at its first launch): it
+launches on PyTorch's current stream, raises on a non-zero CUDA error,
+and counts its launches. Every `Kernel` made is listed in `KERNELS`, so
+a caller can count the launches of a whole run (`launch_counts`).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures of the entry points (every pointer and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
@@ -44,8 +45,9 @@ SIGNATURES = {
     "gs_agg_g2": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "gs_miller": [_P] * 9 + [_I, _P, _P, _P, _I, _P, _P],
     "gs_finalexp": [_P, _P, _I, _P, _I, _P, _P],
-    "gs_norm": [_P, _I, _I, _P, _P, _P, _P],
-    "gs_conv": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "gs_norm": [_P, _L, _I, _P, _P, _P, _P],
+    "gs_conv": [_P, _P, _L, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "gs_tower": [_I, _P, _P, _L, _I, _P, _P, _I, _P, _P],
 }
 
 _lib = None
@@ -149,12 +151,17 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fn = None
         KERNELS[name] = self
 
     def launch(self, *args) -> None:
-        fn = getattr(library(), self.symbol)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, ctypes.c_void_p(stream))
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(library(), self.symbol)
+        # the current stream's handle, without building a Stream object
+        stream = torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device())
+        err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with "
                                f"{error_string(err)}")

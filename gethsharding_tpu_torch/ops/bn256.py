@@ -11,11 +11,15 @@ The port's counterpart of the parts of the JAX package's
   NAF digits of u (`_U_NAF`), and 3·b' of the twist (`_B3_G2_LIMBS`);
 - the tower: Fp2 and Fp12 products with the reference's combine tensors,
   pads and normalize sequence, so each function gives the reference's
-  limbs. Every product goes through `ops/conv.py` and every reduction
-  through `ops/norm.py`, so on the card they run in the two kernels. One
-  formulation differs: `fp2_sqr` is the reference's kernel form (one
-  fused plane with coefficient 2), which equals its default XLA form
-  only mod p;
+  limbs. On a CUDA tensor every product (`FP.mul`, `fp2_mul`/`fp2_sqr`,
+  `fp12_mul`/`fp12_sqr`, `fp12_mul_line`) is one launch of the tower
+  kernel (`ops/tower.py`), and every other reduction goes through
+  `ops/norm.py`; each product's body below is its plain route (conv
+  through `ops/conv.py`, reductions through `ops/norm.py`), which runs
+  for a CPU tensor and inside `route.plain_versions()` and gives the
+  same limbs. One formulation differs: `fp2_sqr` is the reference's
+  kernel form (one fused plane with coefficient 2), which equals its
+  default XLA form only mod p;
 - the host converters from curve points to limb planes;
 - `bls_aggregate_verify_committee_batch`, which chains the three kernel
   functions of `ops/megakernels.py` (G1 and G2 committee sums, the Miller
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as ref
-from gethsharding_tpu_torch.ops import conv
+from gethsharding_tpu_torch.ops import conv, route, tower
 from gethsharding_tpu_torch.ops.limb import (LAZY_BITS, NLIMBS, ModArith,
                                              const, int_to_limbs,
                                              ints_to_limbs, pad_last)
@@ -184,21 +188,31 @@ _FP2_PAD = np.zeros((2, _FP2_W), np.int32)  # pad only the subtracting re
 _FP2_PAD[0, : _PAD530.shape[0]] = _PAD530
 
 
-def _fp2_product(x, y, comb):
+def _fp2_product(x, y, plan):
+    if route.use_kernel(x):
+        return tower.tower_kernel(plan, x[..., None, :, :],
+                                  y[..., None, :, :])
     acc = conv.pair_conv_combine(x[..., None, :, :], y[..., None, :, :],
-                                 comb)[..., 0, :]             # (..., 2, 49)
+                                 plan.comb)[..., 0, :]        # (..., 2, 49)
     return FP.normalize(_pad_to(acc, _FP2_W) + const(_FP2_PAD, acc.device))
 
 
 def fp2_mul(x, y):
     """(a+bi)(c+di) = (ac - bd) + (ad + bc)i, one normalize."""
-    return _fp2_product(x, y, _COMB_FP2)
+    return _fp2_product(x, y, _FP2_MUL)
 
 
 def fp2_sqr(x):
     """The reference's kernel form: re and the doubled im from three
     planes, one normalize (equal to its XLA form mod p)."""
-    return _fp2_product(x, x, _COMB_FP2_SQR)
+    return _fp2_product(x, x, _FP2_SQR)
+
+
+_FP2_MUL = tower.Plan(tower.FP2, FP, _COMB_FP2, _FP2_PAD[:, None],
+                      plain=lambda u, v: fp2_mul(u[..., 0, :, :],
+                                                 v[..., 0, :, :]))
+_FP2_SQR = tower.Plan(tower.FP2, FP, _COMB_FP2_SQR, _FP2_PAD[:, None],
+                      plain=lambda u, v: fp2_sqr(u[..., 0, :, :]))
 
 
 def fp2_scalar(x, k: int):
@@ -270,7 +284,9 @@ def fp12_mul(x, y):
     """w-basis product: cyclic convolution with xi on wrap-around. The six
     outputs k share one conv launch (their columns are independent); one
     normalize reduces every (k, c, g), and two lazy adds merge the
-    groups."""
+    groups. One tower-kernel launch on a CUDA tensor."""
+    if route.use_kernel(x):
+        return tower.tower_kernel(_FP12_MUL, x, y)
     xiy = fp2_mul_xi(y)
     w = torch.stack([y, xiy], dim=-4)                      # (..., 2, 6, 2, 25)
     op = w[..., _CONV_SEL, _CONV_J, :, :]                  # (..., 6k, 6i, 2, 25)
@@ -279,6 +295,11 @@ def fp12_mul(x, y):
     parts = FP.normalize(acc)                              # (..., 6, 2, 3, 25)
     merged = FP.normalize(parts[..., 0, :] + parts[..., 1, :])
     return FP.normalize(merged + parts[..., 2, :])
+
+
+_FP12_MUL = tower.Plan(tower.FP12, FP, _COMB, _GROUP_PAD[3],
+                       plain=lambda u, v: fp12_mul(u, v), sel=_CONV_SEL,
+                       idx=_CONV_J, xi_pad=_PAD266)
 
 
 def fp12_sqr(x):
@@ -327,15 +348,23 @@ for _t in range(3):
 
 
 def fp12_mul_line(f, line):
-    """f · (A + B·w + C·w^3), sparse; the six outputs in one conv launch."""
-    lstack = torch.stack(torch.broadcast_tensors(*line), dim=-3)  # (..., 3, 2, 25)
+    """f · (A + B·w + C·w^3), sparse; line (..., 3, 2, 25) stacks A, B, C
+    and broadcasts against f. The six outputs in one conv launch; one
+    tower-kernel launch on a CUDA tensor."""
+    if route.use_kernel(f):
+        return tower.tower_kernel(_LINE_MUL, line, f)
     xif = fp2_mul_xi(f)
     w = torch.stack([f, xif], dim=-4)                      # (..., 2, 6, 2, 25)
     op = w[..., _LINE_SEL, _LINE_J, :, :]                  # (..., 6k, 3, 2, 25)
-    acc = conv.pair_conv_combine(lstack[..., None, :, :, :], op, _LCOMB)
+    acc = conv.pair_conv_combine(line[..., None, :, :, :], op, _LCOMB)
     acc = _pad_to(acc, _ACC_W) + const(_GROUP_PAD[2], acc.device)
     parts = FP.normalize(acc)                              # (..., 6, 2, 2, 25)
     return FP.normalize(parts[..., 0, :] + parts[..., 1, :])
+
+
+_LINE_MUL = tower.Plan(tower.LINE, FP, _LCOMB, _GROUP_PAD[2],
+                       plain=lambda u, v: fp12_mul_line(v, u), sel=_LINE_SEL,
+                       idx=_LINE_J, xi_pad=_PAD266)
 
 
 # == G2 Jacobian steps in coefficient form =================================
@@ -555,11 +584,12 @@ def miller_loop_precomp(sig, hx, hy, table, gen_lines=None):
                        table[..., 2:, :, :]], dim=-3)      # (..., 88, 3, 2, 25)
     f = FP.normalize(const(FP12_ONE, dev).expand(sx.shape[:-1]
                                                  + FP12_ONE.shape))
-    for i, op in enumerate(_OPT_OPS.tolist()):
+    steps = zip(_OPT_OPS.tolist(), gen_ev.unbind(-4), pk_ev.unbind(-4))
+    for op, gen_line, pk_line in steps:
         if op == 0:
             f = fp12_sqr(f)
-        f = fp12_mul_line(f, gen_ev[..., i, :, :, :].unbind(-3))
-        f = fp12_mul_line(f, pk_ev[..., i, :, :, :].unbind(-3))
+        f = fp12_mul_line(f, gen_line)
+        f = fp12_mul_line(f, pk_line)
     return f
 
 

@@ -19,12 +19,14 @@ unique representative below p through a float64 quotient estimate and
 one corrected subtraction instead of the reference's 46-step descent;
 the result is the same unique value.
 
-`ModArith.mul_cols` sends every schoolbook product on a CUDA tensor
-through the conv kernel of `ops/conv.py` with the identity combine of one
-plane, which gives the same integer columns as `conv_cols`. The JAX
-package computes its `mul_cols` outside any Pallas kernel; this routing
-is the port's own choice, so that every product on the card runs in a
-hand-written kernel.
+`ModArith.mul` on a CUDA tensor is one launch of the tower kernel
+(`ops/tower.py`): the conv with the identity combine of one plane, then
+the normalize, in one pass. Its plain route, `mul_cols` then `normalize`,
+gives the same limbs; `mul_cols` on a CUDA tensor goes through the conv
+kernel of `ops/conv.py`, which gives the same integer columns as
+`conv_cols`. The JAX package computes its `mul_cols` outside any Pallas
+kernel; this routing is the port's own choice, so that every product on
+the card runs in a hand-written kernel.
 
 The 22-limb exact form, the relaxed normalize option and the secp256k1
 moduli are not part of this module yet.
@@ -193,6 +195,10 @@ class ModArith:
         self.lift = int_to_limbs(-(-(1 << 261) // p) * p, FOLD_BASE)
         self.p_limbs = int_to_limbs(p, NLIMBS + 1)
         self._pad_cache: dict = {}
+        self.mul_plan = tower.Plan(
+            tower.FP, self, _IDENTITY, np.zeros((1, 1, 2 * NLIMBS - 1),
+                                                np.int32),
+            plain=lambda u, v: self.mul(u[..., 0, 0, :], v[..., 0, 0, :]))
 
     def normalize(self, z: torch.Tensor) -> torch.Tensor:
         """Reduce any accumulator (..., L) with |limb| < 2^30.7 and value
@@ -215,6 +221,11 @@ class ModArith:
         return cols[..., 0, 0, :]
 
     def mul(self, x, y):
+        """x·y in lazy form; leading dims broadcast. One tower-kernel
+        launch on a CUDA tensor."""
+        if route.use_kernel(x):
+            return tower.tower_kernel(self.mul_plan, x[..., None, None, :],
+                                      y[..., None, None, :])
         return self.normalize(self.mul_cols(x, y))
 
     def pad_mult(self, bits: int) -> np.ndarray:
@@ -270,5 +281,5 @@ class ModArith:
 # the identity combine of one product plane (`ModArith.mul_cols`)
 _IDENTITY = np.ones((1, 1, 1, 1, 1), np.int32)
 
-# imported last: both build on this module's helpers
-from gethsharding_tpu_torch.ops import conv, norm  # noqa: E402
+# imported last: they build on this module's helpers
+from gethsharding_tpu_torch.ops import conv, norm, route, tower  # noqa: E402

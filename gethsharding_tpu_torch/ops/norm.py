@@ -5,7 +5,8 @@ wide form: three relaxed carry rounds into W + 3 limbs, the fold of limbs
 >= 22 through the (33, 22) rows 2^(12(22+k)) mod p, + lift, and one exact
 carry into 25 canonical limbs. `normalize` is the route
 (`ops/route.py`): `csrc/norm.cu` for a CUDA tensor, `normalize_plain` for
-a CPU tensor. Both give the same limbs, so the reference's own
+a CPU tensor. Its device code (`csrc/norm.cuh`) also runs inside the
+tower kernel (`ops/tower.py`), for every normalize of a tower product. Both give the same limbs, so the reference's own
 `ModArith.normalize` is the oracle of either.
 
 The TPU kernel's exact 22-limb branch (`pallas_norm.py:83-91`) belongs to

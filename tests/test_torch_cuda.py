@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
-from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route
+from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route, tower
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -71,6 +71,12 @@ def test_tower_wrappers_refuse_cpu_tensors():
         norm.normalize_kernel(bn.FP, torch.zeros((3, 53), dtype=torch.int32))
     with pytest.raises(ValueError, match="unsupported device"):
         route.use_kernel(torch.zeros(2, device="meta"))
+    f = torch.zeros((3, 6, 2, 25), dtype=torch.int32)
+    for plan, u, v in ((bn._FP12_MUL, f, f), (bn._LINE_MUL, f[:, :3], f),
+                       (bn._FP2_MUL, x, x), (bn.FP.mul_plan, x[..., :1, :1, :],
+                                             x[..., :1, :1, :])):
+        with pytest.raises(ValueError, match="CUDA"):
+            tower.tower_kernel(plan, u, v)
     assert _build.launch_counts() == before
 
 
@@ -88,6 +94,58 @@ def test_conv_kernel_equals_plain(cuda, name):
     const = _canon(rng, (G, B), cuda)   # a constant against the batch
     assert torch.equal(conv.pair_conv_combine(x, const, comb),
                        conv.pair_conv_combine_plain(x, const, comb))
+
+
+def test_row_walk_refuses_rows_past_32_bits():
+    """The kernels index batch rows in 32 bits; the row plan refuses more
+    (shapes only: nothing is allocated)."""
+    block = (1, 1, 25)
+    lead, n = conv.broadcast_plan((2, 3) + block, (75, 25, 25, 25, 1),
+                                  block, (25, 25, 1))[:2]
+    assert lead == (2, 3) and n == 6
+    with pytest.raises(ValueError, match="2\\^31"):
+        conv.broadcast_plan((1 << 16, 1 << 15) + block,
+                            (25 << 15, 25, 25, 25, 1), block, (25, 25, 1))
+
+
+# each product: its plan, and its two operands' point shapes (u, v)
+_TOWER = {"fp_mul": (lambda: bn.FP.mul_plan, (), ()),
+          "fp2_mul": (lambda: bn._FP2_MUL, (2,), (2,)),
+          "fp2_sqr": (lambda: bn._FP2_SQR, (2,), (2,)),
+          "fp12_mul": (lambda: bn._FP12_MUL, (6, 2), (6, 2)),
+          "fp12_sqr": (lambda: bn._FP12_MUL, (6, 2), (6, 2)),
+          "fp12_mul_line": (lambda: bn._LINE_MUL, (3, 2), (6, 2))}
+
+
+def _kernel_form(t, point):
+    """(..., *point, 25) -> the tower kernel's (..., G, A, 25) operand."""
+    lead = t.shape[:t.dim() - 1 - len(point)]
+    return t.reshape(lead + (1,) * (2 - len(point)) + tuple(point) + (25,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_TOWER))
+def test_tower_kernel_equals_plain(cuda, name):
+    """One tower launch per product against the plain route on the card:
+    a partial block, leading dims with a broadcast middle dim, a
+    broadcast constant, all-4095 limbs."""
+    plan_of, us, vs = _TOWER[name]
+    plan = plan_of()
+    rng = np.random.default_rng(94)
+    for lu, lv in (((113,), (113,)), ((3, 1), (3, 37)), ((112,), ()),
+                   ((4, 29), (4, 29))):
+        u = _kernel_form(_canon(rng, lu + us, cuda), us)
+        v = _kernel_form(_canon(rng, lv + vs, cuda), vs)
+        if lu == (4, 29):
+            u, v = torch.full_like(u, 4095), torch.full_like(v, 4095)
+        if name.endswith("sqr"):
+            v = u
+        before = tower.KERNEL.launches
+        got = tower.tower_kernel(plan, u, v)
+        assert tower.KERNEL.launches == before + 1
+        with route.plain_versions():
+            want = plan.plain(u, v)
+        assert torch.equal(got, want), (name, lu, lv)
 
 
 @pytest.mark.cuda
@@ -168,7 +226,8 @@ def test_precomp_audit_on_card(cuda):
     assert warm["g2_wire_bytes"] == 0 and warm["hit_rows"] == 5
     counts = _build.launch_counts()
     assert counts["miller"] == counts["agg_g2"] == 0
-    assert counts["conv"] > 0 and counts["norm"] > 0
+    assert counts["tower"] > 0 and counts["norm"] > 0
+    assert counts["conv"] == 0   # every product is one tower launch
     assert counts["agg_g1"] == counts["finalexp"] == 1
     planes = [torch.as_tensor(a, device=cuda)
               for a in committee_planes(msgs, sig_rows, pk_rows)]

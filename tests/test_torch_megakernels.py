@@ -7,9 +7,10 @@ pallas_finalexp.py):
    CPU, limb for limb, on random quasi-canonical inputs (exact: integer
    arithmetic has no rounding);
 3. the plain committee sums give the scalar reference's points;
-4. the CUDA sources (the audit kernels, and the tower's conv and
-   normalize kernels), compiled for the host with one thread per block,
-   give the plain versions' limbs;
+4. the CUDA sources (the audit kernels, the tower's conv and normalize
+   kernels, and the tower kernel that fuses them into one launch per
+   product), compiled for the host with one thread per block, give the
+   plain versions' limbs, and the tower kernel the reference's;
 5. (slow) the plain Miller program and final exponentiation equal the
    reference's XLA oracles on real committee inputs.
 
@@ -21,7 +22,6 @@ reference helpers take the batch on the minor axis; the port's on the
 leading one, so the tests move that axis and compare like with like."""
 
 import ctypes
-import math
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -37,7 +37,7 @@ from gethsharding_tpu.ops import pallas_finalexp as m
 from gethsharding_tpu_torch import convert
 from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as pbn
-from gethsharding_tpu_torch.ops import conv, norm
+from gethsharding_tpu_torch.ops import conv, norm, tower
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.ops.limb import limbs_to_int
 
@@ -233,6 +233,8 @@ static Dim threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #define __constant__ static
 #define __shared__
 #define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
+struct int4 { int x, y, z, w; };
 inline void __syncthreads() {}
 """
 
@@ -271,9 +273,9 @@ extern "C" void run(const int* nd, const int* prog, int nsteps,
   }
 }""",
     "norm": r"""
-extern "C" void run(const int* z, int n, int w, const int* fold,
+extern "C" void run(const int* z, long long n, int w, const int* fold,
                     const int* lift, int* out) {
-  for (int b = 0; b < n; ++b) {
+  for (long long b = 0; b * gs::NORM_ROWS < n; ++b) {
     blockIdx.x = b;
     if (w <= 25) gs::norm_kernel<25>(z, n, w, fold, lift, out);
     else if (w == 26) gs::norm_kernel<26>(z, n, w, fold, lift, out);
@@ -282,16 +284,38 @@ extern "C" void run(const int* z, int n, int w, const int* fold,
   }
 }""",
     "conv": r"""
-namespace gs { int smem[1 << 16]; }
-extern "C" void run(const int* x, const int* y, int n, int xw, int yw,
-                    int a_dim, int b_dim, int g_dim, const int* terms,
-                    int nterms, int planes, int ndim, const long long* desc,
+namespace gs { int smem[1 << 16] __attribute__((aligned(16))); }
+extern "C" void run(const int* x, const int* y, long long n, int xw, int yw,
+                    int a_dim, int b_dim, const int* plan, int planes,
+                    int nterms, int rpb, int ndim, const long long* desc,
                     int* out) {
   const gs::ConvLead lead = gs::conv_lead(ndim, desc);
-  for (int b = 0; b * gs::CONV_ROWS < n; ++b) {
+  for (long long b = 0; b * rpb < n; ++b) {
     blockIdx.x = b;
-    gs::conv_kernel(x, y, n, xw, yw, a_dim, b_dim, g_dim, terms, nterms,
-                    planes, lead, out);
+    gs::conv_kernel(x, y, n, xw, yw, a_dim, b_dim, plan, planes, nterms,
+                    rpb, lead, out);
+  }
+}""",
+    "tower": r"""
+template <int KIND>
+static void run_kind(const int* u, const int* v, long long n,
+                     const gs::ConvLead& lead, const int* pack, int nterms,
+                     int* out) {
+  using S = gs::TowerShape<KIND>;
+  for (long long b = 0; b < (n + S::ROWS - 1) / S::ROWS; ++b) {
+    blockIdx.x = b;
+    gs::tower_kernel<KIND>(u, v, n, lead, pack, nterms, out);
+  }
+}
+extern "C" void run(int kind, const int* u, const int* v, long long n,
+                    int ndim, const long long* desc, const int* pack,
+                    int nterms, int* out) {
+  const gs::ConvLead lead = gs::conv_lead(ndim, desc);
+  switch (kind) {
+    case gs::TOWER_FP: run_kind<gs::TOWER_FP>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_FP2: run_kind<gs::TOWER_FP2>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_FP12: run_kind<gs::TOWER_FP12>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_LINE: run_kind<gs::TOWER_LINE>(u, v, n, lead, pack, nterms, out); break;
   }
 }""",
 }
@@ -385,26 +409,23 @@ def test_norm_source_on_host_equals_plain(host_kernels, width):
     z[0] = int(2 ** 30.7) - 1                   # the bound edge
     z = torch.as_tensor(z)
     out = torch.zeros((n, 25), dtype=torch.int32)
-    host_kernels["norm"].run(_p(z), n, width,
+    host_kernels["norm"].run(_p(z), ctypes.c_longlong(n), width,
                              _p(mk.const(pbn.FP.fold_j, "cpu")),
                              _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
     assert torch.equal(out, norm.normalize_plain(pbn.FP, z))
 
 
-def _host_conv(kernel, x, y, comb):
-    """The conv source on x, y with the wrapper's broadcast plan: each
-    operand in place, with its strides over the common lead."""
+def _host_conv(kernel, x, y, comb, rpb):
+    """The conv source on x, y with the wrapper's broadcast plan (each
+    operand in place, with its strides over the common lead), `rpb` rows
+    per block."""
     G, A, B, C, Gr = comb.shape
-    lead = tuple(torch.broadcast_shapes(x.shape[:-3], y.shape[:-3]))
-    x, x_strides = conv._operand(x, lead)
-    y, y_strides = conv._operand(y, lead)
-    dims = conv._lead_desc(lead, x_strides, y_strides)
-    desc = (ctypes.c_longlong * max(1, 3 * len(dims)))(
-        *(v for dim in dims for v in dim))
-    table = mk.const(conv.term_table(comb), "cpu")
+    x, y, lead, n, ndim, desc = conv.broadcast_rows(x, y)
+    plan = conv.plane_plan(comb)
     out = torch.zeros(lead + (C, Gr, 49), dtype=torch.int32)
-    kernel.run(_p(x), _p(y), math.prod(lead), G * A * 25, G * B * 25, A, B,
-               Gr, _p(table), table.shape[0], C * Gr, len(dims), desc,
+    kernel.run(_p(x), _p(y), ctypes.c_longlong(n), G * A * 25,
+               G * B * 25, A, B, _p(mk.const(plan, "cpu")), C * Gr,
+               conv.plan_terms(plan, C * Gr).shape[0], rpb, ndim, desc,
                _p(out))
     return out
 
@@ -414,7 +435,7 @@ def _host_conv(kernel, x, y, comb):
 def test_conv_source_on_host_equals_plain(host_kernels, name):
     comb = (np.ones((1,) * 5, np.int32) if name == "identity"
             else getattr(pbn, name))
-    G, A, B = comb.shape[:3]
+    G, A, B, C, Gr = comb.shape
     rng = np.random.default_rng(87)
     cases = [   # a partial last block; x broadcast along a middle dim (the
                 # Fp12 product's f); a constant y; a constant x; x a view
@@ -425,9 +446,117 @@ def test_conv_source_on_host_equals_plain(host_kernels, name):
         (_canon(rng, (G, A)), _canon(rng, (9, G, B))),
         (_canon(rng, (10, 2, G, A))[:, 1], _canon(rng, (10, G, B))),
     ]
+    widest = conv.rows_per_block(10 ** 6, C * Gr)   # the most rows a block takes
     for x, y in cases:
-        assert torch.equal(_host_conv(host_kernels["conv"], x, y, comb),
-                           conv.pair_conv_combine_plain(x, y, comb))
+        want = conv.pair_conv_combine_plain(x, y, comb)
+        for rpb in sorted({1, widest}):
+            assert torch.equal(_host_conv(host_kernels["conv"], x, y, comb,
+                                          rpb), want)
+
+
+@pytest.mark.parametrize("name", ["_COMB_FP2", "_COMB_FP2_SQR", "_COMB",
+                                  "_LCOMB", "identity"])
+def test_plane_plan_covers_every_term_once(name):
+    """The per-plane plan of the conv and tower kernels lists each nonzero
+    of the combine tensor exactly once, in its plane, with its
+    coefficient."""
+    comb = (pbn.FP.mul_plan.comb if name == "identity"
+            else getattr(pbn, name))
+    G, A, B, C, Gr = comb.shape
+    plan = conv.plane_plan(comb)
+    offsets = plan[:C * Gr + 1]
+    terms = conv.plan_terms(plan, C * Gr)
+    assert offsets[0] == 0 and offsets[-1] == terms.shape[0]
+    assert (np.diff(offsets) >= 0).all()
+    rebuilt = np.zeros_like(comb)
+    seen = set()
+    for p in range(C * Gr):
+        for i, a, b, coef in terms[offsets[p]:offsets[p + 1]]:
+            key = (i, a, b, p // Gr, p % Gr)
+            assert key not in seen and coef != 0
+            seen.add(key)
+            rebuilt[key] = coef
+    assert (rebuilt == comb).all()
+    assert len(seen) == np.count_nonzero(comb)
+
+
+# == the tower kernel (one launch per product), run on the host ==============
+
+
+def _host_tower(kernel, plan, u, v):
+    u, v, n, ndim, desc, out = tower.launch_args(plan, u, v)
+    kernel.run(plan.kind, _p(u), _p(v), ctypes.c_longlong(n), ndim, desc,
+               _p(mk.const(plan.pack, "cpu")), plan.nterms, _p(out))
+    return out
+
+
+# each product: (plan, its operands in the kernel's form from the
+# function's own x, y, and the function's own shapes of x and y)
+_TOWER_PRODUCTS = {
+    "fp_mul": (lambda: pbn.FP.mul_plan,
+               lambda x, y: (x[..., None, None, :], y[..., None, None, :]),
+               (), ()),
+    "fp2_mul": (lambda: pbn._FP2_MUL,
+                lambda x, y: (x[..., None, :, :], y[..., None, :, :]),
+                (2,), (2,)),
+    "fp2_sqr": (lambda: pbn._FP2_SQR,
+                lambda x, y: (x[..., None, :, :], x[..., None, :, :]),
+                (2,), (2,)),
+    "fp12_mul": (lambda: pbn._FP12_MUL, lambda x, y: (x, y), (6, 2), (6, 2)),
+    "fp12_sqr": (lambda: pbn._FP12_MUL, lambda x, y: (x, x), (6, 2), (6, 2)),
+    "fp12_mul_line": (lambda: pbn._LINE_MUL, lambda f, line: (line, f),
+                      (6, 2), (3, 2)),
+}
+
+
+def _tower_cases(rng, xs, ys):
+    """Random canonical limbs with a partial block of the eight-row Fp
+    kind; all-4095 and all-zero limbs; a broadcast constant y; a constant
+    x; leading dims with x broadcast along the middle one."""
+    full = lambda lead, shape, v: torch.full(lead + shape + (25,), v,
+                                             dtype=torch.int32)
+    return [
+        (_canon(rng, (11,) + xs), _canon(rng, (11,) + ys)),
+        (full((3,), xs, 4095), full((3,), ys, 4095)),
+        (full((2,), xs, 0), _canon(rng, (2,) + ys)),
+        (_canon(rng, (5,) + xs), _canon(rng, ys)),
+        (_canon(rng, xs), _canon(rng, (9,) + ys)),
+        (_canon(rng, (2, 1) + xs), _canon(rng, (2, 3) + ys)),
+    ]
+
+
+@pytest.mark.parametrize("name", list(_TOWER_PRODUCTS))
+def test_tower_source_on_host_equals_plain(host_kernels, name):
+    """Each product kind through the tower source (one launch per
+    product) gives the plain tower's limbs."""
+    plan_of, operands, xs, ys = _TOWER_PRODUCTS[name]
+    plan = plan_of()
+    for x, y in _tower_cases(np.random.default_rng(88), xs, ys):
+        u, v = operands(x, y)
+        got = _host_tower(host_kernels["tower"], plan, u, v)
+        assert torch.equal(got, plan.plain(u, v)), name
+
+
+@pytest.mark.parametrize("name", ["fp12_mul", "fp12_mul_line"])
+def test_tower_source_on_host_equals_reference(host_kernels, name):
+    """The tower source against the JAX package's `fp12_mul` and
+    `fp12_mul_line` on lazy inputs, limb for limb."""
+    rng = np.random.default_rng(89)
+    lazy = lambda shape: pbn.ints_to_limbs(
+        [int.from_bytes(rng.bytes(34), "little") for _ in
+         range(int(np.prod(shape)))]).reshape(shape + (25,))
+    x12 = lazy((3, 6, 2))
+    if name == "fp12_mul":
+        other = lazy((3, 6, 2))
+        want = k.fp12_mul(jnp.asarray(x12), jnp.asarray(other))
+        u, v, plan = _t(x12), _t(other), pbn._FP12_MUL
+    else:
+        other = lazy((3, 3, 2))
+        want = k.fp12_mul_line(jnp.asarray(x12),
+                               tuple(jnp.asarray(other[:, t]) for t in range(3)))
+        u, v, plan = _t(other), _t(x12), pbn._LINE_MUL
+    got = _host_tower(host_kernels["tower"], plan, u, v)
+    assert (got.numpy() == np.asarray(want)).all()
 
 
 # == slow: whole programs against the reference's XLA oracles ==============

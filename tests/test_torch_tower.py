@@ -159,7 +159,7 @@ def _tower_cases(rng):
         "fp12_sqr": (lambda: k.fp12_sqr(j(x12)), lambda: bn.fp12_sqr(t(x12))),
         "fp12_mul_line": (
             lambda: k.fp12_mul_line(j(x12), tuple(map(j, line))),
-            lambda: bn.fp12_mul_line(t(x12), tuple(map(t, line)))),
+            lambda: bn.fp12_mul_line(t(x12), t(np.stack(line, axis=-3)))),
         "fp12_conj": (lambda: k.fp12_conj(j(x12)),
                       lambda: bn.fp12_conj(t(x12))),
     }
