@@ -22,7 +22,9 @@ resident on the card) and the recompute path (without keys):
    on the card, on the tensors and shapes the audit gives them; the
    tower's two kernels (conv, normalize) on every combine and width of
    the path, with partial blocks, leading dims, a broadcast constant,
-   negative and bound-edge limbs; and the tower kernel (one launch per
+   negative and bound-edge limbs; the final exponentiation also on two
+   synthetic programs, 64 products and 64 Frobenius maps (the kernel
+   takes its program as an argument); and the tower kernel (one launch per
    product: Fp, Fp2, Fp12 and line products) against each product's
    plain route on the same kinds of edge inputs: the limbs must be
    equal;
@@ -47,13 +49,17 @@ resident on the card) and the recompute path (without keys):
    with and without the batch memo), the recompute
    audit's stages, each kernel and its plain version (CUDA events, the
    launches queued before the first runs; the tower kernel at each of
-   its shapes in the warm audit, conv at the line product and normalize
+   its shapes in the warm audit, the final exponentiation per product
+   step and per Frobenius step on the synthetic programs beside their
+   multiply-adds and bound, conv at the line product and normalize
    at its most frequent shape of the warm audit), their launches and summed
    device time per warm audit and the card's idle share (torch.profiler),
    and the Miller loop's host time against its summed kernel time. Each
    kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
-   non-empty row; for conv, normalize and the tower kernel, the
+   non-empty row; the final exponentiation's Fp12 products at three
+   schoolbooks per Fp2 product, as its kernel computes them, squares as
+   full products; for conv, normalize and the tower kernel, the
    multiply-adds (625 per conv term, 22 per folded limb) and bytes of the
    launch timed, each operand counted once as the kernel reads it,
    before any broadcast).
@@ -197,16 +203,19 @@ def host_ms(fn, reps: int) -> float:
     return statistics.median(times) * 1e3
 
 
-def count_multiply_adds(mk, fn) -> int:
+def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
     """int32 multiply-adds of one call of the plain version `fn`, which
     does the kernel's arithmetic step for step: 625 per 25×25 schoolbook
-    convolution, 22 per folded limb of every normalize."""
+    convolution, 22 per folded limb of every normalize. With `karatsuba`,
+    as the final-exponentiation kernel does them: three schoolbooks per
+    Fp2 product of an Fp12 product where the plain version has four."""
     count = [0]
-    conv, norm = mk._conv, mk._normalize
+    conv, norm, mul = mk._conv, mk._normalize, mk._fp12_mul
+    sq = mk.KNL * mk.KNL
 
     def conv_counted(u, v):
         out = conv(u, v)
-        count[0] += out[..., 0].numel() * mk.KNL * mk.KNL
+        count[0] += out[..., 0].numel() * sq
         return out
 
     def norm_counted(z, C):
@@ -214,11 +223,17 @@ def count_multiply_adds(mk, fn) -> int:
             * mk.KFOLD_BASE
         return norm(z, C)
 
+    def mul_counted(x, y, C):   # 36 Fp2 products per Fp12 product
+        count[0] -= x[..., 0, 0, 0].numel() * 36 * sq
+        return mul(x, y, C)
+
     mk._conv, mk._normalize = conv_counted, norm_counted
+    if karatsuba:
+        mk._fp12_mul = mul_counted
     try:
         fn()
     finally:
-        mk._conv, mk._normalize = conv, norm
+        mk._conv, mk._normalize, mk._fp12_mul = conv, norm, mul
     return count[0]
 
 
@@ -238,6 +253,18 @@ def bound(macs: int, moved: int) -> dict:
     return {"multiply_adds": macs, "bytes": moved,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+# Synthetic final-exponentiation programs (rows (op, a, b, d) over the
+# kernel's 14 registers, result in register 13; 0 = mul, 2 = frob_b): 64
+# products (the first a square) and 64 Frobenius maps (n = 1, 2, 3 in
+# turn), each step's result feeding the next. The kernel takes its program
+# as an argument, so they time one kind of step on its own.
+STEP_PROGRAMS = {
+    "product": [(0, 0, 0, 13)] + [(0, 0, 13, 13)] * 63,
+    "Frobenius": [(2, 0, 1, 13)] + [(2, 13, 1 + i % 3, 13)
+                                    for i in range(1, 64)],
+}
 
 
 class TowerLaunches:
@@ -499,13 +526,23 @@ def main() -> int:
               f"(tolerance 0)", flush=True)
         if err != 0:
             fail(f"{name} disagrees with its plain version")
-        results[name] = dict(bound(count_multiply_adds(mk, unit) * units,
-                                   moved), max_abs_err=err, units=units)
+        macs = count_multiply_adds(mk, unit, karatsuba=name == "finalexp")
+        results[name] = dict(bound(macs * units, moved), max_abs_err=err,
+                             units=units)
     verdict_k = mk.finalexp_is_one(f)
     with route.plain_versions():
         verdict_p = mk.finalexp_is_one(f)
     if not torch.equal(verdict_k, verdict_p):
         fail("finalexp verdicts differ from the plain version")
+    for kind, prog in STEP_PROGRAMS.items():
+        err = max_abs_err(mk.finalexp_kernel(nd, prog),
+                          mk.run_program_plain(nd, prog))
+        print(f"kernel finalexp on {len(prog)} {kind} steps at {n} rows: "
+              f"max |kernel - plain| over limbs = {err} (tolerance 0)",
+              flush=True)
+        if err != 0:
+            fail(f"finalexp disagrees with its plain version on {kind} "
+                 f"steps")
 
     combs = {"_COMB_FP2": bn._COMB_FP2, "_COMB_FP2_SQR": bn._COMB_FP2_SQR,
              "_COMB": bn._COMB, "_LCOMB": bn._LCOMB,
@@ -769,6 +806,17 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
     kernel_ms = sum(k["ms"] for k in kernels)
+    for kind, prog in STEP_PROGRAMS.items():
+        step_us = cuda_ms(lambda: mk.finalexp_kernel(nd, prog),
+                          10) * 1e3 / len(prog)
+        macs = count_multiply_adds(
+            mk, lambda: mk.run_program_plain(nd[:1], prog[:1]),
+            karatsuba=True)
+        step_bound_us = macs * n / INT32_MAD_PER_S * 1e6
+        print(f"time finalexp per {kind} step ({len(prog)} steps, {n} rows, "
+              f"one launch): kernel {step_us:.3f} µs per step; {macs} int32 "
+              f"multiply-adds per step per row ({macs * n} for {n} rows), "
+              f"bound {step_bound_us:.4f} µs per step [{card}]")
 
     warm_counts = warm_log.counts
     tower_keys = sorted((k for k in warm_counts if k[0] == "tower"),

@@ -266,7 +266,7 @@ __device__ void run_phases(const Phase* ph, int nph, const Ins* ins,
 constexpr int FP12 = 6 * 2 * NL;  // ints per fp12 value
 
 struct Fp12Scratch {
-  int* xi;      // nfrac · 300: xi·y, or the Frobenius coefficients
+  int* xi;      // nfrac · 300: xi·y
   int* col;     // nfrac · 36 · 49 column accumulators
   int* parts;   // nfrac · 36 · 25 normalized group sums
   int* merged;  // nfrac · 12 · 25
@@ -367,35 +367,6 @@ static __device__ void fp12_mul_line(const int* f, const int* A, const int* B,
     for (int i = 0; i < NL; ++i) z[i] = p[i] + p[NL + i];
     normalize<NL>(z, out + r * NL, T);
   }
-  __syncthreads();
-}
-
-// out = x^(p^np), np in {1, 2, 3}: conjugate the coefficients when np is
-// odd, then multiply coefficient k by gamma_{np,k}. `out` may alias x.
-static __device__ void fp12_frob(const int* x, int np, int* out, int nfrac,
-                          Fp12Scratch S, const int* T) {
-  for (int r = threadIdx.x; r < nfrac * 12; r += blockDim.x) {
-    const int* a = x + r * NL;
-    int z[NL];
-    if ((r % 2) == 1 && (np % 2) == 1) {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) z[i] = T[C_NEG + i] - a[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < NL; ++i) z[i] = a[i];
-    }
-    normalize<NL>(z, S.xi + r * NL, T);
-  }
-  __syncthreads();
-  const int* gamma = T + C_GAMMA + (np - 1) * FP12;
-  for (int t = threadIdx.x; t < nfrac * 12 * NC; t += blockDim.x) {
-    const int n = t % NC, r = t / NC;
-    const int c = r % 2, k = (r / 2) % 6;
-    S.col[t] = fp2_mul_col(S.xi + (r - c) * NL, gamma + k * 2 * NL, c, n, T);
-  }
-  __syncthreads();
-  for (int r = threadIdx.x; r < nfrac * 12; r += blockDim.x)
-    normalize_cols(S.col + r * NC, out + r * NL, T);
   __syncthreads();
 }
 

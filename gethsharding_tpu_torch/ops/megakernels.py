@@ -24,6 +24,7 @@ values mod p.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -453,13 +454,30 @@ def _apply_op(regs, op, a, b, d, C: Consts):
     regs[d] = out
 
 
-def run_program_plain(nd):
-    """The whole final-exponentiation program on nd (n, 2, 6, 2, 25):
-    the fraction-stacked easy-part input conj(f)/f. Returns the result
-    register, same layout, quasi-canonical limbs."""
+def _program(prog) -> np.ndarray:
+    """`prog` as (steps, 4) int32 rows (op, a, b, d) over the 14 registers,
+    checked (0 = mul, 1 = swap, 2 = frob_b with b in 1..3, 3 = copy); the
+    audit's program where None."""
+    if prog is None:
+        return _PROGRAM
+    p = np.asarray(prog, np.int32).reshape(-1, 4)
+    op, regs = p[:, 0], p[:, 1:]
+    frob_n = p[op == 2, 2]
+    if ((op < 0) | (op > 3)).any() or ((regs < 0) | (regs >= _N_REGS)).any() \
+            or ((frob_n < 1) | (frob_n > 3)).any():
+        raise ValueError("program rows are (op 0-3, a, b, d) over "
+                         f"{_N_REGS} registers, b in 1-3 for op 2")
+    return p
+
+
+def run_program_plain(nd, prog=None):
+    """The whole final-exponentiation program (or `prog`, rows (op, a, b,
+    d)) on nd (n, 2, 6, 2, 25): the fraction-stacked easy-part input
+    conj(f)/f. Returns the result register, same layout, quasi-canonical
+    limbs."""
     C = consts(nd.device)
     regs = [nd] + [torch.zeros_like(nd) for _ in range(_N_REGS - 1)]
-    for op, a, b, d in _PROGRAM.tolist():
+    for op, a, b, d in _program(prog).tolist():
         _apply_op(regs, op, a, b, d, C)
     return regs[_RESULT_REG]
 
@@ -601,18 +619,29 @@ def miller_kernel(sig, h, pk):
     return out
 
 
-def finalexp_kernel(nd):
+@functools.lru_cache(maxsize=16)
+def _program_on(rows: bytes, device: str) -> torch.Tensor:
+    """A checked program's rows on `device`, made once per program."""
+    return torch.as_tensor(np.frombuffer(rows, np.int32).reshape(-1, 4).copy(),
+                           device=device)
+
+
+def finalexp_kernel(nd, prog=None):
     """Launch the final-exponentiation kernel on nd (n, 2, 6, 2, 25)
-    int32 (row-major per batch row); returns the result register in the
-    same layout, equal to `run_program_plain` limb for limb."""
+    int32 (row-major per batch row) over the audit's program, or `prog`
+    as in `run_program_plain`; returns the result register in the same
+    layout, equal to `run_program_plain(nd, prog)` limb for limb."""
     n = nd.shape[0]
     check_tensor(nd, (n, 2, 6, 2, KNL), "nd")
+    rows = _program(prog)
+    dev = nd.device
     out = torch.empty_like(nd)
     if n == 0:
         return out
-    KERNELS["finalexp"].launch(
-        ptr(nd), ptr(const(_PROGRAM, nd.device)), len(_PROGRAM),
-        ptr(_kernel_consts(nd.device)), n, ptr(out))
+    p = const(_PROGRAM, dev) if prog is None \
+        else _program_on(rows.tobytes(), str(dev))
+    KERNELS["finalexp"].launch(ptr(nd), ptr(p), len(rows),
+                               ptr(_kernel_consts(dev)), n, ptr(out))
     return out
 
 

@@ -195,6 +195,59 @@ def test_miller_and_finalexp_kernels_equal_plain(cuda):
             zip(mk.finalexp_is_one(f).tolist(), inf)] == want
 
 
+# a short final-exponentiation program (op, a, b, d) ending in the result
+# register 13: products with a square and an aliased destination, the
+# three Frobenius maps, swaps (0 = mul, 1 = swap, 2 = frob_b, 3 = copy)
+_FE_MIXED = [(2, 0, 2, 4), (0, 4, 0, 0), (1, 0, 0, 4), (0, 0, 0, 13),
+             (0, 13, 4, 13), (2, 13, 3, 13), (2, 13, 1, 13), (1, 13, 0, 13),
+             (3, 13, 0, 5), (0, 5, 13, 13)]
+
+
+def _quasi(rng, shape, device):
+    """Quasi-canonical limbs in [-1, 4160], as the relaxed normalize
+    leaves them."""
+    return torch.as_tensor(rng.integers(-1, (1 << 12) + 65, shape + (25,))
+                           .astype(np.int32), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 112, 113])
+def test_finalexp_kernel_equals_plain_at_rows(cuda, n):
+    """The whole program, one launch, limb for limb (tolerance 0): one row,
+    the audit's 112, and one past a whole number of 112."""
+    nd = _quasi(np.random.default_rng(96), (n, 2, 6, 2), cuda)
+    before = mk.KERNELS["finalexp"].launches
+    got = mk.finalexp_kernel(nd)
+    assert mk.KERNELS["finalexp"].launches == before + 1
+    assert torch.equal(got, mk.run_program_plain(nd))
+
+
+@pytest.mark.cuda
+def test_finalexp_kernel_runs_a_synthetic_program(cuda):
+    """The kernel takes its program as an argument: a short mixed one
+    against the plain loop of `_apply_op`, random and all-4160 limbs."""
+    rng = np.random.default_rng(97)
+    for nd in (_quasi(rng, (7, 2, 6, 2), cuda),
+               torch.full((3, 2, 6, 2, 25), (1 << 12) + 64, dtype=torch.int32,
+                          device=cuda)):
+        assert torch.equal(mk.finalexp_kernel(nd, _FE_MIXED),
+                           mk.run_program_plain(nd, _FE_MIXED))
+
+
+@pytest.mark.cuda
+def test_finalexp_launches_once_per_audit(cuda):
+    """One final-exponentiation launch per audit: recompute, precomp cold,
+    precomp warm."""
+    msgs, sig_rows, pk_rows, want = _committee_period(4, 3)
+    keys = [("fe-count", s) for s in range(len(msgs))]
+    backend = TorchSigBackend()
+    for kw in ({}, {"pk_row_keys": keys}, {"pk_row_keys": keys}):
+        before = _build.launch_counts()["finalexp"]
+        assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                             **kw) == want
+        assert _build.launch_counts()["finalexp"] == before + 1
+
+
 @pytest.mark.cuda
 def test_audit_on_card_launches_four_kernels(cuda):
     msgs, sig_rows, pk_rows, want = _committee_period(6, 4)

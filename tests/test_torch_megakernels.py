@@ -388,16 +388,71 @@ def test_miller_source_on_host_equals_plain(host_kernels):
     assert torch.equal(out, mk.run_miller_plain(sig, h, pk))
 
 
+def _host_program(kernel, nd, prog):
+    """`prog` through the host-compiled final-exponentiation kernel."""
+    prog = torch.as_tensor(np.asarray(prog, np.int32))
+    out = torch.zeros_like(nd)
+    kernel.run(_p(nd), _p(prog), prog.shape[0],
+               _p(mk._kernel_consts("cpu")), nd.shape[0], _p(out))
+    return out
+
+
 def test_finalexp_source_on_host_equals_plain(host_kernels):
     rng = np.random.default_rng(85)
     n = 2
     nd = _canon(rng, (n, 2, 6, 2))
-    out = torch.zeros_like(nd)
-    host_kernels["finalexp"].run(
-        _p(nd), _p(mk.const(mk._PROGRAM, "cpu")), len(mk._PROGRAM),
-        _p(mk._kernel_consts("cpu")), n, _p(out))
-    want = mk.run_program_plain(nd)
-    assert torch.equal(out, want)
+    out = _host_program(host_kernels["finalexp"], nd, mk._PROGRAM)
+    assert torch.equal(out, mk.run_program_plain(nd))
+
+
+# short final-exponentiation programs (op, a, b, d) that end in the result
+# register 13: 0 = mul, 1 = swap, 2 = frob_b, 3 = copy
+_FE_PROGRAMS = {
+    "product": [(2, 0, 1, 1), (0, 0, 1, 13)],
+    "square": [(0, 0, 0, 13)],
+    "dest_is_a": [(2, 0, 1, 1), (0, 0, 1, 0), (3, 0, 0, 13)],
+    "dest_is_b": [(2, 0, 1, 1), (0, 0, 1, 1), (3, 1, 0, 13)],
+    "frob1": [(2, 0, 1, 13)],
+    "frob2": [(2, 0, 2, 13)],
+    "frob3_in_place": [(2, 0, 3, 0), (3, 0, 0, 13)],
+    "swap": [(1, 0, 0, 4), (0, 0, 4, 13)],
+    "copy": [(3, 0, 0, 13)],
+    "mixed": [(2, 0, 2, 4), (0, 4, 0, 0), (1, 0, 0, 4), (0, 0, 0, 13),
+              (0, 13, 4, 13), (2, 13, 3, 13), (1, 13, 0, 13)],
+}
+
+
+@pytest.mark.parametrize("name", list(_FE_PROGRAMS))
+def test_finalexp_source_on_host_runs_each_op(host_kernels, name):
+    """Each op of the register machine (product, square, a destination
+    that is an operand, Frobenius 1-3, swap, copy) through the host-
+    compiled kernel equals the plain loop, on 3 rows."""
+    nd = _canon(np.random.default_rng(95), (3, 2, 6, 2))
+    prog = _FE_PROGRAMS[name]
+    assert torch.equal(_host_program(host_kernels["finalexp"], nd, prog),
+                       mk.run_program_plain(nd, prog))
+
+
+@pytest.mark.parametrize("prog", [[(4, 0, 0, 13)], [(0, 0, 14, 13)],
+                                  [(3, -1, 0, 13)], [(2, 0, 0, 13)],
+                                  [(2, 0, 4, 13)], [(0, 0, 0)]])
+def test_program_rows_are_checked(prog):
+    """A program the kernel would run out of its registers or gamma
+    table on is refused before any launch, by the plain loop too."""
+    nd = torch.zeros((1, 2, 6, 2, 25), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        mk.run_program_plain(nd, prog)
+    with pytest.raises(ValueError):
+        mk.finalexp_kernel(nd, prog)
+
+
+@pytest.mark.parametrize("limb", [-1, (1 << 12) + 64, 0])
+def test_finalexp_source_on_host_edge_limbs(host_kernels, limb):
+    """All limbs -1, all at the quasi-canonical maximum 4160, all zero."""
+    nd = torch.full((3, 2, 6, 2, 25), limb, dtype=torch.int32)
+    prog = _FE_PROGRAMS["mixed"]
+    assert torch.equal(_host_program(host_kernels["finalexp"], nd, prog),
+                       mk.run_program_plain(nd, prog))
 
 
 @pytest.mark.parametrize("width", [19, 25, 26, 37, 49, norm.MAX_WIDTH])
