@@ -54,8 +54,19 @@ resident on the card) and the recompute path (without keys):
    multiply-adds and bound, conv at the line product and normalize
    at its most frequent shape of the warm audit), their launches and summed
    device time per warm audit and the card's idle share (torch.profiler),
-   and the Miller loop's host time against its summed kernel time. Each
-   kernel's bound counts the
+   and the Miller loop's host time against its summed kernel time;
+8. the exact 22-limb form, in a subprocess of this script with
+   GETHSHARDING_TORCH_LIMB_FORM=exact (the form is read at import): the
+   exact branch of the normalize kernel against its plain version at
+   widths 22, 25, 43, 49 and 52 (random, negative and bound-edge limbs)
+   and on every input shape the audit gives it; then, counted from 0,
+   the 100 × 135 recompute audit with keys and precomp off
+   (`TorchSigBackend(precomp=False)`, the notary's call in that form),
+   cold and warm: the expected verdicts, one launch of each audit kernel,
+   the exact normalize's launches, and verdicts and Miller product f equal
+   to the same batch through the plain versions on the card; it times the
+   audit and the exact normalize. The subprocess failing fails the run.
+   Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; the final exponentiation's Fp12 products at three
    schoolbooks per Fp2 product, as its kernel computes them, squares as
@@ -66,8 +77,8 @@ resident on the card) and the recompute path (without keys):
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
-result line, where there is no CUDA card or any check fails. Imports
-nothing of JAX.
+result line, where there is no CUDA card, the host hash did not load its
+compiled keccak, or any check fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ import argparse
 import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -376,6 +388,20 @@ def check_samples(samples, tower, norm, route) -> dict:
     return errs
 
 
+def edge_rows(gen, dev, n: int, w: int) -> torch.Tensor:
+    """n accumulators of w limbs with value >= 0: random limbs within
+    ±2^30.7, three rows at the bound edge (every limb ±(2^30.7 - 1), the
+    top one positive) and a row of -1 limbs over a top limb of 1."""
+    z = torch.randint(-MAX_LIMB, MAX_LIMB + 1, (n, w), generator=gen,
+                      device=dev, dtype=torch.int32)
+    z[:, -1] = z[:, -1].abs().clamp(min=1 << 29)   # value >= 0
+    z[:3] = torch.where(z[:3] < 0, -MAX_LIMB, MAX_LIMB)
+    z[:3, -1] = MAX_LIMB
+    z[3] = -1
+    z[3, -1] = 1
+    return z
+
+
 def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
                       combs: dict, dev) -> dict:
     """Conv on every combine of the path at 112 rows, at the stacked
@@ -429,25 +455,210 @@ def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
                 want = plan.plain(u, v)
             errs["tower"] = max(errs["tower"], max_abs_err(got, want))
     for w in range(25, norm.MAX_WIDTH + 1):
-        z = torch.randint(-MAX_LIMB, MAX_LIMB + 1, (1000, w), generator=gen,
-                          device=dev, dtype=torch.int32)
-        z[:, -1] = z[:, -1].abs().clamp(min=1 << 29)   # value >= 0
-        z[:3] = torch.where(z[:3] < 0, -MAX_LIMB, MAX_LIMB)
-        z[:3, -1] = MAX_LIMB
+        z = edge_rows(gen, dev, 1000, w)
         errs["norm"] = max(errs["norm"], max_abs_err(
             bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, 25),
             norm.normalize_plain(bn.FP, z)))
     return errs
 
 
+def norm_exact_work(key) -> dict:
+    """Multiply-adds and bytes of one exact-form normalize launch at
+    `key`'s shape: 22 per folded limb, in the first fold (width + 3 - 22
+    limbs) and the ladder's folds of 3, 2 and 1 limbs; each row read once
+    and written once at 22 limbs, the fold rows once."""
+    n, w = key[1]
+    return bound(n * (fold_work(w) + 6 * 22),
+                 4 * (n * w + n * 22 + 33 * 22))
+
+
+def audit_steps(bn, mk, hx, hy, sx, sy, sm, gx, gy, gm, hok):
+    """`bls_aggregate_verify_committee_batch` step by step: (its Miller
+    product f, its verdicts)."""
+    sig = mk.aggregate_proj(sx, sy, sm, fp2=False)
+    pk = mk.aggregate_proj(gx, gy, gm, fp2=True)
+    inf = bn.FP.is_zero(sig[2]) | bn.fp2_is_zero(pk[2])
+    f = mk.miller_f(sig, hx, hy, pk)
+    return f, mk.finalexp_is_one(f) & hok & ~inf
+
+
+def exact_phase(seed: int) -> int:
+    """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
+    exact. Prints its lines and, last, `EXACT_KERNEL <json>`: the exact
+    normalize's entry of the kernels line."""
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.ops import _build, limb, norm, route, tower
+    from gethsharding_tpu_torch.ops import bn256 as bn
+    from gethsharding_tpu_torch.ops import megakernels as mk
+    from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
+                                                         committee_planes)
+
+    if limb.LIMB_FORM != "exact" or limb.NLIMBS != 22:
+        fail("the exact phase did not run in the exact limb form")
+    card = card_line()
+    dev = torch.device("cuda")
+    _build.build()
+    msgs, sig_rows, pk_rows, keys, want = make_period(bls, seed)
+    try:
+        TorchSigBackend()
+    except ValueError:
+        pass
+    else:
+        fail("the exact form accepted the precomp path")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    edge = 0
+    for w in (22, 25, 43, 49, 52):
+        z = edge_rows(gen, dev, 1000, w)
+        edge = max(edge, max_abs_err(
+            bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, 22),
+            norm.normalize_plain(bn.FP, z)))
+    print(f"exact form: kernel norm_exact: max |kernel - plain| over limbs "
+          f"= {edge} (tolerance 0; widths 22, 25, 43, 49, 52, 1000 rows, "
+          f"negative and ±2^30.7 limbs, -1 limbs, a partial block, "
+          f"leading dims)", flush=True)
+    if edge:
+        fail("the exact normalize disagrees with its plain version")
+
+    backend = TorchSigBackend(precomp=False)
+    bls.hash_to_g1.cache_clear()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    with TowerLaunches(tower, norm, {}) as log:
+        got = backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                            pk_row_keys=keys)
+    launches = _build.launch_counts()
+    timing = backend.last_timing
+    print(f"exact form: recompute audit with keys, precomp off: launches "
+          f"{launches}, limb form {timing['limb_form']}, precomp "
+          f"{timing['precomp']}", flush=True)
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        fail(f"exact-form verdicts differ from the expected list at {bad}")
+    if any(launches[name] != 1 for name in mk.KERNELS) \
+            or launches["norm_exact"] < 1 or launches["tower"] \
+            or launches["conv"] or timing["precomp"] \
+            or timing["limb_form"] != "exact":
+        fail(f"the exact-form audit did not run each audit kernel once and "
+             f"its normalizes in the exact kernel: {launches}")
+    sample_err = check_samples(log.samples, tower, norm, route)["norm"]
+    print(f"exact form: kernel norm_exact: max |kernel - plain| over limbs "
+          f"= {sample_err} (tolerance 0) on the audit's inputs "
+          f"({len(log.samples)} shapes: "
+          f"{sorted(key[1] for key in log.samples)})", flush=True)
+    if sample_err:
+        fail("the exact normalize disagrees with its plain version on the "
+             "audit")
+
+    planes = committee_planes(msgs, sig_rows, pk_rows)
+    on_card = [torch.as_tensor(a, device=dev) for a in planes]
+    if on_card[0].shape[-1] != 22:
+        fail(f"the host shipped {on_card[0].shape[-1]}-limb planes")
+    f_k, verdict_k = audit_steps(bn, mk, *on_card)
+    with route.plain_versions():
+        f_p, verdict_p = audit_steps(bn, mk, *on_card)
+    err_f = max_abs_err(f_k, f_p)
+    print(f"exact form: Miller product f {tuple(f_k.shape)} against the "
+          f"plain versions on the card: max |kernel - plain| = {err_f}; "
+          f"verdicts equal: {torch.equal(verdict_k, verdict_p)}", flush=True)
+    if err_f or not torch.equal(verdict_k, verdict_p) \
+            or verdict_p.cpu()[:SHARDS].tolist() != got:
+        fail("the exact-form f or verdicts differ from the plain route")
+    print(f"exact form: {sum(got)} of {SHARDS} rows verified, hostile rows "
+          f"{', '.join(map(str, HOSTILE))} rejected; plain versions agree")
+
+    audit = lambda: backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                                  pk_row_keys=keys)
+    warm_s, marshal_s = [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        audit()
+        warm_s.append(time.perf_counter() - t0)
+        marshal_s.append(backend.last_timing["marshal_s"])
+    cold_s = []
+    for _ in range(3):
+        bls.hash_to_g1.cache_clear()
+        t0 = time.perf_counter()
+        audit()
+        cold_s.append(time.perf_counter() - t0)
+    dev_ms, wall_ms = device_times(audit)
+    split = kernel_split(dev_ms)
+    busy = sum(split.values())
+    votes = SHARDS * COMMITTEE
+    cold_ms = statistics.median(cold_s) * 1e3
+    warm_ms = statistics.median(warm_s) * 1e3
+    print(f"time audit, exact form, recompute (keys, precomp off): cold "
+          f"period (messages hashed) median {cold_ms:.1f} ms of "
+          f"{len(cold_s)}, {votes / cold_ms * 1e3:.0f} votes/s; warm median "
+          f"{warm_ms:.1f} ms of {len(warm_s)}, {votes / warm_ms * 1e3:.0f} "
+          f"votes/s, host marshal {statistics.median(marshal_s) * 1e3:.1f} "
+          f"ms; device kernels {busy:.2f} ms under the profiler "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in split.items())}), "
+          f"idle share {1 - busy / warm_ms:.3f}; {launches['norm_exact']} "
+          f"exact normalize launches per audit [{card}]")
+
+    key = max(log.counts, key=log.counts.get)
+    sample = log.samples[key]
+    ms = cuda_ms(lambda: norm.normalize_kernel(*sample), 50)
+    plain_ms = cuda_ms(lambda: norm.normalize_plain(*sample), 5,
+                       queued=False)
+    r = norm_exact_work(key)
+    audit_bound = sum(norm_exact_work(k)["bound_ms"] * c
+                      for k, c in log.counts.items())
+    print(f"time norm_exact: kernel {ms:.4f} ms per launch at {key[1]} "
+          f"({log.counts[key]} of {launches['norm_exact']} launches per "
+          f"audit), plain {plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}: {r['multiply_adds']} multiply-adds, "
+          f"{r['bytes']} B); per audit: {split['norm_kernel']:.3f} ms "
+          f"summed kernel time (profiler), bound {audit_bound:.5f} ms "
+          f"[{card}]")
+    print("EXACT_KERNEL " + json.dumps({
+        "name": "norm_exact", "route": "cuda", "source": norm.KERNEL.source,
+        "replaces": norm.KERNEL.replaces,
+        "launches": launches["norm_exact"],
+        "max_abs_err": max(edge, sample_err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}))
+    return 0
+
+
+def run_exact_phase(seed: int) -> dict:
+    """Step 8 in a subprocess with the exact limb form: forwards its lines
+    and returns its kernel entry; its failure fails the run."""
+    env = dict(os.environ, GETHSHARDING_TORCH_LIMB_FORM="exact")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--exact-phase",
+         "--seed", str(seed)], env=env, capture_output=True, text=True,
+        timeout=600)
+    entry = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("EXACT_KERNEL "):
+            entry = json.loads(line[len("EXACT_KERNEL "):])
+        else:
+            print(line)
+    if proc.returncode != 0 or entry is None:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"the exact-form phase failed (exit {proc.returncode})")
+    return entry
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--exact-phase", action="store_true",
+                        help="run step 8 alone (as the script runs it, "
+                             "with GETHSHARDING_TORCH_LIMB_FORM=exact)")
     args = parser.parse_args()
+    if args.exact_phase:
+        return exact_phase(args.seed)
     if not torch.cuda.is_available():
         fail("no CUDA device")
 
     from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.crypto import keccak
     from gethsharding_tpu_torch.ops import (_build, conv, limb, norm, route,
                                             tower)
     from gethsharding_tpu_torch.ops import bn256 as bn
@@ -460,6 +671,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    if limb.LIMB_FORM != "wide":
+        fail("the main phases run in the wide limb form")
+    if not keccak.native_available():
+        fail("the host hash did not load its compiled keccak (csrc/keccak.c)")
+    print("hash: keccak256 runs the compiled csrc/keccak.c (ctypes)")
     for line in _build.build_log.splitlines():
         if "Function properties" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.split("ptxas info    :")[-1].strip())
@@ -701,10 +917,10 @@ def main() -> int:
         cold_s.append(time.perf_counter() - t0)
     plru_s = []     # two shard orders in turn: the memo misses every time
     for i in range(7):
-        args = (msgs, sig_rows, pk_rows, keys) if i % 2 == 0 \
+        batch = (msgs, sig_rows, pk_rows, keys) if i % 2 == 0 \
             else turned + (turn(keys),)
         t0 = time.perf_counter()
-        pbackend.bls_verify_committees(*args[:3], pk_row_keys=args[3])
+        pbackend.bls_verify_committees(*batch[:3], pk_row_keys=batch[3])
         plru_s.append(time.perf_counter() - t0)
         if pbackend.last_timing["memo"] \
                 or pbackend.last_timing["hit_rows"] != pointful:
@@ -899,7 +1115,8 @@ def main() -> int:
           f"with the memo [{card}]")
     print(f"time precomp audit, a period of new messages with resident "
           f"tables (the notary's steady state): median {steady_ms:.1f} ms "
-          f"of {len(psteady_s)}, {votes / steady_ms * 1e3:.0f} votes/s; "
+          f"of {len(psteady_s)}, {votes / steady_ms * 1e3:.0f} votes/s, "
+          f"hash_to_g1 {hash_ms:.3f} ms per message (host); "
           f"cold audit's host marshal with hashing and the miss rows' G2 "
           f"planes median {statistics.median(pcold_marshal_s) * 1e3:.1f} "
           f"ms [{card}]")
@@ -918,6 +1135,7 @@ def main() -> int:
           f"device path with pull {device_ms:.2f} ms (audit kernels "
           f"{kernel_ms:.2f} ms, glue and pull {device_ms - kernel_ms:.2f} "
           f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
+    kernels.append(run_exact_phase(args.seed))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

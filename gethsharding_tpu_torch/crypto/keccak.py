@@ -1,9 +1,13 @@
 """Keccak-256 (legacy pre-NIST padding, as used by Ethereum).
 
 Reference parity: `crypto/sha3/keccakf.go` (generic permutation) and
-`crypto/sha3/keccakf_amd64.s` in the reference tree. This is the
-port's own pure-Python copy of the JAX package's scalar keccak (the port
-imports nothing of that package); `hash_to_g1` is its only caller.
+`crypto/sha3/keccakf_amd64.s` in the reference tree. `keccak256` runs
+the port's own copy of the JAX package's C keccak (`csrc/keccak.c`),
+built with the host C compiler (`$CC`, else `cc`) on first use into
+`_build/` and bound with ctypes; `keccak256_py`, the pure-Python sponge
+(the port's own copy of the JAX package's scalar keccak), is its twin in
+the tests and the host's path only where the build or the load fails,
+which is logged once. `hash_to_g1` is the only caller.
 
 Note Ethereum's keccak256 uses the ORIGINAL Keccak multi-rate padding
 (domain byte 0x01), not the NIST SHA3 padding (0x06) — hashlib.sha3_256
@@ -12,7 +16,17 @@ produces different digests and cannot be used.
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import logging
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
 from typing import List
+
+log = logging.getLogger(__name__)
 
 MASK64 = (1 << 64) - 1
 
@@ -77,8 +91,76 @@ RATE_BYTES = 136  # 1088-bit rate for 256-bit output
 
 
 def keccak256(data: bytes) -> bytes:
-    """keccak256 digest (Ethereum flavour: 0x01 domain padding)."""
+    """keccak256 digest (Ethereum flavour: 0x01 domain padding), through
+    the compiled `csrc/keccak.c` where it loaded."""
+    fn = _native()
+    if fn is None:
+        return keccak256_py(data)
+    out = ctypes.create_string_buffer(32)
+    fn(data, len(data), out)
+    return out.raw
+
+
+def keccak256_py(data: bytes) -> bytes:
+    """Pure-Python keccak256: the twin of the compiled path."""
     return _sponge(data, RATE_BYTES, 32, 0x01)
+
+
+_PACKAGE_DIR = Path(__file__).resolve().parents[1]
+_SOURCE = _PACKAGE_DIR / "csrc" / "keccak.c"
+_LIB = _PACKAGE_DIR / "_build" / "libkeccak.so"
+_lock = threading.Lock()
+_fn = None
+_tried = False
+
+
+def native_available() -> bool:
+    """True where `keccak256` runs the compiled C keccak."""
+    return _native() is not None
+
+
+def _native():
+    """`gs_keccak256` of the compiled library, built on first use (and
+    again when the source changes: its hash is kept beside the library);
+    None, logged once, where no C compiler or no load succeeds."""
+    global _fn, _tried
+    if _tried:
+        return _fn
+    with _lock:
+        if _tried:
+            return _fn
+        try:
+            lib = ctypes.CDLL(str(_build()))
+            fn = lib.gs_keccak256
+            fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p]
+            fn.restype = None
+            _fn = fn
+        except (OSError, subprocess.SubprocessError) as exc:
+            log.warning("native keccak unavailable, hashing in Python: %s",
+                        exc)
+        _tried = True
+    return _fn
+
+
+def _build() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()
+    stamp = _LIB.with_name(_LIB.name + ".sha256")
+    if _LIB.exists() and stamp.exists() \
+            and stamp.read_text().strip() == digest:
+        return _LIB
+    _LIB.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_LIB.parent) as tmp:
+        lib = Path(tmp) / _LIB.name
+        proc = subprocess.run(
+            [os.environ.get("CC", "cc"), "-O3", "-shared", "-fPIC", "-o",
+             str(lib), str(_SOURCE)], capture_output=True, text=True,
+            timeout=120)
+        if proc.returncode != 0:
+            raise subprocess.SubprocessError(
+                f"cc failed on {_SOURCE.name}:\n{proc.stderr}")
+        os.replace(lib, _LIB)
+        stamp.write_text(digest + "\n")
+    return _LIB
 
 
 def _sponge(data: bytes, rate: int, out_len: int, domain: int) -> bytes:

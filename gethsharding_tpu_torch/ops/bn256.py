@@ -31,7 +31,10 @@ The port's counterpart of the parts of the JAX package's
   loop from it with no G2 point arithmetic.
 
 Fp2 is (..., 2, 25) int32 (real, imaginary); Fp12 is the flat w-basis
-(..., 6, 2, 25) with w^6 = xi = 9 + i.
+(..., 6, 2, 25) with w^6 = xi = 9 + i. The limb counts here are the wide
+form's; in the exact form (`limb.LIMB_FORM`) every table, converter and
+function works at 22 limbs, and the products and the precomp family run
+only on the CPU.
 """
 
 from __future__ import annotations

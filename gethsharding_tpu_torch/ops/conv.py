@@ -33,6 +33,7 @@ from gethsharding_tpu_torch.ops import _build, route
 from gethsharding_tpu_torch.ops.limb import NLIMBS, const, conv_cols
 
 NCOLS = 2 * NLIMBS - 1
+KERNEL_LIMBS = 25           # operand limbs of csrc/conv.cuh (the wide form)
 _SMEM_BYTES = 48 * 1024     # shared-memory limit of one launch
 _THREADS = 128              # csrc/conv.cu CONV_THREADS
 _ITEMS = 5                  # csrc/conv.cu CONV_ITEMS: work items per plane
@@ -156,6 +157,16 @@ def broadcast_plan(x_shape: tuple, x_stride: tuple, y_shape: tuple,
     return lead, math.prod(lead), len(dims), desc, x_copy, y_copy
 
 
+def check_wide(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
+    """Refuse operands that are not 25 limbs wide: the conv and tower
+    kernels read the wide form only."""
+    if x.shape[-1:] != (KERNEL_LIMBS,) or y.shape[-1:] != (KERNEL_LIMBS,):
+        raise ValueError(
+            f"{name}: {x.shape[-1]}- and {y.shape[-1]}-limb operands; it "
+            f"takes the wide form's {KERNEL_LIMBS} limbs (the exact 22-limb "
+            f"form's tower is not ported)")
+
+
 def check_operand(t: torch.Tensor, block: tuple, name: str) -> None:
     """What the conv and tower kernels take: an int32 CUDA tensor (...,
     *block)."""
@@ -194,8 +205,10 @@ def conv_kernel(x: torch.Tensor, y: torch.Tensor,
     """Launch `csrc/conv.cu` on x (..., G, A, 25), y (..., G, B, 25) int32
     CUDA tensors whose leading dims broadcast; returns (..., C, Gr, 49),
     equal to `pair_conv_combine_plain`. Each operand is read once, in
-    place, whatever it is broadcast along."""
+    place, whatever it is broadcast along. 25-limb operands only: the
+    exact form's 22 limbs are refused."""
     G, A, B, C, Gr = comb.shape
+    check_wide(x, y, "conv kernel")
     check_operand(x, (G, A, NLIMBS), "x")
     check_operand(y, (G, B, NLIMBS), "y")
     x, y, lead, n, ndim, desc = broadcast_rows(x, y)

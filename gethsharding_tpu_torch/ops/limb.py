@@ -1,23 +1,29 @@
 """Batched 256-bit modular arithmetic in PyTorch: 12-bit limbs in int32.
 
-The port's counterpart of the JAX package's `ops/limb.py`, in its
-default wide form: a field element is 25 little-endian 12-bit limbs in
-int32, shape ``(..., 25)``, value in [0, 2^273), congruent mod p. The
-leading axes are the batch. Products of limbs are 24 bits and callers
+The port's counterpart of the JAX package's `ops/limb.py`, in one of its
+two lazy forms, chosen by `$GETHSHARDING_TORCH_LIMB_FORM` at import (the
+port reads only its own knobs):
+
+- "wide" (default): a field element is 25 little-endian 12-bit limbs in
+  int32, shape ``(..., 25)``, value in [0, 2^273), congruent mod p;
+- "exact": 22 limbs, value in [0, 2^264).
+
+The leading axes are the batch. Products of limbs are 24 bits and callers
 never sum more than four 25-term schoolbook columns, so every column
 stays below 2^30.7.
 
-`ModArith.normalize` follows the reference's wide exact branch step for
-step (three relaxed carry rounds, one fold through the 2^(12(22+k)) mod p
-rows, a lift, one exact carry), so its limbs equal the reference's limb
-for limb; it is the route of `ops/norm.py`: its CUDA kernel for a CUDA
-tensor, its plain version for a CPU tensor. Only the exact carry of the
-plain version differs in how it is computed: the reference ripples limb
-by limb, this one ripples over int64 words of three limbs, which gives
-the same canonical limbs in a third of the steps. `canon` reaches the
-unique representative below p through a float64 quotient estimate and
-one corrected subtraction instead of the reference's 46-step descent;
-the result is the same unique value.
+`ModArith.normalize` follows the reference's normalize of the chosen
+form step for step (wide: three relaxed carry rounds, one fold through
+the 2^(12(22+k)) mod p rows, a lift, one exact carry; exact: the ladder
+of two relaxed folds and three exact carries), so its limbs equal the
+reference's limb for limb; it is the route of `ops/norm.py`: its CUDA
+kernel for a CUDA tensor, its plain version for a CPU tensor. Only the
+exact carry of the plain version differs in how it is computed: the
+reference ripples limb by limb, this one ripples over int64 words of
+three limbs, which gives the same canonical limbs in a third of the
+steps. `canon` reaches the unique representative below p through a
+float64 quotient estimate and one corrected subtraction instead of the
+reference's descent; the result is the same unique value.
 
 `ModArith.mul` on a CUDA tensor is one launch of the tower kernel
 (`ops/tower.py`): the conv with the identity combine of one plane, then
@@ -26,14 +32,18 @@ gives the same limbs; `mul_cols` on a CUDA tensor goes through the conv
 kernel of `ops/conv.py`, which gives the same integer columns as
 `conv_cols`. The JAX package computes its `mul_cols` outside any Pallas
 kernel; this routing is the port's own choice, so that every product on
-the card runs in a hand-written kernel.
+the card runs in a hand-written kernel. Both kernels read the wide form
+only: in the exact form they refuse a CUDA tensor (the exact form's tower
+is not ported), and products run only on the CPU, through the plain
+route.
 
-The 22-limb exact form, the relaxed normalize option and the secp256k1
-moduli are not part of this module yet.
+The relaxed normalize option and the secp256k1 moduli are not part of
+this module yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -41,8 +51,16 @@ import torch
 
 LIMB_BITS = 12
 LIMB_MASK = (1 << LIMB_BITS) - 1
-NLIMBS = 25        # operand width: 300 bits of capacity
-LAZY_BITS = 273    # lazy-form value bound
+LIMB_FORM = os.environ.get("GETHSHARDING_TORCH_LIMB_FORM", "wide")
+if LIMB_FORM == "wide":
+    NLIMBS = 25    # operand width: 300 bits of capacity
+    LAZY_BITS = 273  # lazy-form value bound
+elif LIMB_FORM == "exact":
+    NLIMBS = 22
+    LAZY_BITS = 264
+else:
+    raise ValueError("GETHSHARDING_TORCH_LIMB_FORM must be 'wide' or "
+                     f"'exact', got {LIMB_FORM!r}")
 FOLD_BASE = 22     # limbs >= FOLD_BASE fold back under the modulus
 FOLD_ROWS = 33     # max high limbs a single fold can absorb
 
@@ -178,10 +196,15 @@ def carry(z: torch.Tensor):
     return top, limbs[..., :n].to(torch.int32)
 
 
+# canon's working width: a value below 2^300 and the four limbs of its
+# quotient's product with p
+_CANON_W = FOLD_BASE + 4
+
+
 class ModArith:
-    """Batched arithmetic mod a fixed prime p < 2^255 in the wide lazy
-    form; every method takes and returns int32 tensors (..., L) on any
-    device."""
+    """Batched arithmetic mod a fixed prime p < 2^255 in the lazy form of
+    `LIMB_FORM`; every method takes and returns int32 tensors (..., L) on
+    any device."""
 
     def __init__(self, p: int):
         self.p = p
@@ -193,7 +216,7 @@ class ModArith:
         self.sub_pad = int_to_limbs(-(-(1 << cover_bits) // p) * p,
                                     -(-(cover_bits + 1) // LIMB_BITS))
         self.lift = int_to_limbs(-(-(1 << 261) // p) * p, FOLD_BASE)
-        self.p_limbs = int_to_limbs(p, NLIMBS + 1)
+        self.p_limbs = int_to_limbs(p, _CANON_W)
         self._pad_cache: dict = {}
         self.mul_plan = tower.Plan(
             tower.FP, self, _IDENTITY, np.zeros((1, 1, 2 * NLIMBS - 1),
@@ -202,8 +225,8 @@ class ModArith:
 
     def normalize(self, z: torch.Tensor) -> torch.Tensor:
         """Reduce any accumulator (..., L) with |limb| < 2^30.7 and value
-        >= 0 to lazy form: 25 canonical limbs, value < 2^273, same
-        residue mod p."""
+        >= 0 to lazy form: NLIMBS canonical limbs, value < 2^LAZY_BITS,
+        same residue mod p."""
         return norm.normalize(self, z)
 
     def add(self, x, y):
@@ -222,7 +245,7 @@ class ModArith:
 
     def mul(self, x, y):
         """x·y in lazy form; leading dims broadcast. One tower-kernel
-        launch on a CUDA tensor."""
+        launch on a CUDA tensor (wide form only)."""
         if route.use_kernel(x):
             return tower.tower_kernel(self.mul_plan, x[..., None, None, :],
                                       y[..., None, None, :])
@@ -248,9 +271,9 @@ class ModArith:
         return self.sub(torch.zeros_like(x), x)
 
     def canon(self, x: torch.Tensor) -> torch.Tensor:
-        """The unique representative < p of a non-negative limb vector,
-        as 25 canonical limbs."""
-        _, z = carry(pad_last(x, NLIMBS + 1))               # (..., 26)
+        """The unique representative < p of a non-negative limb vector
+        (value < 2^300), as NLIMBS canonical limbs."""
+        _, z = carry(pad_last(x, _CANON_W))                 # (..., 26)
         v = torch.zeros(z.shape[:-1], dtype=torch.float64, device=z.device)
         for i in reversed(range(z.shape[-1])):
             v = v * float(1 << LIMB_BITS) + z[..., i].to(torch.float64)

@@ -8,9 +8,14 @@ carry rounds to quasi-canonical limbs in [-1, 2^12 + 64], with the same
 fold, lift and pad constants, so the bound proofs carry over unchanged.
 
 Layout at the public functions is the JAX package's: batch first, limbs
-last, Fp (..., 25), Fp2 (..., 2, 25), Fp12 (..., 6, 2, 25). The plain
-helpers below work on that layout too (the JAX helpers put the batch on
-the minor axis; the values are the same limb for limb).
+last, Fp (..., NL), Fp2 (..., 2, NL), Fp12 (..., 6, 2, NL), NL the
+ambient form's limbs (`limb.NLIMBS`: 25 wide, 22 exact). As there, the
+kernels and their plain versions work at 25 limbs in both forms: an exact
+form's 22-limb operand widens losslessly with zero limbs on the way in,
+and `FP.normalize` (the exact-branch kernel on the card) brings every
+result back to the ambient form. The plain helpers below work on the
+limbs-last layout too (the JAX helpers put the batch on the minor axis;
+the values are the same limb for limb).
 
 Each public function (`aggregate_proj`, `miller_f`, `finalexp_is_one`)
 takes its route from the device of its inputs (`ops/route.py`): a CUDA
@@ -34,8 +39,8 @@ from gethsharding_tpu_torch.crypto import bn256 as ref
 from gethsharding_tpu_torch.ops import route
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops._build import Kernel, check_tensor, ptr
-from gethsharding_tpu_torch.ops.limb import (LIMB_BITS, LIMB_MASK, const,
-                                             int_to_limbs, pad_last)
+from gethsharding_tpu_torch.ops.limb import (LIMB_BITS, LIMB_MASK, NLIMBS,
+                                             const, int_to_limbs, pad_last)
 
 P = ref.P
 KNL = 25                      # kernel limb count (wide form)
@@ -53,6 +58,12 @@ _FOLD_J = np.stack(
 # negative fold and low terms of quasi-canonical inputs
 _DEFICIT = KFOLD_ROWS * 113 * P + (113 << 253)
 _LIFT_RELAXED = int_to_limbs(-(-_DEFICIT // P) * P, KNL)
+
+
+def _widen(arr: np.ndarray) -> np.ndarray:
+    """A limb table of the ambient form at the kernels' 25 limbs."""
+    extra = KNL - arr.shape[-1]
+    return np.pad(arr, [(0, 0)] * (arr.ndim - 1) + [(0, extra)])
 
 
 def _pad_mult(bits: int) -> np.ndarray:
@@ -80,7 +91,8 @@ _NEG_PAD = _rows(_PAD274, KNL)                     # negation and differences
 
 
 # Frobenius constants gamma_{n,k} = xi^(k(p^n-1)/6)
-_GAMMA = np.stack([bn._GAMMA[n] for n in (1, 2, 3)])  # (3, 6, 2, 25)
+_GAMMA = _widen(np.stack([bn._GAMMA[n] for n in (1, 2, 3)]))  # (3, 6, 2, 25)
+_B3_G2 = _widen(bn._B3_G2_LIMBS)                    # 3·b' of the twist
 
 # cyclic convolution of the w-basis product: output k takes operand
 # j = (k - i) mod 6 of y when i <= k, of xi·y on wrap-around
@@ -429,9 +441,9 @@ def _miller_tables():
     generator-line constants (88, 3, 2, 25) and the twist-Frobenius
     constants (4, 2, 25)."""
     ops = np.asarray(bn._OPT_OPS, np.int32)
-    lines = np.asarray(bn._GEN_LINES, np.int32)
-    twf = np.stack([bn._TWF_X, bn._TWF_Y, bn._TWF2_X,
-                    bn._TWF2_Y]).astype(np.int32)
+    lines = _widen(np.asarray(bn._GEN_LINES, np.int32))
+    twf = _widen(np.stack([bn._TWF_X, bn._TWF_Y, bn._TWF2_X,
+                           bn._TWF2_Y]).astype(np.int32))
     return ops, lines, twf
 
 
@@ -537,7 +549,7 @@ def run_agg_plain(xs, ys, mask, *, fp2: bool):
     px = torch.where(m, xs, 0).movedim(1, 0)               # (cp, n, ...)
     py = torch.where(m, ys, one).movedim(1, 0)
     pz = torch.where(m, one, 0).movedim(1, 0)
-    b3 = const(bn._B3_G2_LIMBS, xs.device) if fp2 else 9
+    b3 = const(_B3_G2, xs.device) if fp2 else 9
     return _agg_tree(px, py, pz, C, fp2=fp2, b3=b3)
 
 
@@ -572,7 +584,7 @@ def _kernel_consts(device) -> torch.Tensor:
 
 _CONST_PACK = np.concatenate([
     _FOLD_J.ravel(), _LIFT_RELAXED, _rows(_PAD547, KNCOLS)[:, 0],
-    _NEG_PAD[:, 0], _GAMMA.ravel(), bn._B3_G2_LIMBS.ravel()]).astype(np.int32)
+    _NEG_PAD[:, 0], _GAMMA.ravel(), _B3_G2.ravel()]).astype(np.int32)
 if _CONST_PACK.shape != (1775,):   # C_TOTAL of csrc/field.cuh
     raise RuntimeError(f"constant pack has {_CONST_PACK.shape[0]} ints")
 
@@ -649,13 +661,15 @@ def finalexp_kernel(nd, prog=None):
 
 
 def _i32(t) -> torch.Tensor:
-    return t.to(torch.int32).contiguous()
+    """An ambient-form operand as the kernels take it: int32, 25 limbs
+    (an exact form's 22 widen with zero limbs), contiguous."""
+    return pad_last(t.to(torch.int32), KNL).contiguous()
 
 
 def aggregate_proj(xs, ys, mask, *, fp2: bool):
     """Masked committee sum (JAX package's `aggregate_proj`).
 
-    xs/ys: (..., C, 25) G1 or (..., C, 2, 25) G2 affine limbs; mask
+    xs/ys: (..., C, NL) G1 or (..., C, 2, NL) G2 affine limbs; mask
     (..., C) bool. Returns projective (X, Y, Z) in the lazy form of
     `ops/limb.py`."""
     point_rank = 3 if fp2 else 2
@@ -666,18 +680,18 @@ def aggregate_proj(xs, ys, mask, *, fp2: bool):
     ys2 = _i32(ys.reshape((-1, cdim) + point))
     m2 = mask.reshape(-1, cdim)
     if route.use_kernel(xs2):
-        out = agg_kernel(xs2, ys2, _i32(m2), fp2=fp2)
+        out = agg_kernel(xs2, ys2, m2.to(torch.int32).contiguous(), fp2=fp2)
     else:
         out = run_agg_plain(xs2, ys2, m2.to(torch.bool), fp2=fp2)
     out = bn.FP.normalize(torch.stack(out))
-    return tuple(v.reshape(lead + point) for v in out)
+    return tuple(v.reshape(lead + point[:-1] + (NLIMBS,)) for v in out)
 
 
 def miller_f(sig, hx, hy, pk):
     """Projective shared-accumulator Miller product e(sig, G2)·e(-H, pk)
     before the final exponentiation (JAX package's `miller_f`): sig =
-    (sx, sy, sz) (..., 25), hx/hy (..., 25), pk = (pkx, pky, pkz)
-    (..., 2, 25). Returns f (..., 6, 2, 25) in the lazy form."""
+    (sx, sy, sz) (..., NL), hx/hy (..., NL), pk = (pkx, pky, pkz)
+    (..., 2, NL). Returns f (..., 6, 2, NL) in the lazy form."""
     lead = sig[0].shape[:-1]
     flat = lambda v: _i32(v.reshape((-1,) + v.shape[len(lead):]))
     s = tuple(map(flat, sig))
@@ -687,15 +701,15 @@ def miller_f(sig, hx, hy, pk):
         f = miller_kernel(s, h, q)
     else:
         f = run_miller_plain(s, h, q)
-    return bn.FP.normalize(f).reshape(lead + (6, 2, KNL))
+    return bn.FP.normalize(f).reshape(lead + (6, 2, NLIMBS))
 
 
 def finalexp_is_one(f):
     """Fraction-stacked final exponentiation == 1? (JAX package's
-    `finalexp_is_one`): f (..., 6, 2, 25) lazy limbs -> bool (...)."""
+    `finalexp_is_one`): f (..., 6, 2, NL) lazy limbs -> bool (...)."""
     lead = f.shape[:-3]
-    f = _i32(f.reshape((-1, 6, 2, KNL)))
-    nd = torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1)
+    f = f.reshape((-1, 6, 2, NLIMBS)).to(torch.int32)
+    nd = _i32(torch.stack([bn.fp12_conj(f), bn.FP.normalize(f)], dim=1))
     if route.use_kernel(f):
         out = finalexp_kernel(nd)
     else:

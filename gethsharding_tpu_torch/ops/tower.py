@@ -14,6 +14,11 @@ operand-selection tables (the port's own constants, passed in from the
 caller, never re-derived in C), and the `ModArith` whose fold and lift
 its normalizes use. It packs them once per device into the int32 layout
 `csrc/tower.cu` reads (`TowerPack`).
+
+The kernel takes the wide form's 25-limb operands only. In the exact
+22-limb form (`GETHSHARDING_TORCH_LIMB_FORM=exact`) the plans still build,
+without a pack, and run their plain routes on a CPU tensor, but
+`tower_kernel` refuses: the exact form's tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -47,21 +52,26 @@ class Plan:
     def __init__(self, kind, arith, comb, pad, plain, sel=None, idx=None,
                  xi_pad=None):
         G, A, B, C, Gr, K = SHAPES[kind]
-        if comb.shape != (G, A, B, C, Gr) or pad.shape != (C, Gr, conv.NCOLS):
+        if comb.shape != (G, A, B, C, Gr) or pad.shape[:2] != (C, Gr):
             raise ValueError(f"plan shapes {comb.shape}, {pad.shape} do not "
                              f"fit tower kind {kind}")
         if sel is None:     # one output: operand i of v for term i
             sel = np.zeros((1, G), np.int32)
             idx = np.arange(G, dtype=np.int32)[None]
-        xi = np.zeros(NLIMBS, np.int32)
-        if xi_pad is not None:
-            xi[: xi_pad.shape[0]] = xi_pad
         self.kind, self.comb, self.plain = kind, comb, plain
         plan = conv.plane_plan(comb)
         self.nterms = conv.plan_terms(plan, C * Gr).shape[0]
-        self.pack = np.concatenate([
-            arith.fold_j.ravel(), arith.lift, xi, pad.ravel(),
-            np.ravel(sel), np.ravel(idx), plan]).astype(np.int32)
+        self.pack = None    # the exact form has no kernel layout
+        if NLIMBS == conv.KERNEL_LIMBS:
+            if pad.shape[-1] != conv.NCOLS:
+                raise ValueError(f"plan pad {pad.shape} is not "
+                                 f"{conv.NCOLS} columns wide")
+            xi = np.zeros(NLIMBS, np.int32)
+            if xi_pad is not None:
+                xi[: xi_pad.shape[0]] = xi_pad
+            self.pack = np.concatenate([
+                arith.fold_j.ravel(), arith.lift, xi, pad.ravel(),
+                np.ravel(sel), np.ravel(idx), plan]).astype(np.int32)
         self.u_block = (G, A, NLIMBS)
         self.v_block = (6, 2, NLIMBS) if K > 1 else (G, B, NLIMBS)
         self.out_block = {FP: (NLIMBS,), FP2: (C, NLIMBS)}.get(
@@ -89,6 +99,7 @@ def tower_kernel(plan: Plan, u: torch.Tensor, v: torch.Tensor):
     (..., *plan.v_block), int32 CUDA tensors whose leading dims
     broadcast; returns (lead, *plan.out_block), equal to `plan.plain(u,
     v)` limb for limb. Each operand is read once, in place."""
+    conv.check_wide(u, v, "tower kernel")
     conv.check_operand(u, plan.u_block, "u")
     conv.check_operand(v, plan.v_block, "v")
     u, v, n, ndim, desc, out = launch_args(plan, u, v)

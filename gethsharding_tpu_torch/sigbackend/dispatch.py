@@ -15,10 +15,18 @@ A warm audit ships no G2 bytes. An audit without keys takes the recompute
 path, as the reference falls back: every pubkey plane shipped, then four
 launches (G1 sums, G2 sums, the Miller kernel, the final exponentiation).
 Normalizes and tower products between them run in their own kernels.
+
+`precomp` (default `$GETHSHARDING_TORCH_PRECOMP`, "1"; the port's twin of
+the reference's `GETHSHARDING_PRECOMP`) switches the precomp path off:
+keyed audits then take the recompute path too. In the exact 22-limb form
+(`GETHSHARDING_TORCH_LIMB_FORM=exact`) the precomp path has no tower
+kernel yet, so `precomp=True` is refused at construction; the recompute
+path runs in either form.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -26,6 +34,7 @@ import torch
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as bn
+from gethsharding_tpu_torch.ops.limb import LIMB_FORM
 from gethsharding_tpu_torch.sigbackend import SigBackend, VerdictFuture
 from gethsharding_tpu_torch.sigbackend import marshal
 from gethsharding_tpu_torch.sigbackend.cache import LineTableCache
@@ -46,18 +55,32 @@ def committee_planes(messages, sig_rows, pk_rows):
 
 class TorchSigBackend(SigBackend):
     """The committee audit through the CUDA kernels (`device=None` is the
-    card) or, with `device="cpu"`, through their plain versions. Line
-    tables stay resident in `lines`, a `LineTableCache` under its default
-    budget."""
+    card) or, with `device="cpu"`, through their plain versions. With
+    `precomp` (None: `$GETHSHARDING_TORCH_PRECOMP`, default on), keyed
+    audits take the precomp path and line tables stay resident in
+    `lines`, a `LineTableCache` under its default budget."""
 
     name = "torch"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, precomp=None):
         self.device = resolve_device(device)
+        if precomp is None:
+            knob = os.environ.get("GETHSHARDING_TORCH_PRECOMP", "1")
+            if knob not in ("0", "1"):
+                raise ValueError(
+                    f"GETHSHARDING_TORCH_PRECOMP={knob!r}: want 0 or 1")
+            precomp = knob == "1"
+        if precomp and LIMB_FORM != "wide":
+            raise ValueError(
+                "the precomp path needs the tower kernel at 22 limbs, which "
+                "the exact form does not have yet: pass precomp=False (or "
+                "GETHSHARDING_TORCH_PRECOMP=0) or use "
+                "GETHSHARDING_TORCH_LIMB_FORM=wide")
+        self.precomp = bool(precomp)
         self.lines = LineTableCache(self.device)
         # host seconds of the last audit's marshal and launch staging, its
-        # path, G2 bytes shipped, resident rows, whether the batch memo
-        # served them, and kernel launches
+        # path and limb form, G2 bytes shipped, resident rows, whether the
+        # batch memo served them, and kernel launches
         self.last_timing: dict | None = None
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
@@ -70,7 +93,8 @@ class TorchSigBackend(SigBackend):
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
-        keys = marshal.normalize_row_keys(pk_row_keys, bucket)
+        keys = marshal.normalize_row_keys(
+            pk_row_keys if self.precomp else None, bucket)
         if keys is None:
             planes = committee_planes(messages, sig_rows, pk_rows)
             t1 = time.perf_counter()
@@ -85,7 +109,8 @@ class TorchSigBackend(SigBackend):
         self.last_timing = {
             "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
             "rows": n, "bucket": bucket, "width": width,
-            "precomp": keys is not None, "g2_wire_bytes": int(g2_bytes),
+            "precomp": keys is not None, "limb_form": LIMB_FORM,
+            "g2_wire_bytes": int(g2_bytes),
             "hit_rows": hit_rows, "memo": memo,
             "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
         return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])

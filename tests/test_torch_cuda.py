@@ -60,6 +60,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert {n: k.launches for n, k in mk.KERNELS.items()} == before
 
 
+def test_tower_and_conv_kernels_refuse_22_limb_operands():
+    before = _build.launch_counts()
+    u = torch.zeros((3, 1, 2, 22), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exact 22-limb"):
+        tower.tower_kernel(bn._FP2_MUL, u, u)
+    with pytest.raises(ValueError, match="exact 22-limb"):
+        conv.conv_kernel(u, u, bn._COMB_FP2)
+    assert _build.launch_counts() == before
+
+
 def test_tower_wrappers_refuse_cpu_tensors():
     before = _build.launch_counts()
     x = torch.zeros((3, 1, 2, 25), dtype=torch.int32)
@@ -157,6 +167,28 @@ def test_norm_kernel_equals_plain(cuda, width):
     z = torch.as_tensor(z.astype(np.int32), device=cuda)
     assert torch.equal(bn.FP.normalize(z.reshape(3, 100, width)),
                        norm.normalize_plain(bn.FP, z).reshape(3, 100, 25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [22, 25, 43, 49, 52])
+def test_norm_exact_kernel_equals_plain(cuda, width):
+    """The exact-form branch of csrc/norm.cu (22 output limbs), launched
+    from this wide-form process through its `form` argument."""
+    rng = np.random.default_rng(94)
+    edge = int(2 ** 30.7) - 1
+    z = rng.integers(-edge, edge + 1, (301, width))
+    z[:, -1] = np.abs(z[:, -1]) + (1 << 29)    # value >= 0
+    z[:4] = np.where(rng.integers(0, 2, (4, width)) == 1, edge, -edge)
+    z[:4, -1] = edge                           # the bound edge
+    z[4] = -1
+    z[4, -1] = 1
+    z = torch.as_tensor(z.astype(np.int32), device=cuda)
+    before = norm.KERNEL.launches
+    got = norm.normalize_kernel(bn.FP, z, form="exact")
+    assert norm.KERNEL.launches == before + 1
+    assert torch.equal(got, norm.normalize_plain(bn.FP, z, form="exact"))
+    assert torch.equal(got.cpu(), norm.normalize_plain(bn.FP, z.cpu(),
+                                                       form="exact"))
 
 
 @pytest.mark.cuda

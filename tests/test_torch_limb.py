@@ -97,3 +97,17 @@ def test_canon_is_zero_eq_neg_match_reference():
     q[:, -3:] = rng.integers(0, 8, (6, 3))
     want = np.asarray(REF_FP.canon(REF_FP.normalize(jnp.asarray(q))))
     assert (FP.canon(torch.as_tensor(q)).numpy() == want).all()
+
+
+def test_canon_edges_match_reference():
+    """canon's float64 quotient estimate at the edges of its range, in the
+    wide form: p - 1, p, 2p - 1, 2p and the lazy bound 2^273 - 1 (the
+    exact form's edges run in tests/test_torch_exact.py)."""
+    vals = [P - 1, P, P + 1, 2 * P - 1, 2 * P, (1 << 273) - 1,
+            (1 << 273) - P, (1 << 264) - 1]
+    x = limb.ints_to_limbs(vals)
+    got = FP.canon(torch.as_tensor(x))
+    assert (got.numpy() == np.asarray(REF_FP.canon(jnp.asarray(x)))).all()
+    assert limb.limbs_to_int(got).tolist() == [v % P for v in vals]
+    assert FP.is_zero(torch.as_tensor(x)).tolist() == \
+        [False, True, False, False, True, False, False, False]

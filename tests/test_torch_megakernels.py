@@ -273,15 +273,21 @@ extern "C" void run(const int* nd, const int* prog, int nsteps,
   }
 }""",
     "norm": r"""
-extern "C" void run(const int* z, long long n, int w, const int* fold,
-                    const int* lift, int* out) {
+template <gs::NormForm F>
+static void run_form(const int* z, long long n, int w, const int* fold,
+                     const int* lift, int* out) {
   for (long long b = 0; b * gs::NORM_ROWS < n; ++b) {
     blockIdx.x = b;
-    if (w <= 25) gs::norm_kernel<25>(z, n, w, fold, lift, out);
-    else if (w == 26) gs::norm_kernel<26>(z, n, w, fold, lift, out);
-    else if (w <= 49) gs::norm_kernel<49>(z, n, w, fold, lift, out);
-    else gs::norm_kernel<52>(z, n, w, fold, lift, out);
+    if (w <= 25) gs::norm_kernel<25, F>(z, n, w, fold, lift, out);
+    else if (w == 26) gs::norm_kernel<26, F>(z, n, w, fold, lift, out);
+    else if (w <= 49) gs::norm_kernel<49, F>(z, n, w, fold, lift, out);
+    else gs::norm_kernel<52, F>(z, n, w, fold, lift, out);
   }
+}
+extern "C" void run(const int* z, long long n, int w, int form,
+                    const int* fold, const int* lift, int* out) {
+  if (form == gs::NORM_EXACT) run_form<gs::NORM_EXACT>(z, n, w, fold, lift, out);
+  else run_form<gs::NORM_WIDE>(z, n, w, fold, lift, out);
 }""",
     "conv": r"""
 namespace gs { int smem[1 << 16] __attribute__((aligned(16))); }
@@ -464,10 +470,36 @@ def test_norm_source_on_host_equals_plain(host_kernels, width):
     z[0] = int(2 ** 30.7) - 1                   # the bound edge
     z = torch.as_tensor(z)
     out = torch.zeros((n, 25), dtype=torch.int32)
-    host_kernels["norm"].run(_p(z), ctypes.c_longlong(n), width,
+    host_kernels["norm"].run(_p(z), ctypes.c_longlong(n), width, 0,
                              _p(mk.const(pbn.FP.fold_j, "cpu")),
                              _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
     assert torch.equal(out, norm.normalize_plain(pbn.FP, z))
+
+
+def _norm_edge_rows(rng, n, width):
+    """n accumulators of `width` limbs, value >= 0: random limbs inside
+    |limb| < 2^30.7, then rows at the bound edge (every limb ±(2^30.7 - 1),
+    the top positive) and rows of -1 and 0 limbs over a positive top."""
+    edge = int(2 ** 30.7) - 1
+    z = rng.integers(-edge, edge + 1, (n, width)).astype(np.int32)
+    z[:, -1] = np.abs(z[:, -1]) + (1 << 29)    # value >= 0
+    z[0] = edge
+    z[1] = np.where(rng.integers(0, 2, width) == 1, edge, -edge)
+    z[1, -1] = edge
+    z[2] = -1
+    z[2, -1] = 1
+    z[3] = 0
+    return torch.as_tensor(z)
+
+
+@pytest.mark.parametrize("width", [19, 22, 25, 26, 43, 49, norm.MAX_WIDTH])
+def test_norm_exact_source_on_host_equals_plain(host_kernels, width):
+    z = _norm_edge_rows(np.random.default_rng(87), 9, width)
+    out = torch.zeros((9, 22), dtype=torch.int32)
+    host_kernels["norm"].run(_p(z), ctypes.c_longlong(9), width, 1,
+                             _p(mk.const(pbn.FP.fold_j, "cpu")),
+                             _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
+    assert torch.equal(out, norm.normalize_plain(pbn.FP, z, form="exact"))
 
 
 def _host_conv(kernel, x, y, comb, rpb):

@@ -1,8 +1,12 @@
 """The port's committee audit as a whole (gethsharding_tpu_torch
 .sigbackend) against the JAX package's scalar `python` backend, plus the
-port's boundaries: its entry points default to CUDA, and it imports
-neither JAX nor the JAX package."""
+port's boundaries: its entry points default to CUDA, its host hash runs
+the compiled keccak, its knobs are its own, and it imports neither JAX
+nor the JAX package."""
 
+import json
+import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -61,6 +65,60 @@ def test_cpu_audit_matches_python_backend():
     assert future.result() == want and future.done()
     assert backend.last_timing["bucket"] == 4
     assert backend.bls_verify_committees([], [], []) == []
+
+
+def test_keccak_takes_the_native_path(monkeypatch):
+    """With a C compiler, the port's keccak256 runs its compiled copy of
+    the C keccak, and equals its pure-Python twin and the reference's on
+    the official KAT messages and on hash_to_g1's inputs."""
+    from gethsharding_tpu.crypto import keccak as ref_keccak
+    from gethsharding_tpu_torch.crypto import bn256 as port_bls
+    from gethsharding_tpu_torch.crypto import keccak
+
+    assert shutil.which(os.environ.get("CC", "cc")), "no C compiler"
+    assert keccak.native_available()
+    kats = json.loads((REPO / "tests/testdata/keccak_kats_sha3.json")
+                      .read_text())
+    msgs = [bytes.fromhex(c["message"])[: c["len"]] for c in kats["SHA3-256"]]
+    for msg, case in zip(msgs, kats["SHA3-256"]):
+        # the twin's sponge with NIST padding gives the official digest
+        assert keccak._sponge(msg, keccak.RATE_BYTES, 32, 0x06).hex() == \
+            case["digest"]
+    inputs = msgs + [m + c.to_bytes(4, "big") for m in
+                     (b"", b"header-7", b"period-0/shard-3/header")
+                     for c in range(4)]
+    digests = [keccak.keccak256(m) for m in inputs]
+    inputs += digests                  # hash_to_g1's parity hashes
+    digests += [keccak.keccak256(d) for d in digests]
+
+    def no_python(data):
+        raise AssertionError("keccak256 took the pure-Python path")
+
+    monkeypatch.setattr(keccak, "keccak256_py", no_python)
+    assert [keccak.keccak256(m) for m in inputs] == digests
+    monkeypatch.undo()
+    assert digests == [keccak.keccak256_py(m) for m in inputs] \
+        == [ref_keccak.keccak256_py(m) for m in inputs]
+    port_bls.hash_to_g1.cache_clear()
+    for m in (b"m-0", b"header-7", bytes(64)):
+        assert port_bls.hash_to_g1(m) == ref.hash_to_g1(m)
+
+
+def test_precomp_off_sends_keyed_audits_to_recompute(monkeypatch):
+    msgs, sig_rows, pk_rows = _workload()
+    monkeypatch.setenv("GETHSHARDING_TORCH_PRECOMP", "0")
+    backend = TorchSigBackend(device="cpu")
+    assert not backend.precomp
+    got = backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                        pk_row_keys=[b"a", b"b", b"c", b"d"])
+    assert got == [True, False, False, False]
+    timing = backend.last_timing
+    assert not timing["precomp"] and timing["limb_form"] == "wide"
+    assert timing["g2_wire_bytes"] > 0 and len(backend.lines) == 0
+    monkeypatch.setenv("GETHSHARDING_TORCH_PRECOMP", "yes")
+    with pytest.raises(ValueError, match="GETHSHARDING_TORCH_PRECOMP"):
+        TorchSigBackend(device="cpu")
+    assert TorchSigBackend(device="cpu", precomp=True).precomp
 
 
 def test_entry_points_default_to_cuda():
