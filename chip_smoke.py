@@ -9,7 +9,8 @@ the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
 1. names the card and its power limit (nvidia-smi);
-2. builds the CUDA kernels of `gethsharding_tpu_torch/csrc/` (timed);
+2. builds the CUDA kernels of `gethsharding_tpu_torch/csrc/` (timed) and
+   prints each kernel's registers and spills (ptxas);
 3. makes a protocol-true period on the host: secret keys sk_j = j+1,
    votes (j+1)·H(m_s) and pubkeys (j+1)·G2 by repeated point addition,
    the committee order rotated per shard, and hostile rows with known
@@ -47,7 +48,8 @@ resident on the card) and the recompute path (without keys):
 7. times both paths (cold median of 3 with hashing and, on the precomp
    path, table building included; warm median of 7, on the precomp path
    with and without the batch memo), the recompute
-   audit's stages, each kernel and its plain version (CUDA events, the
+   audit's stages and its device kernels by name (torch.profiler), each
+   kernel and its plain version (CUDA events, the
    launches queued before the first runs; the tower kernel at each of
    its shapes in the warm audit, the final exponentiation per product
    step and per Frobenius step on the synthetic programs beside their
@@ -68,12 +70,16 @@ resident on the card) and the recompute path (without keys):
    audit and the exact normalize. The subprocess failing fails the run.
    Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
-   non-empty row; the final exponentiation's Fp12 products at three
-   schoolbooks per Fp2 product, as its kernel computes them, squares as
-   full products; for conv, normalize and the tower kernel, the
+   non-empty row; the Fp2 products of the final exponentiation's Fp12
+   products and of the G2 committee sum at three schoolbooks each, as
+   their kernels compute them, squares as full products; for conv,
+   normalize and the tower kernel, the
    multiply-adds (625 per conv term, 22 per folded limb) and bytes of the
    launch timed, each operand counted once as the kernel reads it,
-   before any broadcast).
+   before any broadcast). The committee sums' share of their bound is
+   printed beside the ceiling that the fixed tree puts on any kernel
+   returning the plain version's limbs: the additions the period needs
+   over those the padded tree makes.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -88,6 +94,7 @@ import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -219,10 +226,12 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
     """int32 multiply-adds of one call of the plain version `fn`, which
     does the kernel's arithmetic step for step: 625 per 25×25 schoolbook
     convolution, 22 per folded limb of every normalize. With `karatsuba`,
-    as the final-exponentiation kernel does them: three schoolbooks per
-    Fp2 product of an Fp12 product where the plain version has four."""
+    as the final-exponentiation and G2 committee-sum kernels do them:
+    three schoolbooks per Fp2 product (of an Fp12 product, and of
+    `_fp2_mul`) where the plain version has four."""
     count = [0]
-    conv, norm, mul = mk._conv, mk._normalize, mk._fp12_mul
+    conv, norm = mk._conv, mk._normalize
+    mul, fp2_mul = mk._fp12_mul, mk._fp2_mul
     sq = mk.KNL * mk.KNL
 
     def conv_counted(u, v):
@@ -239,14 +248,43 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
         count[0] -= x[..., 0, 0, 0].numel() * 36 * sq
         return mul(x, y, C)
 
+    def fp2_mul_counted(x, y, C):
+        lead = torch.broadcast_shapes(x.shape, y.shape)[:-2]
+        count[0] -= math.prod(lead) * sq
+        return fp2_mul(x, y, C)
+
     mk._conv, mk._normalize = conv_counted, norm_counted
     if karatsuba:
-        mk._fp12_mul = mul_counted
+        mk._fp12_mul, mk._fp2_mul = mul_counted, fp2_mul_counted
     try:
         fn()
     finally:
-        mk._conv, mk._normalize, mk._fp12_mul = conv, norm, mul
+        mk._conv, mk._normalize = conv, norm
+        mk._fp12_mul, mk._fp2_mul = mul, fp2_mul
     return count[0]
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, spill stores, spill loads) of every entry
+    function in nvcc's -Xptxas -v log, names demangled to `name<args>`."""
+    rows, name, spill = [], "?", (0, 0)
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '_ZN2gs(\d+)(\w+)'",
+                          line)
+        if entry:
+            size, rest = int(entry.group(1)), entry.group(2)
+            name = rest[:size]
+            targs = re.match(r"ILi(\d+)E", rest[size:])
+            if targs:
+                name += f"<{targs.group(1)}>"
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            spill = (int(found.group(1)), int(found.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            rows.append((name, int(used.group(1))) + spill)
+    return rows
 
 
 def max_abs_err(got, want) -> int:
@@ -676,9 +714,9 @@ def main() -> int:
     if not keccak.native_available():
         fail("the host hash did not load its compiled keccak (csrc/keccak.c)")
     print("hash: keccak256 runs the compiled csrc/keccak.c (ctypes)")
-    for line in _build.build_log.splitlines():
-        if "Function properties" in line or "Used" in line or "spill" in line:
-            print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+    for name, regs, stores, loads in ptxas_report(_build.build_log):
+        print(f"  ptxas {name}: {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B")
 
     t0 = time.perf_counter()
     msgs, sig_rows, pk_rows, keys, want = make_period(bls, args.seed)
@@ -713,6 +751,10 @@ def main() -> int:
     # pairing (the launches also cover the 12 pad rows and the empty one).
     adds_g1 = int((sm.sum(dim=1) - 1).clamp(min=0).sum().item())
     adds_g2 = int((gm.sum(dim=1) - 1).clamp(min=0).sum().item())
+    # what the fixed tree lets any exact kernel reach: the additions the
+    # period needs over those the padded tree makes (cp - 1 a row)
+    made = lambda planes: n * (mk._committee_pad(planes.shape[1]) - 1)
+    ceilings = {"agg_g1": (adds_g1, made(sx)), "agg_g2": (adds_g2, made(gx))}
     paired = int((sm.any(dim=1) & gm.any(dim=1))[:SHARDS].sum().item())
     one_add = lambda xs, ys, m, fp2: lambda: mk.run_agg_plain(
         xs[:1, :2], ys[:1, :2], torch.ones_like(m[:1, :2]), fp2=fp2)
@@ -742,7 +784,8 @@ def main() -> int:
               f"(tolerance 0)", flush=True)
         if err != 0:
             fail(f"{name} disagrees with its plain version")
-        macs = count_multiply_adds(mk, unit, karatsuba=name == "finalexp")
+        macs = count_multiply_adds(mk, unit,
+                                   karatsuba=name in ("finalexp", "agg_g2"))
         results[name] = dict(bound(macs * units, moved), max_abs_err=err,
                              units=units)
     verdict_k = mk.finalexp_is_one(f)
@@ -1005,6 +1048,16 @@ def main() -> int:
           f"profiled): device idle share {1 - busy / pwarm_ms:.3f} "
           f"[{card}]")
 
+    rec_dev, _ = device_times(
+        lambda: backend.bls_verify_committees(msgs, sig_rows, pk_rows))
+    rec_split = kernel_split(rec_dev)
+    rec_busy = sum(rec_split.values())
+    rec_ms = statistics.median(audit_s) * 1e3
+    print(f"time recompute audit, warm: device kernels {rec_busy:.2f} ms "
+          f"under the profiler ({', '.join(f'{k} {v:.2f}' for k, v in rec_split.items())}) "
+          f"against {rec_ms:.1f} ms unprofiled: device idle share "
+          f"{1 - rec_busy / rec_ms:.3f} [{card}]")
+
     kernels = []
     for name, (kern, plain, _, _) in cases.items():
         ms = cuda_ms(kern, 10)
@@ -1015,6 +1068,12 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
               f"{r['multiply_adds']} int32 multiply-adds over {r['units']} "
               f"needed units, {r['bytes']} B) [{card}]")
+        if name in ceilings:
+            need, tree = ceilings[name]
+            print(f"time {name}: {r['bound_ms'] / ms:.1%} of its bound; "
+                  f"the tree's ceiling {need} / {tree} = {need / tree:.1%} "
+                  f"(additions the period needs over those the padded "
+                  f"tree makes) [{card}]")
         kernels.append({
             "name": name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": rec_launches[name],

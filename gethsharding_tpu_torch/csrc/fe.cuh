@@ -1,5 +1,9 @@
 // The final exponentiation's Fp12 steps (product, Frobenius map) with
-// their normalizes spread over lanes, as block-cooperative device code.
+// their normalizes spread over lanes, as block-cooperative device code;
+// the committee sums of csrc/agg.cu run their phases on the same helpers
+// (a 25-limb normalize in one phase, fe_normalize25; Fp products and
+// split schoolbooks, fe_products; rows that an input binds once per item,
+// fe_row; outputs through a row functor, in int16 there).
 //
 // Each step computes what the plain versions `_fp12_mul` / `_frob` of
 // ops/megakernels.py (and, for the product, field.cuh's `fp12_mul`)
@@ -41,6 +45,8 @@
 // legal schedule too.
 #pragma once
 
+#include <type_traits>
+
 #include "field.cuh"
 
 namespace gs {
@@ -73,11 +79,12 @@ constexpr int FE_SCRATCH_INTS = FE_ROWS12 * NL + NL + 3 * FE_ROWS36 * NC +
                                 FE_ROWS12 * FE_Z1;
 
 // The first fold rows (those a 25-limb normalize reads) and the lift of
-// the constant pack (C_FOLD, C_LIFT) in the constant bank. On the card
-// the launcher copies them there before each launch; compiled for the
-// host, the kernel copies them itself.
-__constant__ int fe_fold_c[(FE_Z1 - FB) * FB];
-__constant__ int fe_lift_c[NL];
+// the constant pack (C_FOLD, C_LIFT) in the constant bank, one copy per
+// source file that includes this header. On the card the launcher copies
+// them there before each launch; compiled for the host, the kernel
+// copies them itself.
+static __constant__ int fe_fold_c[(FE_Z1 - FB) * FB];
+static __constant__ int fe_lift_c[NL];
 
 __device__ __forceinline__ void fe_host_consts(const int* consts) {
 #ifndef __CUDACC__
@@ -159,19 +166,31 @@ __device__ __forceinline__ int acc_limb(const int* acc, int l) {
   return l < FB ? acc[l] : fe_lift_c[l];
 }
 
+// The limbs of row r as a function of the limb: `in` either binds a row,
+// in(r) returning that function (its per-row work then runs once per
+// item), or gives a limb, in(r, l).
+template <class In>
+__device__ __forceinline__ auto fe_row(In& in, int r) {
+  if constexpr (std::is_invocable_v<In&, int, int>)
+    return [&in, r](int l) { return in(r, l); };
+  else
+    return in(r);
+}
+
 // Phase: the first two rounds of normalize<W> on rows of W limbs,
-// in(r, l), into t2 (row r at t2 + r·(W + 2)). A lane computes CW
+// fe_row(in, r), into t2 (row r at t2 + r·(W + 2)). A lane computes CW
 // consecutive limbs of a row from a window of CW + 2 inputs.
 template <int W, int CW, class In>
 __device__ __forceinline__ void fe_two_rounds(int rows, In in, int* t2) {
   constexpr int Z = W + 2, NCH = (Z + CW - 1) / CW;
   fe_phase<NCH>(rows, [&](auto chunk, int r) {
     constexpr int L0 = decltype(chunk)::value * CW, LO = L0 - 2;
+    auto row = fe_row(in, r);
     int a[CW + 2];
 #pragma unroll
     for (int d = 0; d < CW + 2; ++d) {
       const int l = LO + d;
-      a[d] = (l >= 0 && l < W) ? in(r, l) : 0;
+      a[d] = (l >= 0 && l < W) ? row(l) : 0;
     }
     window_rounds<2, LO, Z - 1>(a);
 #pragma unroll
@@ -215,12 +234,20 @@ __device__ __forceinline__ void fe_fold(int rows, const int* t2, int* acc,
   __syncthreads();
 }
 
+// Output rows of a phase: row r at base + r·25.
+struct FeRows {
+  int* base;
+  __device__ __forceinline__ int* operator()(int r) const {
+    return base + r * NL;
+  }
+};
+
 // Phase: the fold and the three last rounds of normalize<25> over rows
-// after two rounds (row r at t2 + r·27) into out + r·25. A lane computes
-// CW limbs of a row, folding the CW + 3 limbs they need itself.
-template <int CW>
+// after two rounds (row r at t2 + r·27) into out(r). A lane computes CW
+// limbs of a row, folding the CW + 3 limbs they need itself.
+template <int CW, class Out>
 __device__ __forceinline__ void fe_fold_three(int rows, const int* t2,
-                                              int* out) {
+                                              Out out) {
   constexpr int NCH = (NL + CW - 1) / CW;
   fe_phase<NCH>(rows, [&](auto chunk, int r) {
     constexpr int L0 = decltype(chunk)::value * CW, LO = L0 - 3;
@@ -232,17 +259,18 @@ __device__ __forceinline__ void fe_fold_three(int rows, const int* t2,
 #pragma unroll
     for (int d = 0; d < CW + 3; ++d) a[d] = folded_limb(v, hi, LO + d);
     window_rounds<3, LO, NL - 1>(a);
+    auto* o = out(r);
 #pragma unroll
     for (int d = 0; d < CW; ++d)
-      if (L0 + d < NL) out[r * NL + L0 + d] = a[3 + d];
+      if (L0 + d < NL) o[L0 + d] = a[3 + d];
   });
 }
 
 // Phase: the three last rounds of folded rows (row r at acc + r·22) into
-// out + r·25, CW limbs per lane.
-template <int CW>
+// out(r), CW limbs per lane.
+template <int CW, class Out>
 __device__ __forceinline__ void fe_three_rounds(int rows, const int* acc,
-                                                int* out) {
+                                                Out out) {
   constexpr int NCH = (NL + CW - 1) / CW;
   fe_phase<NCH>(rows, [&](auto chunk, int r) {
     constexpr int L0 = decltype(chunk)::value * CW, LO = L0 - 3;
@@ -250,20 +278,77 @@ __device__ __forceinline__ void fe_three_rounds(int rows, const int* acc,
 #pragma unroll
     for (int d = 0; d < CW + 3; ++d) a[d] = acc_limb(acc + r * FB, LO + d);
     window_rounds<3, LO, NL - 1>(a);
+    auto* o = out(r);
 #pragma unroll
     for (int d = 0; d < CW; ++d)
-      if (L0 + d < NL) out[r * NL + L0 + d] = a[3 + d];
+      if (L0 + d < NL) o[L0 + d] = a[3 + d];
+  });
+}
+
+// The combination of a merge: limb l of row r from the two operands'
+// limbs, a + b by default.
+struct FeAdd {
+  __device__ __forceinline__ int operator()(int, int, int a, int b) const {
+    return a + b;
+  }
+};
+
+// Phase: normalize<25> of rows fe_row(in, r) into out(r),
+// all in one phase: a lane computes CW output limbs of a row through both
+// rounds, the fold and the three last rounds in registers, from the input
+// limbs of its window (L0 - 5 .. L0 + CW) and the five that the fold's
+// high limbs come from (20 .. 24).
+template <int CW, class In, class Out>
+__device__ __forceinline__ void fe_normalize25(int rows, In in, Out out) {
+  constexpr int NCH = (NL + CW - 1) / CW, NH = FE_Z1 - FB;
+  fe_phase<NCH>(rows, [&](auto chunk, int r) {
+    constexpr int L0 = decltype(chunk)::value * CW, LO = L0 - 5;
+    auto row = fe_row(in, r);
+    int h[NH + 2];  // limbs 20..26, then 22..26 after two rounds
+#pragma unroll
+    for (int d = 0; d < NH + 2; ++d)
+      h[d] = FB - 2 + d < NL ? row(FB - 2 + d) : 0;
+    window_rounds<2, FB - 2, FE_Z1 - 1>(h);
+    int a[CW + 5];
+#pragma unroll
+    for (int d = 0; d < CW + 5; ++d) {
+      const int l = LO + d;
+      a[d] = (l >= 0 && l < NL) ? row(l) : 0;
+    }
+    window_rounds<2, LO, FE_Z1 - 1>(a);
+    int f[CW + 3];  // folded limbs L0 - 3 ..
+#pragma unroll
+    for (int d = 0; d < CW + 3; ++d) {
+      const int l = L0 - 3 + d;
+      if (l < 0 || l >= NL) {
+        f[d] = 0;
+      } else if (l >= FB) {
+        f[d] = fe_lift_c[l];
+      } else {
+        int s = a[d + 2] + fe_lift_c[l];
+#pragma unroll
+        for (int k = 0; k < NH; ++k) s += h[k + 2] * fe_fold_c[k * FB + l];
+        f[d] = s;
+      }
+    }
+    window_rounds<3, L0 - 3, NL - 1>(f);
+    auto* o = out(r);
+#pragma unroll
+    for (int d = 0; d < CW; ++d)
+      if (L0 + d < NL) o[L0 + d] = f[3 + d];
   });
 }
 
 // Phase: a group merge, the first two rounds of normalize<25> of the sum
-// of two normalized rows into t2 (row r at t2 + r·27). Each operand is
-// given before its three last rounds: q(r) a folded row (22 limbs); p(r)
-// the same, or, where P_T2, a row after two rounds (27 limbs) that the
-// lane folds itself. A lane takes CW limbs: it needs the sum at CW + 2
-// limbs, so each operand's three rounds run over a window of CW + 5.
-template <int CW, bool P_T2, class P, class Q>
-__device__ __forceinline__ void fe_merge(int rows, P p, Q q, int* t2) {
+// (or of comb(r, l, p_l, q_l)) of two normalized rows into t2 (row r at
+// t2 + r·27). Each operand is given before its three last rounds: q(r) a
+// folded row (22 limbs); p(r) the same, or, where P_T2, a row after two
+// rounds (27 limbs) that the lane folds itself. A lane takes CW limbs:
+// it needs the sum at CW + 2 limbs, so each operand's three rounds run
+// over a window of CW + 5.
+template <int CW, bool P_T2, class P, class Q, class Comb = FeAdd>
+__device__ __forceinline__ void fe_merge(int rows, P p, Q q, int* t2,
+                                         Comb comb = Comb()) {
   constexpr int NCH = (FE_Z1 + CW - 1) / CW, N = CW + 5;
   fe_phase<NCH>(rows, [&](auto chunk, int r) {
     constexpr int L0 = decltype(chunk)::value * CW, LO = L0 - 5;
@@ -288,7 +373,7 @@ __device__ __forceinline__ void fe_merge(int rows, P p, Q q, int* t2) {
 #pragma unroll
     for (int d = 0; d < CW + 2; ++d) {
       const int l = LO + 3 + d;
-      m[d] = (l >= 0 && l < NL) ? a[d + 3] + b[d + 3] : 0;
+      m[d] = (l >= 0 && l < NL) ? comb(r, l, a[d + 3], b[d + 3]) : 0;
     }
     window_rounds<2, LO + 3, FE_Z1 - 1>(m);
 #pragma unroll
@@ -320,40 +405,109 @@ __device__ __forceinline__ void fe_schoolbook(const int (&U)[NL],
   }
 }
 
-// Phase: the schoolbook products of Fp2 products a·b, one product row r
-// each, into part + (p·rows + r)·49; ab(r, a, b) gives the operands. A
-// work item is one product of one row: a whole 25 × 25 schoolbook, both
-// operands in registers. With KARA, the three Karatsuba products P =
-// a0 ⊛ b0, Q = a1 ⊛ b1 and R = (a0 + a1) ⊛ (b0 + b1) (p = 0, 1, 2; P and
-// Q add a zero row, so every item runs the same code); a·b's columns are
-// then P - Q and R - P - Q, the exact columns of the plain version's four
+// Columns [Q0, Q1) of U ⊛ V into z[Q0..Q1), U and V limb l given by
+// u(l), v(l): only the limbs those columns use are loaded, every index a
+// compile-time constant.
+template <int Q0, int Q1, class UF, class VF>
+__device__ __forceinline__ void fe_schoolbook_cols(UF u, VF v, int* z) {
+  constexpr int L0 = Q0 > NL - 1 ? Q0 - (NL - 1) : 0;
+  constexpr int L1 = Q1 - 1 < NL - 1 ? Q1 - 1 : NL - 1;
+  constexpr int N = L1 - L0 + 1;
+  int U[N], V[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    U[i] = u(L0 + i);
+    V[i] = v(L0 + i);
+  }
+#pragma unroll
+  for (int q = Q0; q < Q1; ++q) {
+    int acc = 0;
+#pragma unroll
+    for (int l = L0; l <= L1; ++l)
+      if (q - l >= L0 && q - l <= L1) acc += U[l - L0] * V[q - l - L0];
+    z[q] = acc;
+  }
+}
+
+// Column boundaries of a schoolbook split into S parts of about equal
+// multiply-adds (column q has min(q + 1, 49 - q) terms).
+template <int S>
+struct FeSplit;
+template <>
+struct FeSplit<2> {
+  static constexpr int q[3] = {0, NL, NC};
+};
+
+// fe_products with every schoolbook split into S work items of a column
+// range each (FeSplit<S>), so an item holds fewer operands and
+// accumulators in registers; items run part-major, rows padded to warps.
+template <int NP, int S, class T = int, class AB>
+__device__ __forceinline__ void fe_products_split(int rows, AB ab,
+                                                  int* part) {
+  fe_phase<NP * S>(rows, [&](auto g, int r) {
+    constexpr int p = decltype(g)::value / S, s = decltype(g)::value % S;
+    const T* a;
+    const T* b;
+    ab(r, a, b);
+    // Karatsuba (NP = 3): a0, a1, a0 + a1; four products: a_{p/2} b_{p%2}
+    auto u = [&](int l) {
+      if constexpr (NP == 3)
+        return p == 2 ? a[l] + a[NL + l] : a[p * NL + l];
+      else
+        return a[(p >> 1) * NL + l];
+    };
+    auto v = [&](int l) {
+      if constexpr (NP == 3)
+        return p == 2 ? b[l] + b[NL + l] : b[p * NL + l];
+      else
+        return b[(p & 1) * NL + l];
+    };
+    fe_schoolbook_cols<FeSplit<S>::q[s], FeSplit<S>::q[s + 1]>(
+        u, v, part + (p * rows + r) * NC);
+  });
+}
+
+// Phase: the schoolbook products of NP-fold products a·b, one product
+// row r each, into part + (p·rows + r)·49; ab(r, a, b) gives the
+// operands. A work item is one schoolbook of one row: a whole 25 × 25
+// schoolbook, both operands in registers. NP = 1: an Fp product. NP = 3:
+// an Fp2 product by Karatsuba, the three products P = a0 ⊛ b0,
+// Q = a1 ⊛ b1 and R = (a0 + a1) ⊛ (b0 + b1) (p = 0, 1, 2; P and Q add a
+// zero row, so every item runs the same code); a·b's columns are then
+// P - Q and R - P - Q, the exact columns of the plain version's four
 // products (R's columns stay below 25 · 8320^2 < 2^31 for quasi-canonical
-// limbs). Without, the four products a_c ⊛ b_d (p = 2c + d), for the
-// Frobenius map's 12 rows: its phase runs on two warps either way, so
-// Karatsuba's extra operand loads and additions would cost more than the
-// fourth product saves.
-template <bool KARA, class AB>
-__device__ __forceinline__ void fe_fp2_products(int rows, AB ab, int* part,
-                                                const int* zero) {
-  for (int t = threadIdx.x; t < (KARA ? 3 : 4) * rows; t += blockDim.x) {
+// limbs). NP = 4: an Fp2 product as the four products a_c ⊛ b_d
+// (p = 2c + d), for the Frobenius map's 12 rows: its phase runs on two
+// warps either way, so Karatsuba's extra operand loads and additions
+// would cost more than the fourth product saves. T is the type the
+// operands are stored in; S > 1 splits every schoolbook (S = 2 only).
+template <int NP, int S = 1, class T = int, class AB>
+__device__ __forceinline__ void fe_products(int rows, AB ab, int* part,
+                                            const T* zero) {
+  static_assert(NP == 1 || NP == 3 || NP == 4, "1, 3 or 4 products");
+  if constexpr (S > 1) {
+    fe_products_split<NP, S, T>(rows, ab, part);
+    return;
+  }
+  for (int t = threadIdx.x; t < NP * rows; t += blockDim.x) {
     const int p = t / rows, r = t - p * rows;
-    const int* a;
-    const int* b;
+    const T* a;
+    const T* b;
     ab(r, a, b);
     int U[NL], V[NL];
-    if constexpr (KARA) {
-      const int* u = p == 1 ? a + NL : a;
-      const int* v = p == 1 ? b + NL : b;
-      const int* u2 = p == 2 ? a + NL : zero;
-      const int* v2 = p == 2 ? b + NL : zero;
+    if constexpr (NP == 3) {
+      const T* u = p == 1 ? a + NL : a;
+      const T* v = p == 1 ? b + NL : b;
+      const T* u2 = p == 2 ? a + NL : zero;
+      const T* v2 = p == 2 ? b + NL : zero;
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
         U[l] = u[l] + u2[l];
         V[l] = v[l] + v2[l];
       }
     } else {
-      const int* u = a + (p >> 1) * NL;
-      const int* v = b + (p & 1) * NL;
+      const T* u = a + (p >> 1) * NL;
+      const T* v = b + (p & 1) * NL;
 #pragma unroll
       for (int l = 0; l < NL; ++l) {
         U[l] = u[l];
@@ -371,12 +525,34 @@ __device__ __forceinline__ void fe_fp2_products(int rows, AB ab, int* part,
   __syncthreads();
 }
 
-// Column l of component c of the Fp2 product of row r (the products of
-// `fe_fp2_products<KARA>` in `part`, `rows` rows each).
-template <bool KARA>
-__device__ __forceinline__ int fp2_column(const int* part, int rows, int r,
-                                          int c, int l) {
-  if constexpr (KARA) {
+// Component c of the product of row r (the products of `fe_products<NP>`
+// in `part`, `rows` rows each) as a function of the column, for NP = 1
+// (c = 0), 3 or 4.
+template <int NP>
+__device__ __forceinline__ auto fe_column_row(const int* part, int rows,
+                                              int r, int c) {
+  const int* P = part + r * NC;
+  const int* Q = P + rows * NC;
+  const int* R = Q + rows * NC;
+  const int* S = R + rows * NC;
+  return [=](int l) {
+    if constexpr (NP == 1)
+      return P[l];
+    else if constexpr (NP == 3)
+      return c == 0 ? P[l] - Q[l] : R[l] - P[l] - Q[l];
+    else
+      return c == 0 ? P[l] - S[l] : Q[l] + R[l];
+  };
+}
+
+// Column l of component c of the Fp2 product of row r, read directly
+// (NP = 3 or 4): the final exponentiation's product reads two per limb,
+// and defining this through fe_column_row made its product step 3%
+// slower on the H100 (chip_smoke.py's per-step time).
+template <int NP>
+__device__ __forceinline__ int fe_column(const int* part, int rows, int r,
+                                         int c, int l) {
+  if constexpr (NP == 3) {
     const int P = part[r * NC + l], Q = part[(rows + r) * NC + l];
     return c == 0 ? P - Q : part[(2 * rows + r) * NC + l] - P - Q;
   } else {
@@ -396,12 +572,11 @@ static __device__ void fe_mul(const int* x, const int* y, int* out,
     return (r & 1) == 0 ? a[l] * 9 - a[NL + l] + T[C_NEG + l]
                         : a[l] + a[NL + l] * 9;
   }, S.t2);
-  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, S.xi);
+  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, FeRows{S.xi});
   // product row r = ((f·6 + k)·3 + g)·2 + ii: x_i times its operand of
   // y or xi·y for i = 2g + ii; accumulator ((f·6 + k)·2 + c)·3 + g adds
   // the rows of ii = 0, 1, and the pad to component 0
-  fe_fp2_products<true>(FE_ROWS36, [&](int r, const int*& a,
-                                        const int*& b) {
+  fe_products<3>(FE_ROWS36, [&](int r, const int*& a, const int*& b) {
     const int ii = r % 2, g = (r / 2) % 3, k = (r / 6) % 6, f = r / 36;
     const int i = 2 * g + ii;
     a = x + f * FP12 + i * 2 * NL;
@@ -411,15 +586,15 @@ static __device__ void fe_mul(const int* x, const int* y, int* out,
     const int g = r % 3, c = (r / 3) % 2, fk = r / 6;
     const int row = (fk * 3 + g) * 2;
     return (c == 0 ? T[C_PAD + l] : 0) +
-           fp2_column<true>(S.part, FE_ROWS36, row, c, l) +
-           fp2_column<true>(S.part, FE_ROWS36, row + 1, c, l);
+           fe_column<3>(S.part, FE_ROWS36, row, c, l) +
+           fe_column<3>(S.part, FE_ROWS36, row + 1, c, l);
   }, S.t2);
   fe_fold<NC>(FE_ROWS36, S.t2, S.acc, T);
   fe_merge<FE_CW_MERGE, false>(FE_ROWS12, [&](int r) { return S.acc + 3 * r * FB; },
                      [&](int r) { return S.acc + (3 * r + 1) * FB; }, S.t2m);
   fe_merge<FE_CW_MERGE, true>(FE_ROWS12, [&](int r) { return S.t2m + r * FE_Z1; },
                     [&](int r) { return S.acc + (3 * r + 2) * FB; }, S.t2);
-  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, out);
+  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, FeRows{out});
 }
 
 // out = x^(p^np), np in {1, 2, 3}, for both fractions; `out` may alias
@@ -432,22 +607,22 @@ static __device__ void fe_frob(const int* x, int np, int* out, FeScratch S,
     const int v = x[r * NL + l];
     return odd && (r & 1) ? T[C_NEG + l] - v : v;
   }, S.t2);
-  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, S.xi);
+  fe_fold_three<FE_CW_OUT>(FE_ROWS12, S.t2, FeRows{S.xi});
   const int* gamma = T + C_GAMMA + (np - 1) * FP12;
   // product row r = f·6 + k: coefficient k times gamma_k; accumulator
   // 2r + c, padded in component 0
-  fe_fp2_products<false>(FE_ROWS12 / 2, [&](int r, const int*& a,
-                                             const int*& b) {
+  fe_products<4>(FE_ROWS12 / 2, [&](int r, const int*& a,
+                                     const int*& b) {
     a = S.xi + r * 2 * NL;
     b = gamma + (r % 6) * 2 * NL;
   }, S.part, S.zero);
   fe_two_rounds<NC, FE_CW_Z2>(FE_ROWS12, [&](int r, int l) {
     const int c = r % 2;
     return (c == 0 ? T[C_PAD + l] : 0) +
-           fp2_column<false>(S.part, FE_ROWS12 / 2, r / 2, c, l);
+           fe_column<4>(S.part, FE_ROWS12 / 2, r / 2, c, l);
   }, S.t2);
   fe_fold<NC>(FE_ROWS12, S.t2, S.acc, T);
-  fe_three_rounds<FE_CW_OUT>(FE_ROWS12, S.acc, out);
+  fe_three_rounds<FE_CW_OUT>(FE_ROWS12, S.acc, FeRows{out});
 }
 
 }  // namespace gs

@@ -41,8 +41,9 @@ _L = ctypes.c_longlong
 # C signatures of the entry points (every pointer and the stream are
 # c_void_p: a bare Python int would be passed as a 32-bit int)
 SIGNATURES = {
-    "gs_agg_g1": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "gs_agg_g2": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "gs_agg_g1": [_P, _P, _P, _I, _I, _I, _I] + [_P] * 7,
+    "gs_agg_g2": [_P, _P, _P, _I, _I, _I, _I] + [_P] * 7,
+    "gs_agg_plan": [_I, _I, _P],
     "gs_miller": [_P] * 9 + [_I, _P, _P, _P, _I, _P, _P],
     "gs_finalexp": [_P, _P, _I, _P, _I, _P, _P],
     "gs_norm": [_P, _L, _I, _I, _P, _P, _P, _P],

@@ -29,6 +29,7 @@ values mod p.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Any, NamedTuple
 
@@ -38,7 +39,8 @@ import torch
 from gethsharding_tpu_torch.crypto import bn256 as ref
 from gethsharding_tpu_torch.ops import route
 from gethsharding_tpu_torch.ops import bn256 as bn
-from gethsharding_tpu_torch.ops._build import Kernel, check_tensor, ptr
+from gethsharding_tpu_torch.ops._build import (Kernel, check_tensor, library,
+                                               ptr)
 from gethsharding_tpu_torch.ops.limb import (LIMB_BITS, LIMB_MASK, NLIMBS,
                                              const, int_to_limbs, pad_last)
 
@@ -557,6 +559,17 @@ def _committee_pad(cdim: int) -> int:
     return 1 << max(1, (cdim - 1).bit_length())
 
 
+@functools.lru_cache(maxsize=None)
+def agg_blocks(cp: int, fp2: bool) -> int:
+    """The blocks over which `csrc/agg.cu` sums a row of cp slots, as its
+    `gs_agg_plan` computes them from the kernel's shared memory. Block s
+    of a row sums the slots of residue s mod the blocks per row; the
+    row's last block sums their partials."""
+    out = (ctypes.c_int * 2)()
+    library().gs_agg_plan(int(fp2), cp, out)
+    return out[0]
+
+
 # == the kernels ===========================================================
 
 
@@ -599,15 +612,22 @@ def agg_kernel(xs, ys, mask, *, fp2: bool):
     check_tensor(ys, (n, cdim) + point, "ys")
     check_tensor(mask, (n, cdim), "mask")
     cp = _committee_pad(cdim)
-    scratch = torch.empty((n, cp, 3) + point, dtype=torch.int32,
-                          device=xs.device)
     out = [torch.empty((n,) + point, dtype=torch.int32, device=xs.device)
            for _ in range(3)]
     if n == 0:
         return tuple(out)
+    ns = agg_blocks(cp, fp2)
+    # the blocks of a split row meet in a partial buffer and a counter
+    partial = counter = None
+    if ns > 1:
+        partial = torch.empty((n, ns, 3) + point, dtype=torch.int32,
+                              device=xs.device)
+        counter = torch.zeros(n, dtype=torch.int32, device=xs.device)
     KERNELS["agg_g2" if fp2 else "agg_g1"].launch(
-        ptr(xs), ptr(ys), ptr(mask), n, cdim, cp,
-        ptr(_kernel_consts(xs.device)), ptr(scratch), *map(ptr, out))
+        ptr(xs), ptr(ys), ptr(mask), n, cdim, cp, ns,
+        ptr(_kernel_consts(xs.device)),
+        None if partial is None else ptr(partial),
+        None if counter is None else ptr(counter), *map(ptr, out))
     return tuple(out)
 
 

@@ -193,14 +193,54 @@ def test_norm_exact_kernel_equals_plain(cuda, width):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fp2", [False, True])
-def test_agg_kernel_equals_plain(cuda, fp2):
-    rng = np.random.default_rng(91)
-    n, cdim = 67, 37     # an odd batch, a committee far from a power of 2
-    point = (2,) if fp2 else ()
-    xs = _canon(rng, (n, cdim) + point, cuda)
-    ys = _canon(rng, (n, cdim) + point, cuda)
-    mask = torch.as_tensor(rng.integers(0, 2, (n, cdim)), device=cuda)
-    got = mk.agg_kernel(xs, ys, mask.to(torch.int32), fp2=fp2)
+@pytest.mark.parametrize("n", [1, 112, 300])
+@pytest.mark.parametrize("cdim", [1, 37, 144, 300])
+def test_agg_kernel_equals_plain(cuda, fp2, n, cdim):
+    """One launch per sum, the plain version's limbs, from 2 to 512 slots
+    (one block per row; two for G2 at 512, the last adding the partials),
+    on quasi-canonical limbs with slots of every limb 4095, 4160 or -1, a
+    mask with holes, an all-off row and an all-on row."""
+    rng = np.random.default_rng(91 + cdim)
+    shape = (n, cdim) + ((2,) if fp2 else ()) + (25,)
+    xs = rng.integers(-1, (1 << 12) + 65, shape).astype(np.int32)
+    ys = rng.integers(-1, (1 << 12) + 65, shape).astype(np.int32)
+    for j, limb in enumerate((4095, (1 << 12) + 64, -1)):
+        xs[:, j::7] = limb
+        ys[:, (j + 3)::7] = limb
+    mask = rng.integers(0, 2, (n, cdim)).astype(np.int32)
+    mask[0] = 1
+    if n > 2:
+        mask[n // 2] = 0
+    xs, ys, mask = (torch.as_tensor(a, device=cuda) for a in (xs, ys, mask))
+    kernel = mk.KERNELS["agg_g2" if fp2 else "agg_g1"]
+    before = kernel.launches
+    got = mk.agg_kernel(xs, ys, mask, fp2=fp2)
+    assert kernel.launches == before + 1
+    want = mk.run_agg_plain(xs, ys, mask.bool(), fp2=fp2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp2", [False, True])
+def test_agg_kernel_splits_rows_over_blocks(cuda, fp2):
+    """At 1,000 slots (1,024 after padding) a row's stack outgrows one
+    block's shared memory: G1 splits it over 2 blocks, G2 over 4, and the
+    row's last block adds the partials, in one launch, with the plain
+    version's limbs on 3 rows."""
+    rng = np.random.default_rng(97)
+    n, cdim = 3, 1000
+    shape = (n, cdim) + ((2,) if fp2 else ()) + (25,)
+    xs = rng.integers(-1, (1 << 12) + 65, shape).astype(np.int32)
+    ys = rng.integers(-1, (1 << 12) + 65, shape).astype(np.int32)
+    mask = rng.integers(0, 2, (n, cdim)).astype(np.int32)
+    mask[0] = 1
+    xs, ys, mask = (torch.as_tensor(a, device=cuda) for a in (xs, ys, mask))
+    assert mk.agg_blocks(1024, fp2) == (4 if fp2 else 2)
+    kernel = mk.KERNELS["agg_g2" if fp2 else "agg_g1"]
+    before = kernel.launches
+    got = mk.agg_kernel(xs, ys, mask, fp2=fp2)
+    assert kernel.launches == before + 1
     want = mk.run_agg_plain(xs, ys, mask.bool(), fp2=fp2)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

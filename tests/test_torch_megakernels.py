@@ -220,34 +220,45 @@ def test_convert_widens_exact_planes():
 # == the CUDA sources, run on the host =====================================
 # One block of one thread: every phase's work items run in order in that
 # thread and __syncthreads() is a no-op, which is a legal schedule of the
-# kernels' block-cooperative loops. This checks the kernels' arithmetic
-# and indexing here, where no card is; the card itself is checked by the
-# cuda tests below and by chip_smoke.py.
+# kernels' block-cooperative loops. Blocks run one after another, so of
+# the blocks that meet through a counter the last in order finishes last.
+# This checks the kernels' arithmetic and indexing here, where no card
+# is; the card itself is checked by the cuda tests below and by
+# chip_smoke.py.
 
 _SHIM = r"""
 struct Dim { unsigned x, y, z; };
 static Dim threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
-#define __constant__ static
+#define __constant__
 #define __shared__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct int4 { int x, y, z, w; };
 inline void __syncthreads() {}
+inline void __threadfence() {}
+inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+template <class T> inline T __ldcg(const T* p) { return *p; }
 """
 
 _DRIVERS = {
     "agg": r"""
 namespace gs { int smem[1 << 16]; }
 extern "C" void run(int fp2, const int* xs, const int* ys, const int* mask,
-                    int n, int C, int cp, const int* consts, int* scratch,
-                    int* ox, int* oy, int* oz) {
-  for (int b = 0; b < n; ++b) {
+                    int n, int C, int cp, int ns, int pairs,
+                    const int* consts, int* partial, int* counter, int* ox,
+                    int* oy, int* oz) {
+  for (int b = 0; b < n * ns; ++b) {
     blockIdx.x = b;
-    if (fp2) gs::agg_kernel<2>(xs, ys, mask, C, cp, consts, scratch, ox, oy, oz);
-    else gs::agg_kernel<1>(xs, ys, mask, C, cp, consts, scratch, ox, oy, oz);
+    if (fp2)
+      gs::agg_kernel<2>(xs, ys, mask, C, cp, ns, pairs, consts, partial,
+                        counter, ox, oy, oz);
+    else
+      gs::agg_kernel<1>(xs, ys, mask, C, cp, ns, pairs, consts, partial,
+                        counter, ox, oy, oz);
   }
 }""",
     "miller": r"""
@@ -358,25 +369,91 @@ def _canon(rng, shape):
                            .astype(np.int32))
 
 
-@pytest.mark.parametrize("fp2,cdim", [(False, 5), (True, 5), (False, 1),
-                                      (True, 3)])
-def test_agg_source_on_host_equals_plain(host_kernels, fp2, cdim):
-    rng = np.random.default_rng(83)
-    n = 3
-    point = (2,) if fp2 else ()
-    xs, ys = _canon(rng, (n, cdim) + point), _canon(rng, (n, cdim) + point)
-    mask = torch.as_tensor(rng.integers(0, 2, (n, cdim)).astype(np.int32))
+def _agg_inputs(rng, n, cdim, fp2):
+    """Committee planes of quasi-canonical limbs with slots at the edges
+    (every limb 4095, 4160 or -1) and a mask of three kinds: row 0 all
+    on, row 1 all off, the other rows with holes."""
+    point = (n, cdim) + ((2,) if fp2 else ())
+    xs, ys = _quasi(rng, point), _quasi(rng, point)
+    for j, limb in enumerate((4095, (1 << 12) + 64, -1)):
+        xs[:, j::7] = limb
+        ys[:, (j + 3)::7] = limb
+    mask = rng.integers(0, 2, (n, cdim)).astype(np.int32)
     mask[0], mask[1] = 1, 0
-    cp = mk._committee_pad(cdim)
-    scratch = torch.zeros((n, cp, 3) + point + (25,), dtype=torch.int32)
+    return _t(xs), _t(ys), _t(mask)
+
+
+def _agg_on_host(host_kernels, fp2, xs, ys, mask, cp, ns, pairs):
+    """The committee-sum source run by the host shim with ns blocks per
+    row adding `pairs` pairs at once: (X, Y, Z) and the rows' counters."""
+    n, cdim = mask.shape
+    point = (2,) if fp2 else ()
+    partial = torch.zeros((n, ns, 3) + point + (25,), dtype=torch.int32)
+    counter = torch.zeros(n, dtype=torch.int32)
     out = [torch.zeros((n,) + point + (25,), dtype=torch.int32)
            for _ in range(3)]
     host_kernels["agg"].run(int(fp2), _p(xs), _p(ys), _p(mask), n, cdim, cp,
-                            _p(mk._kernel_consts("cpu")), _p(scratch),
-                            *map(_p, out))
+                            ns, pairs, _p(mk._kernel_consts("cpu")),
+                            _p(partial), _p(counter), *map(_p, out))
+    return out, counter.tolist()
+
+
+@pytest.mark.parametrize("fp2", [False, True])
+@pytest.mark.parametrize("cdim", [1, 3, 5, 17, 144])
+def test_agg_source_on_host_equals_plain(host_kernels, fp2, cdim):
+    """The committee-sum source on 3 rows at 1 to 144 slots (the audit's
+    committee: 256 slots), split as the launcher plans it, limb for
+    limb."""
+    n = 3
+    xs, ys, mask = _agg_inputs(np.random.default_rng(83 + cdim), n, cdim,
+                               fp2)
+    cp = mk._committee_pad(cdim)
+    plan = (ctypes.c_int * 2)()
+    host_kernels["agg"].gs_agg_plan(int(fp2), cp, plan)
+    ns, pairs = plan
+    out, counter = _agg_on_host(host_kernels, fp2, xs, ys, mask, cp, ns,
+                                pairs)
     want = mk.run_agg_plain(xs, ys, mask.bool(), fp2=fp2)
     for got, w in zip(out, want):
         assert torch.equal(got, w)
+    assert counter == [ns if ns > 1 else 0] * n
+
+
+@pytest.mark.parametrize("fp2", [False, True])
+@pytest.mark.parametrize("cdim,ns,pairs", [
+    (144, 4, 3), (144, 256, 1), (17, 4, 3), (17, 32, 1)])
+def test_agg_source_on_host_other_splits(host_kernels, fp2, cdim, ns,
+                                         pairs):
+    """A row split over ns blocks gives the plain version's limbs: block
+    s sums the slots of residue s mod ns (in chunks of `pairs`, which
+    need not divide a level), writes its partial, counts itself in, and
+    the row's last block adds the ns partials over the top levels. At
+    ns = cp every block holds one slot and the last one makes the whole
+    tree from the partials. 3 rows, a count no split divides."""
+    n = 3
+    xs, ys, mask = _agg_inputs(np.random.default_rng(93 + cdim), n, cdim,
+                               fp2)
+    cp = mk._committee_pad(cdim)
+    out, counter = _agg_on_host(host_kernels, fp2, xs, ys, mask, cp, ns,
+                                pairs)
+    want = mk.run_agg_plain(xs, ys, mask.bool(), fp2=fp2)
+    for got, w in zip(out, want):
+        assert torch.equal(got, w)
+    assert counter == [ns] * n
+
+
+@pytest.mark.parametrize("fp2,cp,ns", [
+    (False, 2, 1), (False, 256, 1), (False, 512, 1), (False, 1024, 2),
+    (True, 2, 1), (True, 256, 1), (True, 512, 2), (True, 1024, 4)])
+def test_agg_plan_takes_the_fewest_blocks_that_fit(host_kernels, fp2, cp,
+                                                    ns):
+    """One block per row while its shared memory fits in 227 KB (the
+    audit's 256 slots), then as few as fit; the pairs a block adds at
+    once are 32 (G1) or 16 (G2), at most half its slots."""
+    plan = (ctypes.c_int * 2)()
+    host_kernels["agg"].gs_agg_plan(int(fp2), cp, plan)
+    assert plan[0] == ns
+    assert plan[1] == min(16 if fp2 else 32, cp // ns // 2)
 
 
 def test_miller_source_on_host_equals_plain(host_kernels):
