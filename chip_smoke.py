@@ -25,7 +25,10 @@ resident on the card) and the recompute path (without keys):
    the path, with partial blocks, leading dims, a broadcast constant,
    negative and bound-edge limbs; the final exponentiation also on two
    synthetic programs, 64 products and 64 Frobenius maps (the kernel
-   takes its program as an argument); and the tower kernel (one launch per
+   takes its program as an argument); the Miller product also on two
+   synthetic op streams, 64 doublings and 64 additions cycling through the
+   four candidates (the kernel takes its op stream as an argument); and
+   the tower kernel (one launch per
    product: Fp, Fp2, Fp12 and line products) against each product's
    plain route on the same kinds of edge inputs: the limbs must be
    equal;
@@ -52,7 +55,8 @@ resident on the card) and the recompute path (without keys):
    kernel and its plain version (CUDA events, the
    launches queued before the first runs; the tower kernel at each of
    its shapes in the warm audit, the final exponentiation per product
-   step and per Frobenius step on the synthetic programs beside their
+   step and per Frobenius step and the Miller product per doubling and
+   per addition step on the synthetic programs and streams beside their
    multiply-adds and bound, conv at the line product and normalize
    at its most frequent shape of the warm audit), their launches and summed
    device time per warm audit and the card's idle share (torch.profiler),
@@ -71,8 +75,10 @@ resident on the card) and the recompute path (without keys):
    Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; the Fp2 products of the final exponentiation's Fp12
-   products and of the G2 committee sum at three schoolbooks each, as
-   their kernels compute them, squares as full products; for conv,
+   products, of the G2 committee sum and of the Miller product (its walk,
+   Fp12 square and sparse line products) at three schoolbooks each, as
+   their kernels compute them, squares as full products; the Miller
+   product's bound also at four, as earlier slices counted it; for conv,
    normalize and the tower kernel, the
    multiply-adds (625 per conv term, 22 per folded limb) and bytes of the
    launch timed, each operand counted once as the kernel reads it,
@@ -226,12 +232,13 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
     """int32 multiply-adds of one call of the plain version `fn`, which
     does the kernel's arithmetic step for step: 625 per 25×25 schoolbook
     convolution, 22 per folded limb of every normalize. With `karatsuba`,
-    as the final-exponentiation and G2 committee-sum kernels do them:
-    three schoolbooks per Fp2 product (of an Fp12 product, and of
-    `_fp2_mul`) where the plain version has four."""
+    as the final-exponentiation, G2 committee-sum and Miller kernels do
+    them: three schoolbooks per Fp2 product (of an Fp12 product, of a
+    sparse line product and of `_fp2_mul`) where the plain version has
+    four."""
     count = [0]
     conv, norm = mk._conv, mk._normalize
-    mul, fp2_mul = mk._fp12_mul, mk._fp2_mul
+    mul, fp2_mul, mul_line = mk._fp12_mul, mk._fp2_mul, mk._fp12_mul_line
     sq = mk.KNL * mk.KNL
 
     def conv_counted(u, v):
@@ -253,14 +260,20 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
         count[0] -= math.prod(lead) * sq
         return fp2_mul(x, y, C)
 
+    def mul_line_counted(f, A, B, Cc, C):   # 18 Fp2 products
+        count[0] -= f[..., 0, 0, 0].numel() * 18 * sq
+        return mul_line(f, A, B, Cc, C)
+
     mk._conv, mk._normalize = conv_counted, norm_counted
     if karatsuba:
         mk._fp12_mul, mk._fp2_mul = mul_counted, fp2_mul_counted
+        mk._fp12_mul_line = mul_line_counted
     try:
         fn()
     finally:
         mk._conv, mk._normalize = conv, norm
         mk._fp12_mul, mk._fp2_mul = mul, fp2_mul
+        mk._fp12_mul_line = mul_line
     return count[0]
 
 
@@ -314,6 +327,16 @@ STEP_PROGRAMS = {
     "product": [(0, 0, 0, 13)] + [(0, 0, 13, 13)] * 63,
     "Frobenius": [(2, 0, 1, 13)] + [(2, 13, 1 + i % 3, 13)
                                     for i in range(1, 64)],
+}
+
+
+# Synthetic Miller op streams (0 = DBL, 1-4 = ADD with that candidate;
+# step i takes line i of the generator-line table): 64 doublings and 64
+# additions cycling through the four candidates. The kernel takes its
+# stream as an argument, so they time one kind of step on its own.
+MILLER_STEPS = {
+    "DBL": [0] * 64,
+    "ADD": [1 + i % 4 for i in range(64)],
 }
 
 
@@ -784,10 +807,13 @@ def main() -> int:
               f"(tolerance 0)", flush=True)
         if err != 0:
             fail(f"{name} disagrees with its plain version")
-        macs = count_multiply_adds(mk, unit,
-                                   karatsuba=name in ("finalexp", "agg_g2"))
+        macs = count_multiply_adds(
+            mk, unit, karatsuba=name in ("finalexp", "agg_g2", "miller"))
         results[name] = dict(bound(macs * units, moved), max_abs_err=err,
                              units=units)
+        if name == "miller":   # at four schoolbooks per Fp2 product too
+            results[name]["four"] = bound(
+                count_multiply_adds(mk, unit) * units, moved)
     verdict_k = mk.finalexp_is_one(f)
     with route.plain_versions():
         verdict_p = mk.finalexp_is_one(f)
@@ -802,6 +828,15 @@ def main() -> int:
         if err != 0:
             fail(f"finalexp disagrees with its plain version on {kind} "
                  f"steps")
+
+    for kind, ops in MILLER_STEPS.items():
+        err = max_abs_err(mk.miller_kernel(sig, h, pk, ops),
+                          mk.run_miller_plain(sig, h, pk, ops))
+        print(f"kernel miller on {len(ops)} {kind} steps at {n} rows: "
+              f"max |kernel - plain| over limbs = {err} (tolerance 0)",
+              flush=True)
+        if err != 0:
+            fail(f"miller disagrees with its plain version on {kind} steps")
 
     combs = {"_COMB_FP2": bn._COMB_FP2, "_COMB_FP2_SQR": bn._COMB_FP2_SQR,
              "_COMB": bn._COMB, "_LCOMB": bn._LCOMB,
@@ -1068,6 +1103,14 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
               f"{r['multiply_adds']} int32 multiply-adds over {r['units']} "
               f"needed units, {r['bytes']} B) [{card}]")
+        if name == "miller":
+            four = r["four"]
+            print(f"time miller: {r['bound_ms'] / ms:.1%} of its bound "
+                  f"counted as the kernel computes (three schoolbooks per "
+                  f"Fp2 product); at four schoolbooks per Fp2 product "
+                  f"bound {four['bound_ms']:.4f} ms ({four['bound_by']}: "
+                  f"{four['multiply_adds']} multiply-adds), "
+                  f"{four['bound_ms'] / ms:.1%} [{card}]")
         if name in ceilings:
             need, tree = ceilings[name]
             print(f"time {name}: {r['bound_ms'] / ms:.1%} of its bound; "
@@ -1092,6 +1135,22 @@ def main() -> int:
               f"one launch): kernel {step_us:.3f} µs per step; {macs} int32 "
               f"multiply-adds per step per row ({macs * n} for {n} rows), "
               f"bound {step_bound_us:.4f} µs per step [{card}]")
+
+    for kind, ops in MILLER_STEPS.items():
+        stream_ms = cuda_ms(lambda: mk.miller_kernel(sig, h, pk, ops), 10)
+        # one step's work: a stream of two steps less a stream of one
+        # (the preamble counts in both)
+        row1 = lambda k: mk.run_miller_plain(
+            tuple(map(row, sig)), tuple(map(row, h)), tuple(map(row, pk)),
+            ops[:k])
+        macs = count_multiply_adds(mk, lambda: row1(2), karatsuba=True) \
+            - count_multiply_adds(mk, lambda: row1(1), karatsuba=True)
+        step_bound_us = macs * n / INT32_MAD_PER_S * 1e6
+        print(f"time miller per {kind} step ({len(ops)} steps, {n} rows, "
+              f"one launch, preamble included): kernel "
+              f"{stream_ms * 1e3 / len(ops):.3f} µs per step; {macs} int32 "
+              f"multiply-adds per step per row, bound {step_bound_us:.4f} "
+              f"µs per step [{card}]")
 
     warm_counts = warm_log.counts
     tower_keys = sorted((k for k in warm_counts if k[0] == "tower"),

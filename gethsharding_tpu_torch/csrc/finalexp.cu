@@ -40,11 +40,13 @@
 
 namespace gs {
 
+constexpr int FE_FRAC = 2;  // numerator and denominator
 constexpr int FE_REGS = 14;
 constexpr int FE_RESULT = 13;
 constexpr int FRAC = FE_FRAC * FP12;  // ints per fraction-stacked register
 
-constexpr int FE_SMEM_INTS = C_TOTAL + FE_REGS * FRAC + FE_SCRATCH_INTS;
+constexpr int FE_SMEM_INTS =
+    C_TOTAL + FE_REGS * FRAC + fe_scratch_ints<FE_FRAC>();
 
 __global__ void __launch_bounds__(FE_THREADS)
     finalexp_kernel(const int* __restrict__ nd, const int* __restrict__ prog,
@@ -54,12 +56,7 @@ __global__ void __launch_bounds__(FE_THREADS)
   int* T = smem;
   int* regs = T + C_TOTAL;
   FeScratch S;
-  S.xi = regs + FE_REGS * FRAC;
-  S.zero = S.xi + FE_ROWS12 * NL;
-  S.part = S.zero + NL;
-  S.t2 = S.part + 3 * FE_ROWS36 * NC;
-  S.acc = S.t2 + FE_ROWS36 * FE_Z2;
-  S.t2m = S.acc + FE_ROWS36 * FB;
+  fe_scratch<FE_FRAC>(regs + FE_REGS * FRAC, S);
 
   load_consts(T, consts);
   fe_host_consts(consts);
@@ -74,7 +71,7 @@ __global__ void __launch_bounds__(FE_THREADS)
     int* ra = regs + a * FRAC;
     int* rd = regs + prog[4 * s + 3] * FRAC;
     if (op == 0) {
-      fe_mul(ra, regs + b * FRAC, rd, S, T);
+      fe_mul<FE_FRAC>(ra, regs + b * FRAC, rd, S, T);
     } else if (op == 1) {  // swap numerator and denominator
       for (int i = threadIdx.x; i < FP12; i += blockDim.x) {
         const int num = ra[i], den = ra[FP12 + i];
@@ -83,7 +80,7 @@ __global__ void __launch_bounds__(FE_THREADS)
       }
       __syncthreads();
     } else if (op == 2) {
-      fe_frob(ra, b, rd, S, T);
+      fe_frob<FE_FRAC>(ra, b, rd, S, T);
     } else {
       copy_ints(rd, ra, FRAC);
     }

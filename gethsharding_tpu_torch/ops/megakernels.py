@@ -513,10 +513,26 @@ def _miller_body(state, op, line_c, ctx, C: Consts):
     return f, X, Y, Z
 
 
-def run_miller_plain(sig, h, pk):
-    """The Miller program: sig = (sx, sy, sz) each (n, 25); h = (hx, hy)
-    each (n, 25); pk = (pkx, pky, pkz) each (n, 2, 25). Returns f
-    (n, 6, 2, 25), quasi-canonical limbs."""
+def _miller_ops(ops) -> np.ndarray:
+    """`ops` as a checked int32 op stream (0 = DBL, 1-4 = ADD with that
+    candidate), step i taking line i of the generator-line table; the
+    audit's 88 steps where None."""
+    if ops is None:
+        return _MILLER_OPS
+    o = np.asarray(ops, np.int32).reshape(-1)
+    if ((o < 0) | (o > 4)).any() or len(o) > len(_MILLER_LINES):
+        raise ValueError("an op stream is at most "
+                         f"{len(_MILLER_LINES)} ops, each 0 (DBL) or 1-4 "
+                         "(ADD)")
+    return o
+
+
+def run_miller_plain(sig, h, pk, ops=None):
+    """The Miller program, or the op stream `ops` (`_miller_ops`): sig =
+    (sx, sy, sz) each (n, 25); h = (hx, hy) each (n, 25); pk = (pkx, pky,
+    pkz) each (n, 2, 25). Returns f (n, 6, 2, 25), quasi-canonical
+    limbs."""
+    ops = _miller_ops(ops)
     sx, sy, sz = sig
     hx, hy = h
     pkx, pky, pkz = pk
@@ -528,7 +544,7 @@ def run_miller_plain(sig, h, pk):
     f = C.one12.expand(sx.shape[:-1] + C.one12.shape).clone()
     ctx = (sx, sy, sz, hx, hy_neg, cand)
     state = (f,) + cand[0][:3]          # the walk starts at +Q: (x·z, y·z^2, z)
-    for i, op in enumerate(_MILLER_OPS.tolist()):
+    for i, op in enumerate(ops.tolist()):
         state = _miller_body(state, op, lines[i], ctx, C)
     return state[0]
 
@@ -631,9 +647,19 @@ def agg_kernel(xs, ys, mask, *, fp2: bool):
     return tuple(out)
 
 
-def miller_kernel(sig, h, pk):
-    """Launch the Miller kernel on (n, 25) / (n, 2, 25) int32 planes;
-    returns f (n, 6, 2, 25), equal to `run_miller_plain` limb for limb."""
+@functools.lru_cache(maxsize=16)
+def _int32_on(raw: bytes, device: str) -> torch.Tensor:
+    """A checked program or op stream (its int32 bytes) on `device`, made
+    once per program."""
+    return torch.as_tensor(np.frombuffer(raw, np.int32).copy(), device=device)
+
+
+def miller_kernel(sig, h, pk, ops=None):
+    """Launch the Miller kernel on (n, 25) / (n, 2, 25) int32 planes over
+    the audit's op stream, or `ops` as in `run_miller_plain`; returns f
+    (n, 6, 2, 25), equal to `run_miller_plain(sig, h, pk, ops)` limb for
+    limb."""
+    ops = _miller_ops(ops)
     n = sig[0].shape[0]
     for i, v in enumerate(sig + h):
         check_tensor(v, (n, KNL), f"fp plane {i}")
@@ -644,18 +670,11 @@ def miller_kernel(sig, h, pk):
     if n == 0:
         return out
     KERNELS["miller"].launch(
-        *map(ptr, sig + h + pk), ptr(const(_MILLER_OPS, dev)),
-        len(_MILLER_OPS), ptr(const(_MILLER_LINES, dev)),
+        *map(ptr, sig + h + pk), ptr(_int32_on(ops.tobytes(), str(dev))),
+        len(ops), ptr(const(_MILLER_LINES, dev)),
         ptr(const(_MILLER_TWF, dev)), ptr(_kernel_consts(dev)), n,
         ptr(out))
     return out
-
-
-@functools.lru_cache(maxsize=16)
-def _program_on(rows: bytes, device: str) -> torch.Tensor:
-    """A checked program's rows on `device`, made once per program."""
-    return torch.as_tensor(np.frombuffer(rows, np.int32).reshape(-1, 4).copy(),
-                           device=device)
 
 
 def finalexp_kernel(nd, prog=None):
@@ -671,7 +690,7 @@ def finalexp_kernel(nd, prog=None):
     if n == 0:
         return out
     p = const(_PROGRAM, dev) if prog is None \
-        else _program_on(rows.tobytes(), str(dev))
+        else _int32_on(rows.tobytes(), str(dev))
     KERNELS["finalexp"].launch(ptr(nd), ptr(p), len(rows),
                                ptr(_kernel_consts(dev)), n, ptr(out))
     return out

@@ -306,6 +306,42 @@ def test_finalexp_kernel_runs_a_synthetic_program(cuda):
                            mk.run_program_plain(nd, _FE_MIXED))
 
 
+def _miller_inputs(rng, n, device):
+    return (tuple(_canon(rng, (n,), device) for _ in range(3)),
+            (_canon(rng, (n,), device), _canon(rng, (n,), device)),
+            tuple(_canon(rng, (n, 2), device) for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 112, 300])
+def test_miller_kernel_equals_plain_at_rows(cuda, n):
+    """The audit's 88-step stream at 1 to 300 rows (one block per row),
+    one launch, limb for limb."""
+    sig, h, pk = _miller_inputs(np.random.default_rng(600 + n), n, cuda)
+    kernel = mk.KERNELS["miller"]
+    before = kernel.launches
+    got = mk.miller_kernel(sig, h, pk)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, mk.run_miller_plain(sig, h, pk))
+
+
+# short Miller op streams (0 = DBL, 1-4 = ADD with the candidate +Q, -Q,
+# pi Q, -pi^2 Q); step i takes line i of the generator-line table
+_MILLER_STREAMS = {
+    "dbl": [0], "add_q": [1], "add_neg_q": [2], "add_pi_q": [3],
+    "add_neg_pi2_q": [4], "dbl_add_dbl": [0, 1, 0],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_MILLER_STREAMS))
+def test_miller_kernel_runs_short_streams(cuda, name):
+    sig, h, pk = _miller_inputs(np.random.default_rng(700), 7, cuda)
+    ops = _MILLER_STREAMS[name]
+    assert torch.equal(mk.miller_kernel(sig, h, pk, ops),
+                       mk.run_miller_plain(sig, h, pk, ops))
+
+
 @pytest.mark.cuda
 def test_finalexp_launches_once_per_audit(cuda):
     """One final-exponentiation launch per audit: recompute, precomp cold,

@@ -233,6 +233,7 @@ static Dim threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __constant__
 #define __shared__
 #define __launch_bounds__(...)
@@ -469,6 +470,69 @@ def test_miller_source_on_host_equals_plain(host_kernels):
         _p(mk.const(mk._MILLER_TWF, "cpu")), _p(mk._kernel_consts("cpu")),
         n, _p(out))
     assert torch.equal(out, mk.run_miller_plain(sig, h, pk))
+
+
+def _host_miller(kernel, sig, h, pk, ops=None):
+    """The op stream `ops` (the audit's where None) through the host-
+    compiled Miller kernel."""
+    ops = torch.as_tensor(mk._miller_ops(ops))
+    n = sig[0].shape[0]
+    out = torch.zeros((n, 6, 2, 25), dtype=torch.int32)
+    kernel.run(*map(_p, sig + h + pk), _p(ops), ops.shape[0],
+               _p(mk.const(mk._MILLER_LINES, "cpu")),
+               _p(mk.const(mk._MILLER_TWF, "cpu")),
+               _p(mk._kernel_consts("cpu")), n, _p(out))
+    return out
+
+
+def _miller_inputs(rng, n):
+    return (tuple(_canon(rng, (n,)) for _ in range(3)),
+            (_canon(rng, (n,)), _canon(rng, (n,))),
+            tuple(_canon(rng, (n, 2)) for _ in range(3)))
+
+
+# short Miller op streams (0 = DBL, 1-4 = ADD with the candidate +Q, -Q,
+# pi Q, -pi^2 Q); step i takes line i of the generator-line table
+_MILLER_STREAMS = {
+    "dbl": [0], "add_q": [1], "add_neg_q": [2], "add_pi_q": [3],
+    "add_neg_pi2_q": [4], "dbl_add_dbl": [0, 1, 0],
+}
+
+
+@pytest.mark.parametrize("name", list(_MILLER_STREAMS))
+def test_miller_source_on_host_runs_each_step(host_kernels, name):
+    """One doubling, one addition with each candidate, and a doubling, an
+    addition and a doubling in turn, through the host-compiled kernel,
+    equal the plain loop on the same stream, on 3 rows."""
+    sig, h, pk = _miller_inputs(np.random.default_rng(97), 3)
+    ops = _MILLER_STREAMS[name]
+    assert torch.equal(_host_miller(host_kernels["miller"], sig, h, pk, ops),
+                       mk.run_miller_plain(sig, h, pk, ops))
+
+
+@pytest.mark.parametrize("limb", [-1, 4095, (1 << 12) + 64])
+def test_miller_source_on_host_edge_limbs(host_kernels, limb):
+    """Every input limb -1, 4095 or at the quasi-canonical maximum 4160,
+    on a stream with a doubling and an addition with each candidate."""
+    full = lambda shape: torch.full(shape + (25,), limb, dtype=torch.int32)
+    sig = tuple(full((3,)) for _ in range(3))
+    h = (full((3,)), full((3,)))
+    pk = tuple(full((3, 2)) for _ in range(3))
+    ops = [0, 1, 0, 2, 3, 4]
+    assert torch.equal(_host_miller(host_kernels["miller"], sig, h, pk, ops),
+                       mk.run_miller_plain(sig, h, pk, ops))
+
+
+@pytest.mark.parametrize("ops", [[5], [-1], [0] * 89])
+def test_miller_op_streams_are_checked(ops):
+    """An op outside 0-4, or a stream longer than the 88-line generator
+    table, is refused before any launch, by the plain loop too."""
+    fp = torch.zeros((1, 25), dtype=torch.int32)
+    fp2 = torch.zeros((1, 2, 25), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        mk.run_miller_plain((fp, fp, fp), (fp, fp), (fp2, fp2, fp2), ops)
+    with pytest.raises(ValueError):
+        mk.miller_kernel((fp, fp, fp), (fp, fp), (fp2, fp2, fp2), ops)
 
 
 def _host_program(kernel, nd, prog):
