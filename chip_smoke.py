@@ -61,17 +61,31 @@ resident on the card) and the recompute path (without keys):
    at its most frequent shape of the warm audit), their launches and summed
    device time per warm audit and the card's idle share (torch.profiler),
    and the Miller loop's host time against its summed kernel time;
-8. the exact 22-limb form, in a subprocess of this script with
+8. aggregate votes: the period's votes summed on the host per shard,
+   plus a signature at infinity and a pubkey at infinity (102 rows),
+   through `TorchSigBackend().bls_verify_aggregates`, counted from 0: one
+   Miller and one final-exponentiation launch and no committee sum or
+   tower product, the expected verdicts, equal to the plain versions on
+   the card; timed warm and cold, with its kernels under the profiler;
+9. the exact 22-limb form, in a subprocess of this script with
    GETHSHARDING_TORCH_LIMB_FORM=exact (the form is read at import): the
-   exact branch of the normalize kernel against its plain version at
-   widths 22, 25, 43, 49 and 52 (random, negative and bound-edge limbs)
-   and on every input shape the audit gives it; then, counted from 0,
-   the 100 × 135 recompute audit with keys and precomp off
-   (`TorchSigBackend(precomp=False)`, the notary's call in that form),
-   cold and warm: the expected verdicts, one launch of each audit kernel,
-   the exact normalize's launches, and verdicts and Miller product f equal
-   to the same batch through the plain versions on the card; it times the
-   audit and the exact normalize. The subprocess failing fails the run.
+   exact tower kernel (`tower_exact`) on every product kind, the 22-limb
+   conv (`conv_exact`) on every combine and the exact normalize at widths
+   22 to 52, on the same edge inputs as above, against their plain
+   versions; then, counted from 0, the 100 × 135 recompute audit with
+   keys and precomp off (`TorchSigBackend(precomp=False)`): the expected
+   verdicts, one launch of each audit kernel, the exact normalize's
+   launches on every input shape, and verdicts and Miller product f
+   equal to the plain versions on the card; then the precomp audit
+   (`TorchSigBackend()`, the notary's default), cold and warm: the
+   expected verdicts, every tower product in `tower_exact`, 0 warm G2
+   bytes, 22-limb tables of 46,464 B, the warm audit's tower and
+   normalize inputs and the batch's line tables and f against the plain
+   route on the card; the aggregate votes of step 8 in this form; and it
+   times both audits (cold, warm, and for precomp a period of new
+   messages with resident tables), the exact normalize, the exact tower
+   at each of its shapes in the warm audit and the 22-limb conv at the
+   line product. The subprocess failing fails the run.
    Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; the Fp2 products of the final exponentiation's Fp12
@@ -80,7 +94,8 @@ resident on the card) and the recompute path (without keys):
    their kernels compute them, squares as full products; the Miller
    product's bound also at four, as earlier slices counted it; for conv,
    normalize and the tower kernel, the
-   multiply-adds (625 per conv term, 22 per folded limb) and bytes of the
+   multiply-adds (625 per conv term, 484 in the exact form whatever the
+   kernel widens to, 22 per folded limb) and bytes of the
    launch timed, each operand counted once as the kernel reads it,
    before any broadcast). The committee sums' share of their bound is
    printed beside the ceiling that the fixed tree puts on any kernel
@@ -97,6 +112,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import math
 import os
@@ -330,6 +346,14 @@ STEP_PROGRAMS = {
 }
 
 
+TOWER_COVER = ("every product kind (Fp, Fp2 mul and sqr, Fp12, line), 112 "
+               "and 113 rows, leading dims, broadcast constants and middle "
+               "dims, gapped rows, all-4095, all-4160, all--1 and all-zero "
+               "limbs")
+CONV_COVER = ("every combine of the path, 112 to 672 rows, a partial block, "
+              "leading dims, a broadcast constant, 4160 against -1 limbs")
+
+
 # Synthetic Miller op streams (0 = DBL, 1-4 = ADD with that candidate;
 # step i takes line i of the generator-line table): 64 doublings and 64
 # additions cycling through the four candidates. The kernel takes its
@@ -387,17 +411,18 @@ def lead_rows(*shapes) -> int:
 
 def conv_work(key, comb) -> dict:
     """Multiply-adds and bytes of one conv launch at `key`'s operand
-    shapes: every nonzero combine term is one 25×25 convolution per row
-    of the broadcast lead; each operand is read once, in its own shape
-    (a broadcast operand is not copied out to the rows)."""
-    from gethsharding_tpu_torch.ops import conv
+    shapes: every nonzero combine term is one NL×NL convolution per row
+    of the broadcast lead (625 in the wide form, 484 in the exact form,
+    whatever the kernel widens to); each operand is read once, in its own
+    shape (a broadcast operand is not copied out to the rows)."""
+    from gethsharding_tpu_torch.ops import conv, limb
 
     _, _, xs, ys = key
     n = lead_rows(xs, ys)
     nterms = int(np.count_nonzero(comb))
     out_ints = n * comb.shape[3] * comb.shape[4] * conv.NCOLS
     plan_ints = conv.plane_plan(comb).size
-    return bound(n * nterms * 625,
+    return bound(n * nterms * limb.NLIMBS ** 2,
                  4 * (math.prod(xs) + math.prod(ys) + out_ints + plan_ints))
 
 
@@ -415,20 +440,26 @@ def norm_work(key) -> dict:
 
 def tower_work(key, plan) -> dict:
     """Multiply-adds and bytes of one tower launch at `key`'s operand
-    shapes, per row of the broadcast lead: 625 per conv term of each
-    output k, and the folds of its normalizes (xi·v's 12 rows once per
-    row for the Fp12 kinds; every (k, c, g) plane at 49 limbs; the group
-    merges at 25). Each operand is read once in its own shape, the output
-    written once, the pack read once."""
-    from gethsharding_tpu_torch.ops import tower
+    shapes, per row of the broadcast lead, in the ambient limb form: NL²
+    per conv term of each output k (625 wide, 484 exact: the schoolbooks
+    the work needs, not the 25-limb slots the exact form is staged in),
+    and the folds of its normalizes (xi·v's 12 rows once per row for the
+    Fp12 kinds, at the xi width; every (k, c, g) plane at the plan's
+    accumulator width; the group merges at NL), with the exact ladder's
+    three later folds. Each operand is read once in its own shape, the
+    output written once, the pack read once."""
+    from gethsharding_tpu_torch.ops import limb, tower
 
     _, _, us, vs = key
     n = lead_rows(us, vs)
     _, _, _, C, Gr, K = tower.SHAPES[plan.kind]
-    per_row = (K * plan.nterms * 625 + K * C * Gr * fold_work(49)
-               + (Gr - 1) * K * C * fold_work(25))
+    ladder = 6 * 22 if limb.LIMB_FORM == "exact" else 0
+    norm_at = lambda w: fold_work(w) + ladder
+    per_row = (K * plan.nterms * limb.NLIMBS ** 2
+               + K * C * Gr * norm_at(plan.acc_w)
+               + (Gr - 1) * K * C * norm_at(limb.NLIMBS))
     if K > 1:
-        per_row += 12 * fold_work(25)
+        per_row += 12 * norm_at(tower.XI_W)
     out_ints = n * math.prod(plan.out_block)
     return bound(n * per_row, 4 * (math.prod(us) + math.prod(vs) + out_ints
                                    + plan.pack.size))
@@ -464,19 +495,22 @@ def edge_rows(gen, dev, n: int, w: int) -> torch.Tensor:
 
 
 def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
-                      combs: dict, dev) -> dict:
+                      combs: dict, dev, widths) -> dict:
     """Conv on every combine of the path at 112 rows, at the stacked
     Fp12 shape, with a partial last block, extra leading dims and a
-    broadcast constant; normalize at every width 25..52 with negative
-    and bound-edge limbs; the tower kernel on every product kind with the
+    broadcast constant; normalize at each of `widths` with negative and
+    bound-edge limbs; the tower kernel on every product kind with the
     same leads and broadcasts, an operand with gaps between its rows, and
-    all-4095 and all-zero limbs. Returns the largest |kernel - plain| of
-    each."""
+    all-4095, all-4160, all--1 and all-zero limbs. Operands have the
+    ambient form's limbs. Returns the largest |kernel - plain| of each."""
+    nl = bn.NLIMBS
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    canon = lambda shape: torch.randint(0, 1 << 12, shape + (25,),
+    canon = lambda shape: torch.randint(0, 1 << 12, shape + (nl,),
                                         generator=gen, device=dev,
                                         dtype=torch.int32)
+    full = lambda shape, v: torch.full(shape, v, dtype=torch.int32,
+                                       device=dev)
     errs = {"tower": 0, "conv": 0, "norm": 0}
     for comb in combs.values():
         G, A, B = comb.shape[:3]
@@ -486,11 +520,13 @@ def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
                 conv.pair_conv_combine(x, y, comb),
                 conv.pair_conv_combine_plain(x, y, comb)))
         pairs = (   # broadcast constants; x along the six outputs of an
-                    # Fp12 product; x a view with gaps between its rows
+                    # Fp12 product; x a view with gaps between its rows;
+                    # 4160 against -1 limbs
             (canon((112, G, A)), canon((G, B))),
             (canon((G, A)), canon((112, G, B))),
             (canon((112, 1, G, A)), canon((112, 6, G, B))),
-            (canon((113, 2, G, A))[:, 1], canon((113, G, B))))
+            (canon((113, 2, G, A))[:, 1], canon((113, G, B))),
+            (full((112, G, A, nl), 4160), full((112, G, B, nl), -1)))
         for a, b in pairs:
             errs["conv"] = max(errs["conv"], max_abs_err(
                 conv.pair_conv_combine(a, b, comb),
@@ -504,10 +540,10 @@ def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
             (canon(ub[:2]), canon((112,) + vb[:2])),
             (canon((112, 1) + ub[:2]), canon((112, 6) + vb[:2])),
             (canon((113, 2) + ub[:2])[:, 1], canon((113,) + vb[:2])),
-            (torch.full((112,) + ub, 4095, dtype=torch.int32, device=dev),
-             torch.full((112,) + vb, 4095, dtype=torch.int32, device=dev)),
-            (torch.zeros((112,) + ub, dtype=torch.int32, device=dev),
-             canon((112,) + vb[:2]))]
+            (full((112,) + ub, 4095), full((112,) + vb, 4095)),
+            (full((112,) + ub, 4160), full((112,) + vb, 4160)),
+            (full((112,) + ub, -1), canon((112,) + vb[:2])),
+            (full((112,) + ub, 0), canon((112,) + vb[:2]))]
         for u, v in cases:
             if plan is plans["fp2_sqr"]:
                 v = u
@@ -515,10 +551,10 @@ def check_tower_edges(bn, tower, conv, norm, route, plans: dict,
             with route.plain_versions():
                 want = plan.plain(u, v)
             errs["tower"] = max(errs["tower"], max_abs_err(got, want))
-    for w in range(25, norm.MAX_WIDTH + 1):
+    for w in widths:
         z = edge_rows(gen, dev, 1000, w)
         errs["norm"] = max(errs["norm"], max_abs_err(
-            bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, 25),
+            bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, nl),
             norm.normalize_plain(bn.FP, z)))
     return errs
 
@@ -543,14 +579,89 @@ def audit_steps(bn, mk, hx, hy, sx, sy, sm, gx, gy, gm, hok):
     return f, mk.finalexp_is_one(f) & hok & ~inf
 
 
+def aggregate_votes(bls, msgs, sig_rows, pk_rows, want):
+    """The period's votes aggregated on the host, one (message, aggregate
+    signature, aggregate pubkey) per shard (None where a sum is the
+    identity: the empty and the cancelling committees), and two more
+    hostile rows: a signature at infinity with a real pubkey, and a real
+    signature with a pubkey at infinity. Returns them with the expected
+    verdicts: the period's, then False twice."""
+    sum_row = lambda add, row: functools.reduce(
+        lambda acc, pt: acc if pt is None else add(acc, pt), row, None)
+    agg_sigs = [sum_row(bls.g1_add, row) for row in sig_rows]
+    agg_pks = [sum_row(bls.g2_add, row) for row in pk_rows]
+    return (list(msgs) + [msgs[0], msgs[1]],
+            agg_sigs + [None, agg_sigs[1]], agg_pks + [agg_pks[0], None],
+            list(want) + [False, False])
+
+
+def aggregates_phase(label, bls, bn, route, build, backend, votes,
+                     card) -> dict:
+    """`bls_verify_aggregates` on the period's host-aggregated votes:
+    counted from 0 around one call (one Miller and one final-exponentiation
+    launch, no committee sum, no tower product), its verdicts against the
+    expected list and against the plain versions on the card, then timed
+    warm (hashes cached, median of 7) and cold (messages hashed, median of
+    3) with its device kernels under the profiler."""
+    msgs, agg_sigs, agg_pks, want = votes
+    for k in build.KERNELS.values():
+        k.launches = 0
+    got = backend.bls_verify_aggregates(msgs, agg_sigs, agg_pks)
+    launches = {n: c for n, c in build.launch_counts().items() if c}
+    print(f"{label}aggregate votes ({len(msgs)} rows): launches {launches}",
+          flush=True)
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        fail(f"{label}aggregate verdicts differ from the expected list at "
+             f"{bad}")
+    if launches.get("miller") != 1 or launches.get("finalexp") != 1 \
+            or any(launches.get(n) for n in ("agg_g1", "agg_g2", "tower",
+                                             "tower_exact")):
+        fail(f"{label}bls_verify_aggregates did not run one Miller and one "
+             f"final-exponentiation launch alone: {launches}")
+    hashes = [bls.hash_to_g1(bytes(m)) for m in msgs]
+    (hx, hy, hok), (sx, sy, sok), (px, py, pok) = (
+        bn.g1_to_limbs(hashes), bn.g1_to_limbs(agg_sigs),
+        bn.g2_to_limbs(agg_pks))
+    args = [torch.as_tensor(a, device="cuda")
+            for a in (hx, hy, sx, sy, px, py, hok & sok & pok)]
+    with route.plain_versions():
+        plain = bn.bls_verify_aggregate_batch(*args)
+    if plain.cpu().tolist() != got:
+        fail(f"{label}the plain versions on the card give other aggregate "
+             f"verdicts")
+    call = lambda: backend.bls_verify_aggregates(msgs, agg_sigs, agg_pks)
+    warm_ms = host_ms(call, 7)
+    cold_s = []
+    for _ in range(3):
+        bls.hash_to_g1.cache_clear()
+        t0 = time.perf_counter()
+        call()
+        cold_s.append(time.perf_counter() - t0)
+    cold_ms = statistics.median(cold_s) * 1e3
+    split = kernel_split(device_times(call)[0])
+    busy = sum(split.values())
+    print(f"time {label}aggregate votes (bls_verify_aggregates, {len(msgs)} "
+          f"rows, {sum(got)} true): warm median {warm_ms:.2f} ms of 7, "
+          f"{len(msgs) / warm_ms * 1e3:.0f} votes/s, host marshal "
+          f"{backend.last_timing['marshal_s'] * 1e3:.2f} ms; cold (messages "
+          f"hashed) median {cold_ms:.2f} ms of 3; device kernels "
+          f"{busy:.2f} ms under the profiler "
+          f"({', '.join(f'{k} {v:.3f}' for k, v in split.items())}), idle "
+          f"share {1 - busy / warm_ms:.3f} [{card}]", flush=True)
+    return {"warm_ms": warm_ms, "cold_ms": cold_ms, "kernels_ms": busy}
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
-    exact. Prints its lines and, last, `EXACT_KERNEL <json>`: the exact
-    normalize's entry of the kernels line."""
+    exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
+    kernel of the exact form (norm_exact, tower_exact, conv_exact): their
+    entries of the kernels line."""
     if not torch.cuda.is_available():
         fail("no CUDA device")
     from gethsharding_tpu_torch.crypto import bn256 as bls
-    from gethsharding_tpu_torch.ops import _build, limb, norm, route, tower
+    from gethsharding_tpu_torch.ops import (_build, conv, limb, norm, route,
+                                            tower)
     from gethsharding_tpu_torch.ops import bn256 as bn
     from gethsharding_tpu_torch.ops import megakernels as mk
     from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
@@ -558,32 +669,39 @@ def exact_phase(seed: int) -> int:
 
     if limb.LIMB_FORM != "exact" or limb.NLIMBS != 22:
         fail("the exact phase did not run in the exact limb form")
+    if (tower.KERNEL.name, conv.KERNEL.name, norm.KERNEL.name) != \
+            ("tower_exact", "conv_exact", "norm_exact"):
+        fail("the exact form's kernels are not counted under their names")
     card = card_line()
     dev = torch.device("cuda")
     _build.build()
     msgs, sig_rows, pk_rows, keys, want = make_period(bls, seed)
-    try:
-        TorchSigBackend()
-    except ValueError:
-        pass
-    else:
-        fail("the exact form accepted the precomp path")
+    if not TorchSigBackend().precomp:
+        fail("the exact form's backend is not on the precomp path")
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    edge = 0
-    for w in (22, 25, 43, 49, 52):
-        z = edge_rows(gen, dev, 1000, w)
-        edge = max(edge, max_abs_err(
-            bn.FP.normalize(z.reshape(10, 100, w)).reshape(1000, 22),
-            norm.normalize_plain(bn.FP, z)))
-    print(f"exact form: kernel norm_exact: max |kernel - plain| over limbs "
-          f"= {edge} (tolerance 0; widths 22, 25, 43, 49, 52, 1000 rows, "
-          f"negative and ±2^30.7 limbs, -1 limbs, a partial block, "
-          f"leading dims)", flush=True)
-    if edge:
-        fail("the exact normalize disagrees with its plain version")
+    combs = {"_COMB_FP2": bn._COMB_FP2, "_COMB_FP2_SQR": bn._COMB_FP2_SQR,
+             "_COMB": bn._COMB, "_LCOMB": bn._LCOMB,
+             "identity": limb._IDENTITY}
+    plans = {"fp_mul": bn.FP.mul_plan, "fp2_mul": bn._FP2_MUL,
+             "fp2_sqr": bn._FP2_SQR, "fp12_mul": bn._FP12_MUL,
+             "fp12_mul_line": bn._LINE_MUL}
+    plan_names = {id(p): name for name, p in plans.items()}
+    edge = check_tower_edges(bn, tower, conv, norm, route, plans, combs, dev,
+                             (22, 25, 43, 45, 49, 52))
+    cover = {"tower_exact": TOWER_COVER, "conv_exact": CONV_COVER,
+             "norm_exact": "widths 22, 25, 43, 45, 49, 52, 1000 rows, "
+                           "negative and ±2^30.7 limbs, -1 limbs, a "
+                           "partial block, leading dims"}
+    for name, err in (("tower_exact", edge["tower"]),
+                      ("conv_exact", edge["conv"]),
+                      ("norm_exact", edge["norm"])):
+        print(f"exact form: kernel {name}: max |kernel - plain| over limbs "
+              f"= {err} (tolerance 0; {cover[name]}; 22-limb operands)",
+              flush=True)
+        if err:
+            fail(f"{name} disagrees with its plain version")
 
+    # -- the recompute audit (keys, precomp off) ----------------------------
     backend = TorchSigBackend(precomp=False)
     bls.hash_to_g1.cache_clear()
     for k in _build.KERNELS.values():
@@ -600,17 +718,18 @@ def exact_phase(seed: int) -> int:
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
         fail(f"exact-form verdicts differ from the expected list at {bad}")
     if any(launches[name] != 1 for name in mk.KERNELS) \
-            or launches["norm_exact"] < 1 or launches["tower"] \
-            or launches["conv"] or timing["precomp"] \
+            or launches["norm_exact"] < 1 or launches["tower_exact"] \
+            or launches["conv_exact"] or timing["precomp"] \
             or timing["limb_form"] != "exact":
         fail(f"the exact-form audit did not run each audit kernel once and "
              f"its normalizes in the exact kernel: {launches}")
-    sample_err = check_samples(log.samples, tower, norm, route)["norm"]
+    rec_norm_launches = launches["norm_exact"]
+    rec_norm = check_samples(log.samples, tower, norm, route)["norm"]
     print(f"exact form: kernel norm_exact: max |kernel - plain| over limbs "
-          f"= {sample_err} (tolerance 0) on the audit's inputs "
+          f"= {rec_norm} (tolerance 0) on the recompute audit's inputs "
           f"({len(log.samples)} shapes: "
           f"{sorted(key[1] for key in log.samples)})", flush=True)
-    if sample_err:
+    if rec_norm:
         fail("the exact normalize disagrees with its plain version on the "
              "audit")
 
@@ -618,6 +737,7 @@ def exact_phase(seed: int) -> int:
     on_card = [torch.as_tensor(a, device=dev) for a in planes]
     if on_card[0].shape[-1] != 22:
         fail(f"the host shipped {on_card[0].shape[-1]}-limb planes")
+    hx, hy, sx, sy, sm, gx, gy, gm, hok = on_card
     f_k, verdict_k = audit_steps(bn, mk, *on_card)
     with route.plain_versions():
         f_p, verdict_p = audit_steps(bn, mk, *on_card)
@@ -631,36 +751,140 @@ def exact_phase(seed: int) -> int:
     print(f"exact form: {sum(got)} of {SHARDS} rows verified, hostile rows "
           f"{', '.join(map(str, HOSTILE))} rejected; plain versions agree")
 
-    audit = lambda: backend.bls_verify_committees(msgs, sig_rows, pk_rows,
-                                                  pk_row_keys=keys)
-    warm_s, marshal_s = [], []
-    for _ in range(7):
-        t0 = time.perf_counter()
-        audit()
-        warm_s.append(time.perf_counter() - t0)
-        marshal_s.append(backend.last_timing["marshal_s"])
-    cold_s = []
-    for _ in range(3):
-        bls.hash_to_g1.cache_clear()
-        t0 = time.perf_counter()
-        audit()
-        cold_s.append(time.perf_counter() - t0)
-    dev_ms, wall_ms = device_times(audit)
-    split = kernel_split(dev_ms)
-    busy = sum(split.values())
-    votes = SHARDS * COMMITTEE
-    cold_ms = statistics.median(cold_s) * 1e3
-    warm_ms = statistics.median(warm_s) * 1e3
-    print(f"time audit, exact form, recompute (keys, precomp off): cold "
-          f"period (messages hashed) median {cold_ms:.1f} ms of "
-          f"{len(cold_s)}, {votes / cold_ms * 1e3:.0f} votes/s; warm median "
-          f"{warm_ms:.1f} ms of {len(warm_s)}, {votes / warm_ms * 1e3:.0f} "
-          f"votes/s, host marshal {statistics.median(marshal_s) * 1e3:.1f} "
-          f"ms; device kernels {busy:.2f} ms under the profiler "
-          f"({', '.join(f'{k} {v:.2f}' for k, v in split.items())}), "
-          f"idle share {1 - busy / warm_ms:.3f}; {launches['norm_exact']} "
-          f"exact normalize launches per audit [{card}]")
+    # -- the precomp audit (keys): cold, then warm ----------------------------
+    pbackend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    got = pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys)
+    cold_launches = _build.launch_counts()
+    cold_timing = pbackend.last_timing
+    print(f"exact form: precomp path, cold: launches {cold_launches}, G2 "
+          f"bytes {cold_timing['g2_wire_bytes']}, hit rows "
+          f"{cold_timing['hit_rows']}", flush=True)
+    if got != want:
+        fail("exact-form cold precomp verdicts differ from the expected "
+             "list")
+    if not cold_timing["precomp"] or cold_launches["tower_exact"] < 1 \
+            or cold_launches["norm_exact"] < 1 or cold_launches["miller"] \
+            or cold_launches["conv_exact"] \
+            or any(cold_launches[n] != 1 for n in ("agg_g1", "agg_g2",
+                                                    "finalexp")):
+        fail(f"the exact-form cold precomp audit did not run its tower "
+             f"products in tower_exact and each sum and the final "
+             f"exponentiation once: {cold_launches}")
+    pointful = sum(1 for r in pk_rows if r)
+    table_bytes = pbackend.lines.bytes // max(1, len(pbackend.lines))
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    with TowerLaunches(tower, norm, plan_names) as warm_log:
+        got = pbackend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                             pk_row_keys=keys)
+    warm_launches = _build.launch_counts()
+    warm_timing = pbackend.last_timing
+    print(f"exact form: precomp path, warm: launches {warm_launches}, G2 "
+          f"bytes {warm_timing['g2_wire_bytes']}, hit rows "
+          f"{warm_timing['hit_rows']} of {pointful} non-empty; "
+          f"{len(pbackend.lines)} resident tables of {table_bytes} B",
+          flush=True)
+    if got != want:
+        fail("exact-form warm precomp verdicts differ from the expected list")
+    if not warm_timing["memo"] or warm_timing["g2_wire_bytes"] != 0 \
+            or warm_timing["hit_rows"] != pointful:
+        fail("the exact-form warm precomp audit missed the memo, shipped G2 "
+             "bytes or missed a row")
+    if warm_launches["tower_exact"] < 1 or warm_launches["agg_g2"] \
+            or warm_launches["miller"] or warm_launches["conv_exact"] \
+            or warm_launches["finalexp"] != 1 or warm_launches["agg_g1"] != 1:
+        fail(f"the exact-form warm precomp audit did not run on tower_exact "
+             f"alone beside one G1 sum and one final exponentiation: "
+             f"{warm_launches}")
+    if table_bytes != 88 * 3 * 2 * 22 * 4 + 1:
+        fail(f"the exact form's resident tables take {table_bytes} B")
+    sample_err = check_samples(warm_log.samples, tower, norm, route)
+    for name, key in (("tower_exact", "tower"), ("norm_exact", "norm")):
+        shapes = sum(1 for k in warm_log.samples if k[0] == key)
+        print(f"exact form: kernel {name}: max |kernel - plain| over limbs "
+              f"= {sample_err[key]} (tolerance 0) on the warm audit's "
+              f"inputs ({shapes} shapes)", flush=True)
+        if sample_err[key]:
+            fail(f"{name} disagrees with its plain version on the audit")
 
+    table, inf = bn.precompute_g2_lines(gx, gy, gm)
+    fk, ok = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm, table, inf,
+                                             hok)
+    with route.plain_versions():
+        table_p, inf_p = bn.precompute_g2_lines(gx, gy, gm)
+        fp, ok_p = bn.bls_committee_precomp_miller(hx, hy, sx, sy, sm,
+                                                   table_p, inf_p, hok)
+        verdict_plain = bn.bls_committee_precomp_finalexp(fp, ok_p)
+    err_table, err_f = max_abs_err(table, table_p), max_abs_err(fk, fp)
+    print(f"exact form: precomp line tables {tuple(table.shape)} and f "
+          f"{tuple(fk.shape)} against the plain route on the card: max "
+          f"|kernel - plain| = {err_table} and {err_f}", flush=True)
+    if table.shape[1:] != (88, 3, 2, 22) or err_table or err_f \
+            or not torch.equal(inf, inf_p) or not torch.equal(ok, ok_p):
+        fail("the exact-form precomp tables or f differ from the plain "
+             "route")
+    if verdict_plain.cpu()[:SHARDS].tolist() != want:
+        fail("the exact-form plain route's precomp verdicts differ from the "
+             "expected list")
+    print(f"exact form: precomp path: {sum(got)} of {SHARDS} rows verified "
+          f"cold and warm, hostile rows rejected; plain route agrees")
+
+    votes = aggregate_votes(bls, msgs, sig_rows, pk_rows, want)
+    aggregates_phase("exact form: ", bls, bn, route, _build, pbackend, votes,
+                     card)
+
+    # -- times ---------------------------------------------------------------
+    votes_n = SHARDS * COMMITTEE
+    results = {}
+    for label, be, fresh in (("recompute (keys, precomp off)", backend, None),
+                             ("precomp (keys)", pbackend, TorchSigBackend)):
+        run = lambda: be.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                               pk_row_keys=keys)
+        warm_s, marshal_s = [], []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            run()
+            warm_s.append(time.perf_counter() - t0)
+            marshal_s.append(be.last_timing["marshal_s"])
+        cold_s, steady_s = [], []
+        for _ in range(3):      # new messages; precomp: a new backend too
+            bls.hash_to_g1.cache_clear()
+            new = fresh() if fresh else be
+            t0 = time.perf_counter()
+            new.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                      pk_row_keys=keys)
+            cold_s.append(time.perf_counter() - t0)
+        if fresh:               # new messages, tables resident
+            for _ in range(3):
+                bls.hash_to_g1.cache_clear()
+                t0 = time.perf_counter()
+                run()
+                steady_s.append(time.perf_counter() - t0)
+        dev_ms, _ = device_times(run)
+        split = kernel_split(dev_ms)
+        busy = sum(split.values())
+        cold_ms = statistics.median(cold_s) * 1e3
+        warm_ms = statistics.median(warm_s) * 1e3
+        steady = (f"; a period of new messages with resident tables median "
+                  f"{statistics.median(steady_s) * 1e3:.1f} ms of 3, "
+                  f"{votes_n / statistics.median(steady_s):.0f} votes/s") \
+            if steady_s else ""
+        print(f"time audit, exact form, {label}: cold period (messages "
+              f"hashed{', tables built' if fresh else ''}) median "
+              f"{cold_ms:.1f} ms of 3, {votes_n / cold_ms * 1e3:.0f} votes/s; "
+              f"warm median {warm_ms:.1f} ms of 7, "
+              f"{votes_n / warm_ms * 1e3:.0f} votes/s, host marshal "
+              f"{statistics.median(marshal_s) * 1e3:.1f} ms{steady}; device "
+              f"kernels {busy:.2f} ms under the profiler "
+              f"({', '.join(f'{k} {v:.2f}' for k, v in split.items())}), "
+              f"idle share {1 - busy / warm_ms:.3f} [{card}]", flush=True)
+        results[label] = split
+
+    entries = []
+    # the exact normalize at its most frequent shape of the recompute audit
     key = max(log.counts, key=log.counts.get)
     sample = log.samples[key]
     ms = cuda_ms(lambda: norm.normalize_kernel(*sample), 50)
@@ -670,40 +894,112 @@ def exact_phase(seed: int) -> int:
     audit_bound = sum(norm_exact_work(k)["bound_ms"] * c
                       for k, c in log.counts.items())
     print(f"time norm_exact: kernel {ms:.4f} ms per launch at {key[1]} "
-          f"({log.counts[key]} of {launches['norm_exact']} launches per "
+          f"({log.counts[key]} of {rec_norm_launches} launches per "
+          f"recompute audit; {warm_launches['norm_exact']} per warm precomp "
           f"audit), plain {plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
           f"({r['bound_by']}: {r['multiply_adds']} multiply-adds, "
-          f"{r['bytes']} B); per audit: {split['norm_kernel']:.3f} ms "
+          f"{r['bytes']} B); per recompute audit: "
+          f"{results['recompute (keys, precomp off)']['norm_kernel']:.3f} ms "
           f"summed kernel time (profiler), bound {audit_bound:.5f} ms "
-          f"[{card}]")
-    print("EXACT_KERNEL " + json.dumps({
+          f"[{card}]", flush=True)
+    entries.append({
         "name": "norm_exact", "route": "cuda", "source": norm.KERNEL.source,
         "replaces": norm.KERNEL.replaces,
-        "launches": launches["norm_exact"],
-        "max_abs_err": max(edge, sample_err), "ms": ms,
+        "launches": warm_launches["norm_exact"],
+        "max_abs_err": max(edge["norm"], rec_norm, sample_err["norm"]),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None})
+
+    # the exact tower at each shape of the warm precomp audit
+    warm_counts = warm_log.counts
+    tower_keys = sorted((k for k in warm_counts if k[0] == "tower"),
+                        key=lambda k: -warm_counts[k])
+    tower_bound = sum(tower_work(k, warm_log.samples[k][0])["bound_ms"]
+                      * warm_counts[k] for k in tower_keys)
+    for key in tower_keys:
+        sample = warm_log.samples[key]
+        ms = cuda_ms(lambda: tower.tower_kernel(*sample), 50)
+        with route.plain_versions():
+            plain_ms = cuda_ms(lambda: sample[0].plain(*sample[1:]), 5,
+                               queued=False)
+        r = tower_work(key, sample[0])
+        print(f"time tower_exact: kernel {ms:.4f} ms per launch at {key[1]} "
+              f"{key[2]} x {key[3]} ({warm_counts[key]} launches per warm "
+              f"audit), plain route {plain_ms:.3f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']}: "
+              f"{r['multiply_adds']} multiply-adds at 484 per conv, "
+              f"{r['bytes']} B) [{card}]", flush=True)
+        if key == tower_keys[0]:
+            entries.append({
+                "name": "tower_exact", "route": "cuda",
+                "source": tower.KERNEL.source,
+                "replaces": tower.KERNEL.replaces,
+                "launches": warm_launches["tower_exact"],
+                "max_abs_err": max(edge["tower"], sample_err["tower"]),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None})
+    print(f"time tower_exact: per warm precomp audit "
+          f"{warm_launches['tower_exact']} launches, "
+          f"{results['precomp (keys)']['tower_kernel']:.2f} ms summed kernel "
+          f"time (profiler), bound {tower_bound:.4f} ms; cold audit "
+          f"{cold_launches['tower_exact']} launches [{card}]", flush=True)
+
+    # the 22-limb conv at the line product (x read in place along the six
+    # outputs): its device code runs in every tower launch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    n = hx.shape[0]
+    lx = torch.randint(0, 1 << 12, (n, 1, 3, 2, 22), generator=gen,
+                       device=dev, dtype=torch.int32)
+    ly = torch.randint(0, 1 << 12, (n, 6, 3, 2, 22), generator=gen,
+                       device=dev, dtype=torch.int32)
+    err = max_abs_err(conv.conv_kernel(lx, ly, bn._LCOMB),
+                      conv.pair_conv_combine_plain(lx, ly, bn._LCOMB))
+    if err:
+        fail("conv_exact disagrees with its plain version at the line "
+             "product")
+    ms = cuda_ms(lambda: conv.conv_kernel(lx, ly, bn._LCOMB), 50)
+    plain_ms = cuda_ms(lambda: conv.pair_conv_combine_plain(lx, ly,
+                                                            bn._LCOMB), 5,
+                       queued=False)
+    key = ("conv", "_LCOMB", tuple(lx.shape), tuple(ly.shape))
+    r = conv_work(key, bn._LCOMB)
+    print(f"time conv_exact: kernel {ms:.4f} ms per launch at {key[1:]}, "
+          f"plain {plain_ms:.3f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}: {r['multiply_adds']} multiply-adds at 484 per "
+          f"term, {r['bytes']} B); per warm precomp audit "
+          f"{warm_launches['conv_exact']} launches (its device code runs in "
+          f"every tower_exact launch) [{card}]", flush=True)
+    entries.append({
+        "name": "conv_exact", "route": "cuda", "source": conv.KERNEL.source,
+        "replaces": conv.KERNEL.replaces,
+        "launches": warm_launches["conv_exact"],
+        "max_abs_err": max(edge["conv"], err), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None}))
+        "bound_by": r["bound_by"], "library_ms": None})
+    for entry in entries:
+        print("EXACT_KERNEL " + json.dumps(entry))
     return 0
 
 
-def run_exact_phase(seed: int) -> dict:
+def run_exact_phase(seed: int) -> list:
     """Step 8 in a subprocess with the exact limb form: forwards its lines
-    and returns its kernel entry; its failure fails the run."""
+    and returns its kernel entries; its failure fails the run."""
     env = dict(os.environ, GETHSHARDING_TORCH_LIMB_FORM="exact")
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--exact-phase",
          "--seed", str(seed)], env=env, capture_output=True, text=True,
-        timeout=600)
-    entry = None
+        timeout=900)
+    entries = []
     for line in proc.stdout.splitlines():
         if line.startswith("EXACT_KERNEL "):
-            entry = json.loads(line[len("EXACT_KERNEL "):])
+            entries.append(json.loads(line[len("EXACT_KERNEL "):]))
         else:
             print(line)
-    if proc.returncode != 0 or entry is None:
+    if proc.returncode != 0 or len(entries) != 3:
         print(proc.stderr[-4000:], file=sys.stderr)
         fail(f"the exact-form phase failed (exit {proc.returncode})")
-    return entry
+    return entries
 
 
 def main() -> int:
@@ -845,13 +1141,9 @@ def main() -> int:
              "fp2_sqr": bn._FP2_SQR, "fp12_mul": bn._FP12_MUL,
              "fp12_mul_line": bn._LINE_MUL}
     plan_names = {id(p): name for name, p in plans.items()}
-    edge = check_tower_edges(bn, tower, conv, norm, route, plans, combs, dev)
-    cover = {"tower": "every product kind (Fp, Fp2 mul and sqr, Fp12, "
-                      "line), 112 and 113 rows, leading dims, broadcast "
-                      "constants and middle dims, gapped rows, all-4095 "
-                      "and all-zero limbs",
-             "conv": "every combine of the path, 112 to 672 rows, a "
-                     "partial block, leading dims, a broadcast constant",
+    edge = check_tower_edges(bn, tower, conv, norm, route, plans, combs, dev,
+                             range(25, norm.MAX_WIDTH + 1))
+    cover = {"tower": TOWER_COVER, "conv": CONV_COVER,
              "norm": f"widths 25-{norm.MAX_WIDTH}, negative and "
                      f"±2^30.7 limbs, a partial block, leading dims"}
     for name in ("tower", "conv", "norm"):
@@ -979,6 +1271,10 @@ def main() -> int:
              "list")
     print(f"precomp path: {sum(got)} of {SHARDS} rows verified cold and "
           f"warm, the same rows as the recompute path")
+
+    # -- aggregate votes (bls_verify_aggregates), counted and timed ----------
+    votes = aggregate_votes(bls, msgs, sig_rows, pk_rows, want)
+    aggregates_phase("", bls, bn, route, _build, pbackend, votes, card)
 
     # -- times ---------------------------------------------------------------
     audit_s, marshal_s = [], []
@@ -1253,7 +1549,7 @@ def main() -> int:
           f"device path with pull {device_ms:.2f} ms (audit kernels "
           f"{kernel_ms:.2f} ms, glue and pull {device_ms - kernel_ms:.2f} "
           f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
-    kernels.append(run_exact_phase(args.seed))
+    kernels += run_exact_phase(args.seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,10 @@
 // products; columns q and q + 25 (q < 24), or column 24 alone, make a
 // balanced pair of 25 multiply-adds, and a work item takes one or five
 // such pairs, so every item of a plane does the same work.
+// An operand row in shared memory is always 25 limbs per limb vector: the
+// exact form's 22-limb vectors are staged into those slots with zero top
+// limbs (`stage_slots`), so columns 43..48 of their product are zero and
+// columns 0..42 are the 22 × 22 schoolbook's.
 // Each accumulator sums at most four 25-term columns of products of
 // canonical limbs plus a pad (the reference's range contract), so no
 // partial sum leaves int32 and the sum is the same integer in any order.
@@ -110,6 +114,28 @@ __device__ __forceinline__ void stage_rows(int* dst, int stride,
   }
 }
 
+// Stage `rows` operand rows into shared memory: row r is `vecs` limb
+// vectors of NL <= 25 limbs back to back at src + off[r], and goes to
+// dst + r·vecs·25 with each vector in a 25-limb slot, its limbs above NL
+// zero. At NL = 25 that is a plain copy (`stage_rows`).
+template <int NL>
+__device__ __forceinline__ void stage_slots(int* dst,
+                                            const int* __restrict__ src,
+                                            const long long* off, int rows,
+                                            int vecs) {
+  static_assert(NL >= 1 && NL <= CONV_NL, "limbs per vector out of range");
+  if constexpr (NL == CONV_NL) {
+    stage_rows(dst, vecs * CONV_NL, src, off, rows, vecs * CONV_NL);
+  } else {
+    const int sw = vecs * CONV_NL;
+    for (int i = threadIdx.x; i < rows * sw; i += blockDim.x) {
+      const int r = i / sw, rem = i - r * sw;
+      const int p = rem / CONV_NL, l = rem - p * CONV_NL;
+      dst[i] = l < NL ? src[off[r] + p * NL + l] : 0;
+    }
+  }
+}
+
 // Columns q = j + (25 / NP)·s and q + 25 (s < NP; q = 24 has no column
 // 49) of u ⊛ v, added times coef to lo[s] and hi[s]: NP balanced pairs,
 // 25·NP multiply-adds, NP in {1, 5}; u[l] meets v[(q - l) mod 25], in
@@ -163,20 +189,22 @@ __device__ __forceinline__ void conv_pairs(const int* u, const int* v, int j,
   }
 }
 
-// Work item j (< 25 / NP) of one plane, padded: pad (49) or null for
-// none; the plane's terms (i, a, b, coef) [e0, e1) with u_at(i, a) and
-// v_at(i, b) giving the operand rows; its columns go to z (49).
-template <int NP, class UAt, class VAt>
+// Work item j (< 25 / NP) of one plane, padded: pad (PW <= 49 columns,
+// zero above) or null for none; the plane's terms (i, a, b, coef)
+// [e0, e1) with u_at(i, a) and v_at(i, b) giving the operand rows; its
+// columns go to z (49).
+template <int NP, int PW = CONV_NC, class UAt, class VAt>
 __device__ __forceinline__ void plane_item(const int* terms, int e0, int e1,
                                            UAt u_at, VAt v_at, int j,
                                            const int* pad, int* z) {
+  static_assert(PW >= 1 && PW <= CONV_NC, "pad width out of range");
   constexpr int STEP = CONV_NL / NP;
   int lo[NP], hi[NP];
 #pragma unroll
   for (int s = 0; s < NP; ++s) {
     const int q = j + STEP * s;
-    lo[s] = pad ? pad[q] : 0;
-    hi[s] = pad && q < CONV_NL - 1 ? pad[q + CONV_NL] : 0;
+    lo[s] = pad && q < PW ? pad[q] : 0;
+    hi[s] = pad && q + CONV_NL < PW ? pad[q + CONV_NL] : 0;
   }
   for (int e = e0; e < e1; ++e) {
     const int* tk = terms + e * PLAN_TERM;

@@ -5,11 +5,14 @@
 //
 // Built from the device code of the two TPU kernels the tower runs on:
 // `pair_conv_combine` (gethsharding_tpu/ops/pallas_conv.py:113, here
-// csrc/conv.cuh) and `normalize_pallas` (ops/pallas_norm.py:104, wide
-// form, csrc/norm.cuh). Each product does, per batch row, exactly the
-// steps of its plain route in ops/bn256.py and ops/limb.py, with the
-// port's own pad and combine constants (passed in from Python, in the
-// layout `ops/tower.py` packs), so it gives the same limbs:
+// csrc/conv.cuh) and `normalize_pallas` (ops/pallas_norm.py:104 and its
+// exact branch at :83, csrc/norm.cuh), in either limb form: the wide
+// form's 25-limb operands or the exact form's 22 (a run-time `form`
+// argument picks the template instance). Each product does, per batch
+// row, exactly the steps of its plain route in ops/bn256.py and
+// ops/limb.py, with the port's own pad and combine constants (passed in
+// from Python, in the layout `ops/tower.py` packs), so it gives the same
+// limbs:
 //
 //   kind  product                   steps per row
 //   FP    ModArith.mul              conv (identity) -> normalize
@@ -23,6 +26,20 @@
 //   LINE  fp12_mul_line             the same with the line's 12 planes,
 //                                   _GROUP_PAD[2] and one merge
 //
+// Every normalize sees the plain route's int32 accumulator at the plain
+// route's width, in the form's normalize (`norm_rows<W, F>`):
+//
+//   form   operand  conv cols  planes (pad width)    xi·y   merges
+//   wide   25       49         49 (Fp, Fp2, Fp12)    25     25
+//   exact  22       43         43 (Fp), 45 (others)  23     22
+//
+// In the exact form the pads are two columns wider than the conv and
+// xi's pad (_PAD266) one limb wider than an operand, so the accumulators
+// are the pad's width; the plane width of each product comes in the pack.
+// The 22-limb operands are staged into 25-limb slots of shared memory
+// with zero top limbs (conv.cuh `stage_slots`), so the conv runs its
+// 25-limb device code and its columns 43..48 are zero.
+//
 // The cyclic selection (output k takes operand j = (k - i) mod 6 of y,
 // or of xi·y on wrap-around) is read through the (k, i) index tables of
 // the pack, from shared memory, and never gathered into a copy.
@@ -30,15 +47,15 @@
 // What bounds it on this card: latency. An Fp12 product needs ~90,000
 // int32 multiply-adds and ~3.6 KB in and out per row, a fraction of a
 // microsecond at the card's peaks even at 112 rows; what costs is the
-// chain of dependent phases (four normalizes deep) and, before this
-// kernel, one launch per conv and per normalize with PyTorch glue between.
-// The design: one block of 512 threads per row for the Fp12 kinds (xi·v
-// made once for the six outputs), one or eight rows per block for the
-// Fp2 and Fp kinds; each phase spreads over the block's lanes (balanced
-// column pairs per lane in the conv: five per lane, with the operand
-// rows in registers, for the Fp12 kinds, whose conv is bound by
-// shared-memory loads, one for the others; a limb per lane in the
-// normalize).
+// chain of dependent phases (four normalizes deep; the exact form's
+// normalize is a longer ladder) and, before this kernel, one launch per
+// conv and per normalize with PyTorch glue between. The design: one
+// block of 512 threads per row for the Fp12 kinds (xi·v made once for
+// the six outputs), one or eight rows per block for the Fp2 and Fp
+// kinds; each phase spreads over the block's lanes (balanced column
+// pairs per lane in the conv: five per lane, with the operand rows in
+// registers, for the Fp12 kinds, whose conv is bound by shared-memory
+// loads, one for the others; a limb per lane in the normalize).
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -74,17 +91,31 @@ template <> struct TowerShape<TOWER_LINE> {
                        NP = 5, THREADS = 512;
 };
 
-// The pack (ops/tower.py `Plan`): fold (33, 22), lift (22), the xi pad
-// (25), the plane pads (C·GR, 49), the selection and index tables (K, G)
+// The limb form's widths (ops/tower.py `ACC_W`, `XI_W`): NL operand and
+// output limbs; ACCW the widest plane accumulator (the pad stride of the
+// pack); XIW the xi·y accumulator (max(NL, limbs of _PAD266)).
+template <NormForm F> struct TowerForm;
+template <> struct TowerForm<NORM_WIDE> {
+  static constexpr int NL = 25, ACCW = 49, XIW = 25;
+};
+template <> struct TowerForm<NORM_EXACT> {
+  static constexpr int NL = 22, ACCW = 45, XIW = 23;
+};
+
+// The pack (ops/tower.py `Plan`): the plane accumulators' width (one int,
+// 2·NL - 1 <= width <= ACCW), fold (33, 22), lift (22), the xi pad (XIW),
+// the plane pads (C·GR, ACCW), the selection and index tables (K, G)
 // each, the plan's plane offsets (C·GR + 1), then its terms (n, 4).
-template <int KIND> struct TowerPack {
+template <int KIND, NormForm F> struct TowerPack {
   using S = TowerShape<KIND>;
+  using W = TowerForm<F>;
   static constexpr int PL = S::C * S::GR;
-  static constexpr int FOLD = 0;
+  static constexpr int ACCW_AT = 0;
+  static constexpr int FOLD = 1;
   static constexpr int LIFT = FOLD + NORM_FR * NORM_FB;
   static constexpr int XIPAD = LIFT + NORM_FB;
-  static constexpr int PAD = XIPAD + CONV_NL;
-  static constexpr int SEL = PAD + PL * CONV_NC;
+  static constexpr int PAD = XIPAD + W::XIW;
+  static constexpr int SEL = PAD + PL * W::ACCW;
   static constexpr int IDX = SEL + S::K * S::G;
   static constexpr int OFF = IDX + S::K * S::G;
   static constexpr int TERMS = OFF + PL + 1;
@@ -92,29 +123,38 @@ template <int KIND> struct TowerPack {
   static constexpr int MAX = TERMS + PLAN_TERM * MAX_TERMS;
 };
 
-// u, v: the operands' first elements (u (G, A, 25) per row; v (G, B, 25),
-// or (6, 2, 25) for K > 1); n rows, walked through `lead`; pack: above;
-// out: (n, K, C, 25).
-template <int KIND>
+__host__ __device__ constexpr int tower_max(int a, int b) {
+  return a > b ? a : b;
+}
+
+// u, v: the operands' first elements (u (G, A, NL) per row; v (G, B, NL),
+// or (6, 2, NL) for K > 1); n rows, walked through `lead`; pack: above;
+// out: (n, K, C, NL). In shared memory every limb vector takes a 25-limb
+// slot (CONV_NL), its limbs above NL zero.
+template <int KIND, NormForm F>
 __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
     tower_kernel(const int* __restrict__ u, const int* __restrict__ v,
                  long long n, ConvLead lead, const int* __restrict__ pack,
                  int nterms, int* __restrict__ out) {
   using S = TowerShape<KIND>;
-  using P = TowerPack<KIND>;
+  using P = TowerPack<KIND, F>;
+  using W = TowerForm<F>;
   constexpr bool XI = S::K > 1;
-  constexpr int NL = CONV_NL, NC = CONV_NC;
-  constexpr int UW = S::G * S::A * NL;
-  constexpr int VW = XI ? 12 * NL : S::G * S::B * NL;
+  constexpr int SL = CONV_NL, NC = CONV_NC;    // shared slot, conv columns
+  constexpr int NL = W::NL, ACCW = W::ACCW, XIW = W::XIW;
+  constexpr int UV = S::G * S::A;              // u's limb vectors per row
+  constexpr int VV = XI ? 12 : S::G * S::B;    // v's
+  constexpr int UW = UV * SL, VW = VV * SL;    // shared ints per row
   constexpr int PL = P::PL;
   constexpr int RK = S::ROWS * S::K;            // (row, k) pairs per block
   constexpr int NACC = RK * PL;                 // accumulator rows
   constexpr int NXI = XI ? S::ROWS * 12 : 0;    // xi rows
   constexpr int OUTW = S::C * NL;               // ints per (row, k)
-  constexpr int NMAX = NACC > NXI ? NACC : NXI;  // rows of a normalize
-  constexpr int NZ = NACC * NC > NXI * NL ? NACC * NC : NXI * NL;
-  constexpr int NT3 = NACC * (NC + 3) > NMAX * (NL + 3) ? NACC * (NC + 3)
-                                                        : NMAX * (NL + 3);
+  constexpr int NMAX = tower_max(NACC, NXI);    // rows of a normalize
+  constexpr int NZ = tower_max(NACC * NC, NXI * XIW);
+  constexpr int NT3 = tower_max(tower_max(NACC * (ACCW + 3),
+                                          NXI * (XIW + 3)),
+                                NACC * (NL + 3));
   __shared__ __align__(16) int s_u[S::ROWS * UW];
   __shared__ __align__(16) int s_v[S::ROWS * VW];
   __shared__ int s_xi[XI ? S::ROWS * VW : 1];
@@ -135,36 +175,42 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
     // in the same phase as the pack
     long long ou, ov;
     lead_offsets(lead, (int)r0, ou, ov);
-    stage_ints(s_u, u + ou, UW);
-    stage_ints(s_v, v + ov, VW);
+    stage_slots<NL>(s_u, u, &ou, 1, UV);
+    stage_slots<NL>(s_v, v, &ov, 1, VV);
   } else {
     for (int r = threadIdx.x; r < rows; r += blockDim.x)
       lead_offsets(lead, (int)(r0 + r), s_off[r], s_off[S::ROWS + r]);
     __syncthreads();
-    stage_rows(s_u, UW, u, s_off, rows, UW);
-    stage_rows(s_v, VW, v, s_off + S::ROWS, rows, VW);
+    stage_slots<NL>(s_u, u, s_off, rows, UV);
+    stage_slots<NL>(s_v, v, s_off + S::ROWS, rows, VV);
+  }
+  if constexpr (XI && NL < SL) {   // xi·v's slots: zero above NL limbs
+    for (int t = threadIdx.x; t < rows * 12 * (SL - NL); t += blockDim.x)
+      s_xi[t / (SL - NL) * SL + NL + t % (SL - NL)] = 0;
   }
   __syncthreads();
   const int* fold = s_pack + P::FOLD;
   const int* lift = s_pack + P::LIFT;
   const int* off = s_pack + P::OFF;
   const int* terms = s_pack + P::TERMS;
+  const int accw = s_pack[P::ACCW_AT];         // the planes' width
 
-  if (XI) {  // xi·v: (9a - b + pad) + (a + 9b)i per coefficient
+  if constexpr (XI) {  // xi·v: (9a - b + pad) + (a + 9b)i per coefficient
     const int* xipad = s_pack + P::XIPAD;
-    for (int t = threadIdx.x; t < rows * VW; t += blockDim.x) {
-      const int r = t / VW, rem = t - r * VW;
-      const int row = rem / NL, l = rem - row * NL;
+    for (int t = threadIdx.x; t < rows * 12 * XIW; t += blockDim.x) {
+      const int rowc = t / XIW, l = t - rowc * XIW;
+      const int r = rowc / 12, row = rowc - r * 12;
       const int c = row & 1;
-      const int* a = s_v + r * VW + (row - c) * NL;
-      s_z[t] = c == 0 ? a[l] * 9 - a[NL + l] + xipad[l] : a[l] + a[NL + l] * 9;
+      const int* a = s_v + r * VW + (row - c) * SL;
+      s_z[t] = c == 0 ? a[l] * 9 - a[SL + l] + xipad[l] : a[l] + a[SL + l] * 9;
     }
     __syncthreads();
-    norm_rows<NL>(s_z, NL, NL, rows * 12, s_xi, NL, fold, lift, s_t3, s_f);
+    norm_rows<XIW, F>(s_z, XIW, XIW, rows * 12, s_xi, SL, fold, lift, s_t3,
+                      s_f);
   }
 
   // the planes of each output k, padded: NP column pairs per lane
-  constexpr int ITEMS = NL / S::NP;            // work items per plane
+  constexpr int ITEMS = SL / S::NP;            // work items per plane
   for (int t = threadIdx.x; t < rows * S::K * PL * ITEMS; t += blockDim.x) {
     const int rkp = t / ITEMS, j = t - rkp * ITEMS;
     const int rk = rkp / PL, p = rkp - rk * PL;
@@ -174,18 +220,18 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
     const int* ur = s_u + r * UW;
     const int* vr = s_v + r * VW;
     const int* xr = XI ? s_xi + r * VW : vr;     // xi·v, Fp12 kinds only
-    plane_item<S::NP>(
+    plane_item<S::NP, ACCW>(
         terms, off[p], off[p + 1],
-        [&](int i, int a) { return ur + (i * S::A + a) * NL; },
+        [&](int i, int a) { return ur + (i * S::A + a) * SL; },
         [&](int i, int b) {
-          return (sel[i] ? xr : vr) + (idx[i] * S::B + b) * NL;
+          return (sel[i] ? xr : vr) + (idx[i] * S::B + b) * SL;
         },
-        j, s_pack + P::PAD + p * NC, s_z + rkp * NC);
+        j, s_pack + P::PAD + p * ACCW, s_z + rkp * NC);
   }
   __syncthreads();
   const int nrk = rows * S::K;
-  norm_rows<NC>(s_z, NC, NC, nrk * PL, S::GR == 1 ? s_cur : s_parts, NL,
-                fold, lift, s_t3, s_f);
+  norm_rows<ACCW, F>(s_z, NC, accw, nrk * PL, S::GR == 1 ? s_cur : s_parts,
+                     NL, fold, lift, s_t3, s_f);
 
   // merge the groups in order: ((g0 + g1) -> normalize) + g2 -> normalize
   for (int g = 1; g < S::GR; ++g) {
@@ -195,8 +241,8 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
       s_z[t] = prev + s_parts[(rc * S::GR + g) * NL + l];
     }
     __syncthreads();
-    norm_rows<NL>(s_z, NL, NL, nrk * S::C, s_cur, NL, fold, lift, s_t3,
-                  s_f);
+    norm_rows<NL, F>(s_z, NL, NL, nrk * S::C, s_cur, NL, fold, lift, s_t3,
+                     s_f);
   }
 
   // the block's rows lie back to back in out
@@ -209,40 +255,56 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
 #ifdef __CUDACC__
 namespace gs {
 
-template <int KIND>
+template <int KIND, NormForm F>
 int launch_tower(const int* u, const int* v, long long n, ConvLead lead,
                  const int* pack, int nterms, int* out, cudaStream_t stream) {
   using S = TowerShape<KIND>;
-  if (nterms < 0 || nterms > TowerPack<KIND>::MAX_TERMS)
+  if (nterms < 0 || nterms > TowerPack<KIND, F>::MAX_TERMS)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (n + S::ROWS - 1) / S::ROWS;
-  tower_kernel<KIND><<<(unsigned)blocks, S::THREADS, 0, stream>>>(
+  tower_kernel<KIND, F><<<(unsigned)blocks, S::THREADS, 0, stream>>>(
       u, v, n, lead, pack, nterms, out);
   return (int)cudaGetLastError();
 }
 
-}  // namespace gs
-
-extern "C" int gs_tower(int kind, const int* u, const int* v, long long n,
-                        int ndim, const long long* lead_desc, const int* pack,
-                        int nterms, int* out, cudaStream_t stream) {
-  if (ndim < 0 || ndim > gs::CONV_MAX_DIMS) return (int)cudaErrorInvalidValue;
-  const gs::ConvLead lead = gs::conv_lead(ndim, lead_desc);
+template <NormForm F>
+int launch_kind(int kind, const int* u, const int* v, long long n,
+                ConvLead lead, const int* pack, int nterms, int* out,
+                cudaStream_t stream) {
   switch (kind) {
-    case gs::TOWER_FP:
-      return gs::launch_tower<gs::TOWER_FP>(u, v, n, lead, pack, nterms, out,
-                                            stream);
-    case gs::TOWER_FP2:
-      return gs::launch_tower<gs::TOWER_FP2>(u, v, n, lead, pack, nterms,
-                                             out, stream);
-    case gs::TOWER_FP12:
-      return gs::launch_tower<gs::TOWER_FP12>(u, v, n, lead, pack, nterms,
-                                              out, stream);
-    case gs::TOWER_LINE:
-      return gs::launch_tower<gs::TOWER_LINE>(u, v, n, lead, pack, nterms,
-                                              out, stream);
+    case TOWER_FP:
+      return launch_tower<TOWER_FP, F>(u, v, n, lead, pack, nterms, out,
+                                       stream);
+    case TOWER_FP2:
+      return launch_tower<TOWER_FP2, F>(u, v, n, lead, pack, nterms, out,
+                                        stream);
+    case TOWER_FP12:
+      return launch_tower<TOWER_FP12, F>(u, v, n, lead, pack, nterms, out,
+                                         stream);
+    case TOWER_LINE:
+      return launch_tower<TOWER_LINE, F>(u, v, n, lead, pack, nterms, out,
+                                         stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace gs
+
+// form: gs::NormForm (0 wide, 1 exact), the limb form of the operands,
+// the pack and the output.
+extern "C" int gs_tower(int kind, int form, const int* u, const int* v,
+                        long long n, int ndim, const long long* lead_desc,
+                        const int* pack, int nterms, int* out,
+                        cudaStream_t stream) {
+  if (ndim < 0 || ndim > gs::CONV_MAX_DIMS) return (int)cudaErrorInvalidValue;
+  const gs::ConvLead lead = gs::conv_lead(ndim, lead_desc);
+  if (form == gs::NORM_WIDE)
+    return gs::launch_kind<gs::NORM_WIDE>(kind, u, v, n, lead, pack, nterms,
+                                          out, stream);
+  if (form == gs::NORM_EXACT)
+    return gs::launch_kind<gs::NORM_EXACT>(kind, u, v, n, lead, pack, nterms,
+                                           out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 #endif

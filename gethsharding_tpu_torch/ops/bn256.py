@@ -28,13 +28,16 @@ The port's counterpart of the parts of the JAX package's
 - the fixed-base precomputation (the notary's default path): one
   `precompute_g2_lines` per committee turns its aggregate pubkey into an
   (88, 3, 2, 25) line table, and `miller_loop_precomp` runs the Miller
-  loop from it with no G2 point arithmetic.
+  loop from it with no G2 point arithmetic;
+- `bls_verify_aggregate_batch`, one pairing check per row of affine
+  aggregates (the vote already summed on the host): the Miller kernel
+  and the final exponentiation, one launch each.
 
 Fp2 is (..., 2, 25) int32 (real, imaginary); Fp12 is the flat w-basis
 (..., 6, 2, 25) with w^6 = xi = 9 + i. The limb counts here are the wide
 form's; in the exact form (`limb.LIMB_FORM`) every table, converter and
-function works at 22 limbs, and the products and the precomp family run
-only on the CPU.
+function works at 22 limbs (line tables (88, 3, 2, 22)), on the card as
+on the CPU: the tower kernel and the normalize run in that form.
 """
 
 from __future__ import annotations
@@ -432,6 +435,25 @@ def g1_to_limbs(points: Sequence[ref.G1Point]):
     return ints_to_limbs(xs), ints_to_limbs(ys), np.asarray(ok, bool)
 
 
+def g2_to_limbs(points: Sequence[ref.G2Point]):
+    """[(x, y) | None]* G2 affine points -> (xs, ys, valid): (B, 2, NL)
+    int32 ×2 + (B,) bool. Infinity encodes as zero limbs with valid
+    False."""
+    flat_x, flat_y, ok = [], [], []
+    for pt in points:
+        if pt is None:
+            flat_x.extend((0, 0)), flat_y.extend((0, 0)), ok.append(False)
+        else:
+            x, y = pt
+            flat_x.extend((x.a % P, x.b % P))
+            flat_y.extend((y.a % P, y.b % P))
+            ok.append(True)
+    both = ints_to_limbs(flat_x + flat_y)
+    half = 2 * len(points)
+    return (both[:half].reshape(-1, 2, NLIMBS),
+            both[half:].reshape(-1, 2, NLIMBS), np.asarray(ok, bool))
+
+
 def g1_committee_to_limbs(rows: Sequence[Sequence[ref.G1Point]], width: int):
     """B rows of <= width G1 points (None = empty slot) -> (B, width, 25)
     ×2 + mask (B, width), through one bulk bit-plane conversion."""
@@ -505,6 +527,33 @@ def bls_aggregate_verify_committee_batch(hx, hy, sigx, sigy, sig_mask,
     inf = FP.is_zero(sZ) | fp2_is_zero(pZ)
     f = mk.miller_f((sX, sY, sZ), hx, hy, (pX, pY, pZ))
     return mk.finalexp_is_one(f) & valid & ~inf
+
+
+_FP_ONE = int_to_limbs(1)
+_FP2_ONE = _const_fp2(1, 0)
+
+
+def bls_verify_aggregate_batch(hx, hy, sx, sy, pkx, pky, valid):
+    """One aggregate vote per row: e(sig, G2)·e(-H, pk) == 1.
+
+    hx/hy, sx/sy (B, NL): the message hash and the aggregate signature,
+    affine G1; pkx/pky (B, 2, NL): the aggregate pubkey, affine G2; valid
+    (B,) bool, False where the host found a point at infinity. Returns
+    (B,) bool on the inputs' device.
+
+    The affine points enter the projective Miller product with Z = 1,
+    then the final exponentiation: on CUDA tensors one Miller-kernel
+    launch and one final-exponentiation launch. (The JAX package
+    specializes its affine Miller loop to mixed additions and constant
+    generator-line terms; that gives another f with the same final
+    exponentiation, so the same verdicts.)"""
+    from gethsharding_tpu_torch.ops import megakernels as mk
+
+    dev = sx.device
+    sz = const(_FP_ONE, dev).expand(sx.shape)
+    pkz = const(_FP2_ONE, dev).expand(pkx.shape)
+    f = mk.miller_f((sx, sy, sz), hx, hy, (pkx, pky, pkz))
+    return mk.finalexp_is_one(f) & valid
 
 
 # == fixed-base precomputation (the notary's default path) =================

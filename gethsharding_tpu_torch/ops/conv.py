@@ -6,8 +6,10 @@ The port's counterpart of the JAX package's `ops/pallas_conv.py`:
     cols[..., i, a, b, n] = sum_{l+m=n} x[..., i, a, l] · y[..., i, b, m]
     out[..., c, g, n]     = sum_{i,a,b} comb[i, a, b, c, g] · cols[..., i, a, b, n]
 
-for x (..., G, A, 25), y (..., G, B, 25) and a static combine tensor
-(G, A, B, C, Gr), giving (..., C, Gr, 49) raw column accumulators. One
+for x (..., G, A, NL), y (..., G, B, NL) and a static combine tensor
+(G, A, B, C, Gr), giving (..., C, Gr, 2·NL - 1) raw column accumulators,
+NL the limb form's operand width (`limb.NLIMBS`: 25 wide, 22 exact), as
+the TPU kernel takes any (its `nl` parameter). One
 operand may have fewer leading dims (a constant against the batch), and
 either may have size-1 dims; both broadcast to the common lead, which the
 kernel walks through each operand's own strides, without copying a
@@ -30,10 +32,11 @@ import numpy as np
 import torch
 
 from gethsharding_tpu_torch.ops import _build, route
-from gethsharding_tpu_torch.ops.limb import NLIMBS, const, conv_cols
+from gethsharding_tpu_torch.ops.limb import (LIMB_FORM, NLIMBS, const,
+                                             conv_cols)
 
 NCOLS = 2 * NLIMBS - 1
-KERNEL_LIMBS = 25           # operand limbs of csrc/conv.cuh (the wide form)
+SLOT_LIMBS = 25             # csrc/conv.cuh CONV_NL: an operand's shared slot
 _SMEM_BYTES = 48 * 1024     # shared-memory limit of one launch
 _THREADS = 128              # csrc/conv.cu CONV_THREADS
 _ITEMS = 5                  # csrc/conv.cu CONV_ITEMS: work items per plane
@@ -42,7 +45,7 @@ _ROW_OFF_BYTES = 2 * _MAX_ROWS * 8   # csrc/conv.cu row_off
 _MAX_DIMS = 6               # csrc/conv.cuh CONV_MAX_DIMS
 _SMS = 132                  # streaming multiprocessors of an H100
 
-KERNEL = _build.Kernel("conv", "gs_conv",
+KERNEL = _build.Kernel("conv_exact" if NLIMBS == 22 else "conv", "gs_conv",
                        "gethsharding_tpu_torch/csrc/conv.cu",
                        "gethsharding_tpu/ops/pallas_conv.py:113")
 
@@ -95,7 +98,7 @@ def plan_terms(plan: np.ndarray, planes: int) -> np.ndarray:
 def pair_conv_combine_plain(x: torch.Tensor, y: torch.Tensor,
                             comb: np.ndarray) -> torch.Tensor:
     prod = x[..., :, :, None, :, None] * y[..., :, None, :, None, :]
-    cols = conv_cols(prod)                                 # (..., G, A, B, 49)
+    cols = conv_cols(prod)                                 # (..., G, A, B, 2NL - 1)
     weights = const(comb, x.device)[..., None]            # (G, A, B, C, Gr, 1)
     return (cols[..., None, None, :] * weights).sum(
         dim=(-6, -5, -4), dtype=torch.int32)
@@ -104,7 +107,7 @@ def pair_conv_combine_plain(x: torch.Tensor, y: torch.Tensor,
 def _lead_strides(shape: tuple, stride: tuple, lead: tuple):
     """An operand's element strides over the common `lead` (0 on the dims
     it is broadcast along, so it is read in place), and whether it must
-    be copied first to make its (G, A|B, 25) block contiguous."""
+    be copied first to make its (G, A|B, NL) block contiguous."""
     block = shape[-3:]
     want = (block[1] * block[2], block[2], 1)
     copy = any(size > 1 and st != w
@@ -137,7 +140,7 @@ def _lead_desc(lead: tuple, x_strides: tuple, y_strides: tuple) -> list:
 @functools.lru_cache(maxsize=1024)
 def broadcast_plan(x_shape: tuple, x_stride: tuple, y_shape: tuple,
                    y_stride: tuple):
-    """The batch rows of two operands (..., G, A|B, 25) of these shapes
+    """The batch rows of two operands (..., G, A|B, NL) of these shapes
     and strides, whose leading dims broadcast: (lead, rows, ndim, desc,
     x_copy, y_copy). `desc` holds the kernels' `ConvLead` triples as a
     ctypes array; an operand is copied (x_copy, y_copy) only where its
@@ -157,14 +160,13 @@ def broadcast_plan(x_shape: tuple, x_stride: tuple, y_shape: tuple,
     return lead, math.prod(lead), len(dims), desc, x_copy, y_copy
 
 
-def check_wide(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
-    """Refuse operands that are not 25 limbs wide: the conv and tower
-    kernels read the wide form only."""
-    if x.shape[-1:] != (KERNEL_LIMBS,) or y.shape[-1:] != (KERNEL_LIMBS,):
+def check_limbs(x: torch.Tensor, y: torch.Tensor, name: str) -> None:
+    """Refuse operands that are not the ambient limb form's width: the
+    conv and tower kernels run in the form the port was imported with."""
+    if x.shape[-1:] != (NLIMBS,) or y.shape[-1:] != (NLIMBS,):
         raise ValueError(
-            f"{name}: {x.shape[-1]}- and {y.shape[-1]}-limb operands; it "
-            f"takes the wide form's {KERNEL_LIMBS} limbs (the exact 22-limb "
-            f"form's tower is not ported)")
+            f"{name}: {x.shape[-1]}- and {y.shape[-1]}-limb operands; the "
+            f"{LIMB_FORM} limb form takes {NLIMBS} limbs")
 
 
 def check_operand(t: torch.Tensor, block: tuple, name: str) -> None:
@@ -202,21 +204,21 @@ def rows_per_block(n: int, planes: int) -> int:
 
 def conv_kernel(x: torch.Tensor, y: torch.Tensor,
                 comb: np.ndarray) -> torch.Tensor:
-    """Launch `csrc/conv.cu` on x (..., G, A, 25), y (..., G, B, 25) int32
-    CUDA tensors whose leading dims broadcast; returns (..., C, Gr, 49),
-    equal to `pair_conv_combine_plain`. Each operand is read once, in
-    place, whatever it is broadcast along. 25-limb operands only: the
-    exact form's 22 limbs are refused."""
+    """Launch `csrc/conv.cu` on x (..., G, A, NL), y (..., G, B, NL) int32
+    CUDA tensors of the ambient limb form whose leading dims broadcast;
+    returns (..., C, Gr, 2·NL - 1), equal to `pair_conv_combine_plain`.
+    Each operand is read once, in place, whatever it is broadcast along;
+    a 22-limb row widens only in shared memory."""
     G, A, B, C, Gr = comb.shape
-    check_wide(x, y, "conv kernel")
+    check_limbs(x, y, "conv kernel")
     check_operand(x, (G, A, NLIMBS), "x")
     check_operand(y, (G, B, NLIMBS), "y")
     x, y, lead, n, ndim, desc = broadcast_rows(x, y)
     plan = const(plane_plan(comb), x.device)
-    xw, yw = G * A * NLIMBS, G * B * NLIMBS
+    xw, yw = G * A * SLOT_LIMBS, G * B * SLOT_LIMBS   # ints per shared row
     rpb = rows_per_block(n, C * Gr)
     smem = 4 * ((rpb * xw + 3) // 4 * 4 + (rpb * yw + 3) // 4 * 4
-                + plan.numel() + rpb * C * Gr * NCOLS)
+                + plan.numel() + rpb * C * Gr * (2 * SLOT_LIMBS - 1))
     if smem + _ROW_OFF_BYTES > _SMEM_BYTES:
         raise ValueError(f"operands too wide for one block: {smem} B of "
                          f"shared memory")
@@ -225,16 +227,16 @@ def conv_kernel(x: torch.Tensor, y: torch.Tensor,
     if n == 0:
         return out
     nterms = plan_terms(plane_plan(comb), C * Gr).shape[0]
-    KERNEL.launch(_build.ptr(x), _build.ptr(y), n, xw, yw, A, B,
-                  _build.ptr(plan), C * Gr, nterms, rpb, ndim, desc,
+    KERNEL.launch(_build.ptr(x), _build.ptr(y), n, NLIMBS, G * A, G * B, A,
+                  B, _build.ptr(plan), C * Gr, nterms, rpb, ndim, desc,
                   _build.ptr(out))
     return out
 
 
 def pair_conv_combine(x: torch.Tensor, y: torch.Tensor,
                       comb: np.ndarray) -> torch.Tensor:
-    """x (..., G, A, 25), y (..., G, B, 25) -> (..., C, Gr, 49): the
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """x (..., G, A, NL), y (..., G, B, NL) -> (..., C, Gr, 2·NL - 1):
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if not route.use_kernel(x):
         return pair_conv_combine_plain(x, y, comb)
     return conv_kernel(x, y, comb)

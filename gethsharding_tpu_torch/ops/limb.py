@@ -32,10 +32,8 @@ gives the same limbs; `mul_cols` on a CUDA tensor goes through the conv
 kernel of `ops/conv.py`, which gives the same integer columns as
 `conv_cols`. The JAX package computes its `mul_cols` outside any Pallas
 kernel; this routing is the port's own choice, so that every product on
-the card runs in a hand-written kernel. Both kernels read the wide form
-only: in the exact form they refuse a CUDA tensor (the exact form's tower
-is not ported), and products run only on the CPU, through the plain
-route.
+the card runs in a hand-written kernel. Both kernels run in the form the
+module was imported with.
 
 The relaxed normalize option and the secp256k1 moduli are not part of
 this module yet.
@@ -237,15 +235,15 @@ class ModArith:
         return self.normalize(x * c)
 
     def mul_cols(self, x, y):
-        """Raw schoolbook product columns (..., 49), each < 25·2^24;
-        leading dims broadcast."""
+        """Raw schoolbook product columns (..., 2·NLIMBS - 1), each
+        < 25·2^24; leading dims broadcast."""
         cols = conv.pair_conv_combine(x[..., None, None, :],
                                       y[..., None, None, :], _IDENTITY)
         return cols[..., 0, 0, :]
 
     def mul(self, x, y):
         """x·y in lazy form; leading dims broadcast. One tower-kernel
-        launch on a CUDA tensor (wide form only)."""
+        launch on a CUDA tensor."""
         if route.use_kernel(x):
             return tower.tower_kernel(self.mul_plan, x[..., None, None, :],
                                       y[..., None, None, :])

@@ -1,12 +1,12 @@
-"""Signature backends of the port: the committee-audit subset of the JAX
-package's `SigBackend` API, with the `torch` backend behind
-`get_backend("torch")`.
+"""Signature backends of the port: the BLS subset of the JAX package's
+`SigBackend` API (committee audits and aggregate votes), with the
+`torch` backend behind `get_backend("torch")`.
 
 - ``marshal.py``: host -> limb planes, the padding policy, row keys.
 - ``cache.py``: `LineTableCache`, the resident line tables of the
   precomp path.
-- ``dispatch.py``: `TorchSigBackend`, the precomp audit (with keys) and
-  the four-launch recompute audit (without).
+- ``dispatch.py``: `TorchSigBackend`, the precomp audit (with keys), the
+  four-launch recompute audit (without) and the aggregate-vote check.
 """
 
 from __future__ import annotations
@@ -40,9 +40,19 @@ class VerdictFuture:
 
 
 class SigBackend:
-    """Batch signature operations of the notary's audit."""
+    """Batch BLS signature operations of the notary and its callers."""
 
     name = "abstract"
+
+    def bls_verify_aggregates(
+            self,
+            messages: Sequence[bytes],
+            agg_sigs: Sequence[bls.G1Point],
+            agg_pks: Sequence[bls.G2Point]) -> List[bool]:
+        """Verify one aggregate committee vote per message: the aggregate
+        signature against the aggregate pubkey. A signature or pubkey at
+        infinity (None) is a rejection."""
+        raise NotImplementedError
 
     def bls_verify_committees(
             self,

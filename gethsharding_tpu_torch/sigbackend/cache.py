@@ -4,8 +4,10 @@
 Committee pubkeys recur period after period, so a committee's aggregate
 pubkey, and the line table `ops/bn256.py::precompute_g2_lines` derives
 from it, is fixed per `pk_row_key`. `LineTableCache` keeps those tables
-in the device's memory under a byte-budgeted LRU: one (88, 3, 2, 25)
-int32 tensor (52.8 KB) and one bool per key. A cold row pays one
+in the device's memory under a byte-budgeted LRU: one (88, 3, 2, NL)
+int32 tensor and one bool per key, NL the limb form's limbs
+(`bn.LINE_TABLE_SHAPE`: 52,800 B a table in the wide form, 46,464 B in
+the exact 22-limb form). A cold row pays one
 precompute; a warm audit ships no G2 bytes. A batch memo reuses the
 stacked tables whole when an audit repeats the previous audit's key
 tuple, the steady state of a notary; a memo hit refreshes its keys in the
@@ -94,8 +96,8 @@ class LineTableCache:
         return plan
 
     def insert(self, key, table: torch.Tensor, inf: torch.Tensor) -> None:
-        """Keep one key's table (88, 3, 2, 25) and infinity flag (), then
-        evict from the old end until the budget holds."""
+        """Keep one key's table (`bn.LINE_TABLE_SHAPE`) and infinity flag
+        (), then evict from the old end until the budget holds."""
         nbytes = table.numel() * table.element_size() + inf.element_size()
         with self._lock:
             if key in self._tables:
@@ -110,9 +112,9 @@ class LineTableCache:
 
     def assemble(self, plan: LinePlan, missed=None):
         """Device half: insert the misses' tables (`missed` = (tables
-        (M, 88, 3, 2, 25), inf (M,)) from one precompute over all misses)
-        and stack hits, misses and zero rows into the audit's (B, 88, 3,
-        2, 25) tables and (B,) flags."""
+        (M, *LINE_TABLE_SHAPE), inf (M,)) from one precompute over all
+        misses) and stack hits, misses and zero rows into the audit's
+        (B, *LINE_TABLE_SHAPE) tables and (B,) flags."""
         if plan.memo is not None:
             return plan.memo
         fresh = []

@@ -1,4 +1,5 @@
-"""`TorchSigBackend`: the notary's committee audit on the card.
+"""`TorchSigBackend`: the notary's committee audit, and the check of
+aggregate votes, on the card.
 
 An audit with `pk_row_keys` (the notary always passes them) takes the
 fixed-base precomputation path, the reference's default:
@@ -18,10 +19,12 @@ Normalizes and tower products between them run in their own kernels.
 
 `precomp` (default `$GETHSHARDING_TORCH_PRECOMP`, "1"; the port's twin of
 the reference's `GETHSHARDING_PRECOMP`) switches the precomp path off:
-keyed audits then take the recompute path too. In the exact 22-limb form
-(`GETHSHARDING_TORCH_LIMB_FORM=exact`) the precomp path has no tower
-kernel yet, so `precomp=True` is refused at construction; the recompute
-path runs in either form.
+keyed audits then take the recompute path too. Both paths run in either
+limb form (`GETHSHARDING_TORCH_LIMB_FORM`).
+
+`bls_verify_aggregates` checks one host-aggregated vote per message:
+hash each message to G1, ship the affine planes, then one Miller launch
+and one final exponentiation (`bn.bls_verify_aggregate_batch`).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 
 import torch
 
+from gethsharding_tpu_torch.crypto import bn256 as bls
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as bn
@@ -70,18 +74,39 @@ class TorchSigBackend(SigBackend):
                 raise ValueError(
                     f"GETHSHARDING_TORCH_PRECOMP={knob!r}: want 0 or 1")
             precomp = knob == "1"
-        if precomp and LIMB_FORM != "wide":
-            raise ValueError(
-                "the precomp path needs the tower kernel at 22 limbs, which "
-                "the exact form does not have yet: pass precomp=False (or "
-                "GETHSHARDING_TORCH_PRECOMP=0) or use "
-                "GETHSHARDING_TORCH_LIMB_FORM=wide")
         self.precomp = bool(precomp)
         self.lines = LineTableCache(self.device)
         # host seconds of the last audit's marshal and launch staging, its
         # path and limb form, G2 bytes shipped, resident rows, whether the
         # batch memo served them, and kernel launches
         self.last_timing: dict | None = None
+
+    def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
+        n = len(messages)
+        if n == 0:
+            return []
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        bucket = marshal.bucket_size(n)
+        pad = [None] * (bucket - n)
+        hashes = [bls.hash_to_g1(bytes(m)) for m in messages]
+        hx, hy, hok = bn.g1_to_limbs(hashes + pad)
+        sx, sy, sok = bn.g1_to_limbs(list(agg_sigs) + pad)
+        pkx, pky, pok = bn.g2_to_limbs(list(agg_pks) + pad)
+        valid = hok & sok & pok     # a point at infinity is a rejection
+        planes = (hx, hy, sx, sy, pkx, pky, valid)
+        t1 = time.perf_counter()
+        out = bn.bls_verify_aggregate_batch(
+            *(torch.as_tensor(a, device=self.device) for a in planes))
+        after = _build.launch_counts()
+        self.last_timing = {
+            "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
+            "rows": n, "bucket": bucket, "width": 1, "precomp": False,
+            "limb_form": LIMB_FORM,
+            "g2_wire_bytes": int(pkx.nbytes + pky.nbytes),
+            "hit_rows": 0, "memo": False,
+            "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
+        return [bool(v) for v in out.cpu()[:n].tolist()]
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
                                     pk_row_keys=None) -> VerdictFuture:

@@ -8,6 +8,8 @@ Where there is no card the `cuda` tests skip with a reason; the wrapper
 checks below run everywhere. Workloads are protocol-true committees made
 with the port's own scalar crypto from fixed seeds."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -61,11 +63,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_tower_and_conv_kernels_refuse_22_limb_operands():
+    """In the wide form (this module's) the kernels take 25-limb operands
+    only; the exact form's tower runs in a process of that form."""
     before = _build.launch_counts()
     u = torch.zeros((3, 1, 2, 22), dtype=torch.int32)
-    with pytest.raises(ValueError, match="exact 22-limb"):
+    with pytest.raises(ValueError, match="wide limb form takes 25"):
         tower.tower_kernel(bn._FP2_MUL, u, u)
-    with pytest.raises(ValueError, match="exact 22-limb"):
+    with pytest.raises(ValueError, match="wide limb form takes 25"):
         conv.conv_kernel(u, u, bn._COMB_FP2)
     assert _build.launch_counts() == before
 
@@ -404,3 +408,28 @@ def test_precomp_audit_on_card(cuda):
         routes.append(run())
     for got, plain in zip(*routes):
         assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_aggregates_on_card(cuda):
+    """`bls_verify_aggregates`: one Miller and one final-exponentiation
+    launch per call, the plain versions' verdicts."""
+    msgs, sig_rows, pk_rows, want = _committee_period(4, 3)
+    agg_sigs = [functools.reduce(bls.g1_add, row, None) for row in sig_rows]
+    agg_pks = [functools.reduce(bls.g2_add, row, None) for row in pk_rows]
+    backend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    assert backend.bls_verify_aggregates(msgs, agg_sigs, agg_pks) == want
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    assert counts.get("miller") == counts.get("finalexp") == 1
+    assert not counts.get("agg_g1") and not counts.get("agg_g2")
+    planes = [bn.g1_to_limbs([bls.hash_to_g1(m) for m in msgs]),
+              bn.g1_to_limbs(agg_sigs), bn.g2_to_limbs(agg_pks)]
+    (hx, hy, hok), (sx, sy, sok), (px, py, pok) = planes
+    args = [torch.as_tensor(a, device=cuda)
+            for a in (hx, hy, sx, sy, px, py, hok & sok & pok)]
+    got = bn.bls_verify_aggregate_batch(*args)
+    with route.plain_versions():
+        plain = bn.bls_verify_aggregate_batch(*args)
+    assert torch.equal(got, plain) and got.cpu().tolist() == want

@@ -15,9 +15,14 @@ width the audit gives; `canon`, `is_zero`, `eq`, `sub` and `neg` at p - 1,
 p, 2p - 1 and the lazy bound; the converters, tables and pads; the audit
 kernels' 22-limb boundaries; the recompute audit on
 `TorchSigBackend(device="cpu", precomp=False)` against the reference's
-`python` backend on the hostile fixture; and the refusals (`precomp=True`,
-the tower and conv kernels on 22-limb operands). In the `slow` tier, the
-Miller product f against the reference's exact-form oracle."""
+`python` backend on the hostile fixture; what the exact form's kernels
+refuse (25-limb operands, CPU tensors); the exact form's tower packs and
+their widths (planes of 45 columns, xi pad of 23 limbs);
+`precompute_g2_lines` and `miller_loop_precomp` against the reference's
+exact-form oracles; and the precomp audit on `TorchSigBackend(device=
+"cpu")`, cold and warm, against the `python` backend, with no G2 bytes
+shipped warm. In the `slow` tier, the Miller product f against the
+reference's exact-form oracle."""
 
 import json
 import os
@@ -44,7 +49,7 @@ from gethsharding_tpu.ops.pallas_norm import normalize_pallas
 from gethsharding_tpu.sigbackend import get_backend as ref_get_backend
 from gethsharding_tpu_torch import convert
 from gethsharding_tpu_torch.ops import bn256 as pbn
-from gethsharding_tpu_torch.ops import conv, limb, norm, tower
+from gethsharding_tpu_torch.ops import _build, conv, limb, norm, tower
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
@@ -258,25 +263,133 @@ def _():
 
 @check("refusals")
 def _():
-    for make in (lambda: TorchSigBackend(device="cpu"),
-                 lambda: TorchSigBackend(device="cpu", precomp=True)):
+    """What the exact form's kernels still refuse: the other form's
+    25-limb operands, and CPU tensors (whose route is the plain version),
+    before anything launches."""
+    before = _build.launch_counts()
+    w = torch.zeros((3, 1, 2, 25), dtype=torch.int32)
+    for run in (lambda: tower.tower_kernel(pbn._FP2_MUL, w, w),
+                lambda: conv.conv_kernel(w, w, pbn._COMB_FP2)):
         try:
-            make()
+            run()
         except ValueError as exc:
-            assert "22 limbs" in str(exc), exc
+            assert "exact limb form takes 22" in str(exc), exc
         else:
-            raise AssertionError("the precomp path was accepted")
-    assert all(plan.pack is None for plan in (
-        pbn.FP.mul_plan, pbn._FP2_MUL, pbn._FP12_MUL, pbn._LINE_MUL))
+            raise AssertionError("a kernel took 25-limb operands")
     u = torch.zeros((3, 1, 2, 22), dtype=torch.int32)
     for run in (lambda: tower.tower_kernel(pbn._FP2_MUL, u, u),
                 lambda: conv.conv_kernel(u, u, pbn._COMB_FP2)):
         try:
             run()
         except ValueError as exc:
-            assert "exact 22-limb" in str(exc), exc
+            assert "CUDA" in str(exc), exc
         else:
-            raise AssertionError("a kernel took 22-limb operands")
+            raise AssertionError("a kernel took a CPU tensor")
+    assert _build.launch_counts() == before
+
+
+@check("plan-packs")
+def _():
+    assert tower.KERNEL.name == "tower_exact" and conv.KERNEL.name == \
+        "conv_exact"
+    assert (tower.ACC_W, tower.XI_W) == (45, 23)
+    assert (pbn._ACC_W, pbn._FP2_W, pbn._PAD266.shape[0]) == (45, 45, 23)
+    assert pbn.FP.mul_plan.acc_w == conv.NCOLS == 43
+    for plan, pad in ((pbn._FP2_MUL, pbn._FP2_PAD[:, None]),
+                      (pbn._FP12_MUL, pbn._GROUP_PAD[3]),
+                      (pbn._LINE_MUL, pbn._GROUP_PAD[2])):
+        assert plan.acc_w == 45
+        C, Gr = pad.shape[:2]
+        # [width] fold (33, 22) lift (22) xi pad (23) pads (C, Gr, 45) ...
+        at = 1 + 33 * 22 + 22
+        xi = plan.pack[at:at + 23]
+        same(xi, pbn._PAD266 if plan.kind != tower.FP2
+             else np.zeros(23, np.int32))
+        pads = plan.pack[at + 23:at + 23 + C * Gr * 45]
+        same(pads.reshape(C, Gr, 45), pad)
+        assert plan.pack[0] == 45
+        assert plan.u_block[-1] == plan.v_block[-1] == plan.out_block[-1] \
+            == 22
+
+
+def lazy(rng, shape):
+    """Lazy exact-form elements: canonical limbs, value < 2^264."""
+    vals = [int.from_bytes(rng.bytes(33), "little")
+            for _ in range(int(np.prod(shape)))]
+    return limb.ints_to_limbs(vals).reshape(shape + (22,))
+
+
+PRECOMP = {}
+
+
+@check("precomp-tables")
+def _():
+    """precompute_g2_lines: the committee sums are the scalar reference's
+    points, the identity sums are flagged, and the tables equal the
+    reference's exact-form `precompute_lines` on the same sums mod p (as
+    the wide form's tests/test_torch_tower.py holds them)."""
+    _, pks = committee(b"exact-precomp", 3)
+    rows = [pks, pks[:2], [], [pks[0], ref.g2_neg(pks[0])]]
+    gx, gy, gm = pbn.g2_committee_to_limbs(rows, 3)
+    table, inf = pbn.precompute_g2_lines(t(gx), t(gy), t(gm))
+    assert table.shape == (4, 88, 3, 2, 22)
+    assert inf.tolist() == [False, False, True, True]
+    pk = mk.aggregate_proj(t(gx), t(gy), t(gm), fp2=True)
+    want_pts = [ref.g2_add(ref.g2_add(pks[0], pks[1]), pks[2]),
+                ref.g2_add(pks[0], pks[1])]
+    assert affine(*(v[:2] for v in pk), fp2=True) == \
+        [(x.a, x.b, y.a, y.b) for x, y in want_pts]
+    want = k.precompute_lines(*(j(v.numpy()) for v in pk))
+    same(pbn.FP.canon(table), REF_FP.canon(want))
+    PRECOMP["table"] = table
+
+
+@check("miller-precomp")
+def _():
+    """miller_loop_precomp on an exact-form table against the reference's
+    exact-form `miller_loop_precomp`, limb for limb."""
+    table = PRECOMP["table"]
+    rng = np.random.default_rng(65)
+    sig = tuple(lazy(rng, (4,)) for _ in range(3))
+    hx, hy = lazy(rng, (4,)), lazy(rng, (4,))
+    want = k.miller_loop_precomp(tuple(map(j, sig)), j(hx), j(hy),
+                                 j(table.numpy()))
+    got = pbn.miller_loop_precomp(tuple(map(t, sig)), t(hx), t(hy), table)
+    assert got.shape == (4, 6, 2, 22)
+    same(got, want)
+
+
+@check("precomp-audit")
+def _():
+    """TorchSigBackend(device="cpu") in the exact form takes the precomp
+    path by default: cold and warm verdicts of the reference's `python`
+    backend, 22-limb tables in the cache, no G2 bytes on a warm audit."""
+    msgs, sig_rows, pk_rows = hostile_workload()
+    # tests/test_torch_precomp.py's two more hostile rows: a missing
+    # signature whose pubkey is kept, and votes and pubkeys that cancel
+    sigs, pks = committee(b"exact-precomp-more", 2)
+    msgs += [b"exact-header-4", b"exact-header-5"]
+    sig_rows += [[ref.bls_sign(msgs[4], ref.bls_keygen(b"exact-0")[0]),
+                  None], [sigs[0], ref.g1_neg(sigs[0])]]
+    pk_rows += [[pk_rows[0][0], pk_rows[0][1]], [pks[0], ref.g2_neg(pks[0])]]
+    want = ref_get_backend("python").bls_verify_committees(
+        msgs, sig_rows, pk_rows)
+    assert want == [True, False, False, False, False, False]
+    backend = TorchSigBackend(device="cpu")
+    assert backend.precomp
+    keys = [("exact", s) for s in range(6)]
+    assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys) == want
+    cold = backend.last_timing
+    assert cold["precomp"] and cold["limb_form"] == "exact"
+    assert cold["g2_wire_bytes"] > 0 and cold["hit_rows"] == 0
+    assert len(backend.lines) == 5
+    assert backend.lines.bytes == 5 * (88 * 3 * 2 * 22 * 4 + 1)
+    assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                         pk_row_keys=keys) == want
+    warm = backend.last_timing
+    assert warm["g2_wire_bytes"] == 0 and warm["hit_rows"] == 5
+    assert warm["memo"]
 
 
 if "--slow" in sys.argv:
@@ -333,7 +446,9 @@ def exact_checks():
                          + [f"normalize-{w}" for w in WIDTHS]
                          + ["int-limbs", "canon-is_zero-eq-sub-neg",
                             "constants", "tower-ops", "converters",
-                            "kernel-boundaries", "audit", "refusals"])
+                            "kernel-boundaries", "audit", "refusals",
+                            "plan-packs", "precomp-tables", "miller-precomp",
+                            "precomp-audit"])
 def test_exact_form_matches_reference(exact_checks, name):
     assert name in exact_checks, sorted(exact_checks)
     assert exact_checks[name] is None, exact_checks[name]

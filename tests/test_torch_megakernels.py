@@ -22,9 +22,13 @@ reference helpers take the batch on the minor axis; the port's on the
 leading one, so the tests move that axis and compare like with like."""
 
 import ctypes
+import json
+import os
 import shutil
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -303,38 +307,51 @@ extern "C" void run(const int* z, long long n, int w, int form,
 }""",
     "conv": r"""
 namespace gs { int smem[1 << 16] __attribute__((aligned(16))); }
-extern "C" void run(const int* x, const int* y, long long n, int xw, int yw,
-                    int a_dim, int b_dim, const int* plan, int planes,
-                    int nterms, int rpb, int ndim, const long long* desc,
-                    int* out) {
+extern "C" void run(const int* x, const int* y, long long n, int nl, int xv,
+                    int yv, int a_dim, int b_dim, const int* plan,
+                    int planes, int nterms, int rpb, int ndim,
+                    const long long* desc, int* out) {
   const gs::ConvLead lead = gs::conv_lead(ndim, desc);
   for (long long b = 0; b * rpb < n; ++b) {
     blockIdx.x = b;
-    gs::conv_kernel(x, y, n, xw, yw, a_dim, b_dim, plan, planes, nterms,
-                    rpb, lead, out);
+    if (nl == 22)
+      gs::conv_kernel<22>(x, y, n, xv, yv, a_dim, b_dim, plan, planes,
+                          nterms, rpb, lead, out);
+    else
+      gs::conv_kernel<25>(x, y, n, xv, yv, a_dim, b_dim, plan, planes,
+                          nterms, rpb, lead, out);
   }
 }""",
     "tower": r"""
-template <int KIND>
+template <int KIND, gs::NormForm F>
 static void run_kind(const int* u, const int* v, long long n,
                      const gs::ConvLead& lead, const int* pack, int nterms,
                      int* out) {
   using S = gs::TowerShape<KIND>;
   for (long long b = 0; b < (n + S::ROWS - 1) / S::ROWS; ++b) {
     blockIdx.x = b;
-    gs::tower_kernel<KIND>(u, v, n, lead, pack, nterms, out);
+    gs::tower_kernel<KIND, F>(u, v, n, lead, pack, nterms, out);
   }
 }
-extern "C" void run(int kind, const int* u, const int* v, long long n,
-                    int ndim, const long long* desc, const int* pack,
-                    int nterms, int* out) {
-  const gs::ConvLead lead = gs::conv_lead(ndim, desc);
+template <gs::NormForm F>
+static void run_form(int kind, const int* u, const int* v, long long n,
+                     const gs::ConvLead& lead, const int* pack, int nterms,
+                     int* out) {
   switch (kind) {
-    case gs::TOWER_FP: run_kind<gs::TOWER_FP>(u, v, n, lead, pack, nterms, out); break;
-    case gs::TOWER_FP2: run_kind<gs::TOWER_FP2>(u, v, n, lead, pack, nterms, out); break;
-    case gs::TOWER_FP12: run_kind<gs::TOWER_FP12>(u, v, n, lead, pack, nterms, out); break;
-    case gs::TOWER_LINE: run_kind<gs::TOWER_LINE>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_FP: run_kind<gs::TOWER_FP, F>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_FP2: run_kind<gs::TOWER_FP2, F>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_FP12: run_kind<gs::TOWER_FP12, F>(u, v, n, lead, pack, nterms, out); break;
+    case gs::TOWER_LINE: run_kind<gs::TOWER_LINE, F>(u, v, n, lead, pack, nterms, out); break;
   }
+}
+extern "C" void run(int kind, int form, const int* u, const int* v,
+                    long long n, int ndim, const long long* desc,
+                    const int* pack, int nterms, int* out) {
+  const gs::ConvLead lead = gs::conv_lead(ndim, desc);
+  if (form == gs::NORM_EXACT)
+    run_form<gs::NORM_EXACT>(kind, u, v, n, lead, pack, nterms, out);
+  else
+    run_form<gs::NORM_WIDE>(kind, u, v, n, lead, pack, nterms, out);
 }""",
 }
 
@@ -650,9 +667,10 @@ def _host_conv(kernel, x, y, comb, rpb):
     G, A, B, C, Gr = comb.shape
     x, y, lead, n, ndim, desc = conv.broadcast_rows(x, y)
     plan = conv.plane_plan(comb)
-    out = torch.zeros(lead + (C, Gr, 49), dtype=torch.int32)
-    kernel.run(_p(x), _p(y), ctypes.c_longlong(n), G * A * 25,
-               G * B * 25, A, B, _p(mk.const(plan, "cpu")), C * Gr,
+    nl = x.shape[-1]
+    out = torch.zeros(lead + (C, Gr, 2 * nl - 1), dtype=torch.int32)
+    kernel.run(_p(x), _p(y), ctypes.c_longlong(n), nl, G * A, G * B, A, B,
+               _p(mk.const(plan, "cpu")), C * Gr,
                conv.plan_terms(plan, C * Gr).shape[0], rpb, ndim, desc,
                _p(out))
     return out
@@ -713,7 +731,8 @@ def test_plane_plan_covers_every_term_once(name):
 
 def _host_tower(kernel, plan, u, v):
     u, v, n, ndim, desc, out = tower.launch_args(plan, u, v)
-    kernel.run(plan.kind, _p(u), _p(v), ctypes.c_longlong(n), ndim, desc,
+    kernel.run(plan.kind, tower._FORM_ARG, _p(u), _p(v),
+               ctypes.c_longlong(n), ndim, desc,
                _p(mk.const(plan.pack, "cpu")), plan.nterms, _p(out))
     return out
 
@@ -785,6 +804,156 @@ def test_tower_source_on_host_equals_reference(host_kernels, name):
         u, v, plan = _t(other), _t(x12), pbn._LINE_MUL
     got = _host_tower(host_kernels["tower"], plan, u, v)
     assert (got.numpy() == np.asarray(want)).all()
+
+
+
+# == the exact 22-limb form's conv and tower, run on the host ================
+# The port reads its limb form at import, so the exact form's plans (their
+# packs at the form's widths) exist only in a process started with
+# GETHSHARDING_TORCH_LIMB_FORM=exact. The script below runs there on the
+# libraries the `host_kernels` fixture compiled (their entry points take the
+# form at run time) and reports each check by name.
+
+_EXACT_SCRIPT = r"""
+import ctypes, json, sys, traceback
+import numpy as np
+import torch
+from gethsharding_tpu_torch.ops import bn256 as pbn
+from gethsharding_tpu_torch.ops import conv, limb, tower
+from gethsharding_tpu_torch.ops import megakernels as mk
+
+tower_lib, conv_lib = ctypes.CDLL(sys.argv[1]), ctypes.CDLL(sys.argv[2])
+p = lambda t: ctypes.c_void_p(t.data_ptr())
+results = {}
+
+
+def check(name):
+    def run(fn):
+        try:
+            fn()
+            results[name] = None
+        except BaseException:
+            results[name] = traceback.format_exc()[-3000:]
+    return run
+
+
+def host_tower(plan, u, v):
+    u, v, n, ndim, desc, out = tower.launch_args(plan, u, v)
+    tower_lib.run(plan.kind, tower._FORM_ARG, p(u), p(v),
+                  ctypes.c_longlong(n), ndim, desc,
+                  p(mk.const(plan.pack, "cpu")), plan.nterms, p(out))
+    return out
+
+
+def host_conv(x, y, comb, rpb):
+    G, A, B, C, Gr = comb.shape
+    x, y, lead, n, ndim, desc = conv.broadcast_rows(x, y)
+    plan = conv.plane_plan(comb)
+    out = torch.zeros(lead + (C, Gr, 43), dtype=torch.int32)
+    conv_lib.run(p(x), p(y), ctypes.c_longlong(n), 22, G * A, G * B, A, B,
+                 p(mk.const(plan, "cpu")), C * Gr,
+                 conv.plan_terms(plan, C * Gr).shape[0], rpb, ndim, desc,
+                 p(out))
+    return out
+
+
+rng = np.random.default_rng(90)
+canon = lambda shape: torch.as_tensor(
+    rng.integers(0, 1 << 12, shape + (22,)).astype(np.int32))
+full = lambda shape, v: torch.full(shape + (22,), v, dtype=torch.int32)
+
+
+@check("form")
+def _():
+    assert limb.LIMB_FORM == "exact" and tower.KERNEL.name == "tower_exact"
+    assert (tower.ACC_W, tower.XI_W) == (pbn._ACC_W, pbn._PAD266.shape[0]) \
+        == (45, 23)
+    assert pbn.FP.mul_plan.acc_w == 43
+    assert all(plan.acc_w == 45 for plan in (
+        pbn._FP2_MUL, pbn._FP2_SQR, pbn._FP12_MUL, pbn._LINE_MUL))
+
+
+PRODUCTS = {   # plan, the function's own operand shapes, to kernel form
+    "fp_mul": (pbn.FP.mul_plan, (), (),
+               lambda x, y: (x[..., None, None, :], y[..., None, None, :])),
+    "fp2_mul": (pbn._FP2_MUL, (2,), (2,),
+                lambda x, y: (x[..., None, :, :], y[..., None, :, :])),
+    "fp2_sqr": (pbn._FP2_SQR, (2,), (2,),
+                lambda x, y: (x[..., None, :, :], x[..., None, :, :])),
+    "fp12_mul": (pbn._FP12_MUL, (6, 2), (6, 2), lambda x, y: (x, y)),
+    "fp12_sqr": (pbn._FP12_MUL, (6, 2), (6, 2), lambda x, y: (x, x)),
+    "fp12_mul_line": (pbn._LINE_MUL, (6, 2), (3, 2),
+                      lambda f, line: (line, f)),
+}
+for name, (plan, xs, ys, operands) in PRODUCTS.items():
+    @check(f"tower-{name}")
+    def _(plan=plan, xs=xs, ys=ys, operands=operands):
+        cases = [   # random limbs with a partial block of the eight-row Fp
+                    # kind, a broadcast constant either side, a broadcast
+                    # middle dim, then -1, 4095 and 4160 limbs
+            (canon((11,) + xs), canon((11,) + ys)),
+            (canon((5,) + xs), canon(ys)),
+            (canon(xs), canon((9,) + ys)),
+            (canon((2, 1) + xs), canon((2, 3) + ys)),
+            (full((3,) + xs, -1), canon((3,) + ys)),
+            (full((3,) + xs, 4095), full((3,) + ys, 4095)),
+            (full((3,) + xs, 4160), full((3,) + ys, 4160)),
+            (canon((3,) + xs), full((3,) + ys, -1)),
+        ]
+        for x, y in cases:
+            u, v = operands(x, y)
+            got = host_tower(plan, u, v)
+            assert got.shape[-1] == 22, got.shape
+            assert torch.equal(got, plan.plain(u, v))
+
+
+for name in ("_COMB_FP2", "_COMB_FP2_SQR", "_COMB", "_LCOMB", "identity"):
+    @check(f"conv-{name}")
+    def _(name=name):
+        comb = limb._IDENTITY if name == "identity" else getattr(pbn, name)
+        G, A, B, C, Gr = comb.shape
+        cases = [(canon((11, G, A)), canon((11, G, B))),
+                 (canon((2, 5, G, A)), canon((G, B))),
+                 (canon((10, 2, G, A))[:, 1], canon((10, G, B))),
+                 (full((3, G, A), 4160), full((3, G, B), -1))]
+        for x, y in cases:
+            want = conv.pair_conv_combine_plain(x, y, comb)
+            assert want.shape[-1] == 43
+            for rpb in (1, conv.rows_per_block(10 ** 6, C * Gr)):
+                assert torch.equal(host_conv(x, y, comb, rpb), want)
+
+print("RESULTS " + json.dumps(results))
+"""
+
+_EXACT_HOST_CHECKS = (["form"] + [f"tower-{n}" for n in _TOWER_PRODUCTS]
+                      + [f"conv-{n}" for n in ("_COMB_FP2", "_COMB_FP2_SQR",
+                                               "_COMB", "_LCOMB",
+                                               "identity")])
+
+
+@pytest.fixture(scope="module")
+def exact_host_checks(host_kernels):
+    env = {key: val for key, val in os.environ.items()
+           if not key.startswith("GETHSHARDING_TORCH_")}
+    env.update(GETHSHARDING_TORCH_LIMB_FORM="exact", OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", _EXACT_SCRIPT, host_kernels["tower"]._name,
+         host_kernels["conv"]._name], env=env, capture_output=True,
+        text=True, timeout=600, cwd=Path(__file__).resolve().parents[1])
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("RESULTS ")]
+    assert proc.returncode == 0 and lines, (proc.stdout[-2000:],
+                                            proc.stderr[-3000:])
+    return json.loads(lines[-1][len("RESULTS "):])
+
+
+@pytest.mark.parametrize("name", _EXACT_HOST_CHECKS)
+def test_exact_form_sources_on_host_equal_plain(exact_host_checks, name):
+    """The tower source on every product kind and the conv source on every
+    combine, in the exact 22-limb form, against the exact form's plain
+    tower and conv: random limbs, broadcasts, -1/4095/4160 limbs."""
+    assert name in exact_host_checks, sorted(exact_host_checks)
+    assert exact_host_checks[name] is None, exact_host_checks[name]
 
 
 # == slow: whole programs against the reference's XLA oracles ==============

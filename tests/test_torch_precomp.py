@@ -3,7 +3,10 @@
 backend, on the CPU through the plain versions of the kernels:
 
 - cold and warm verdicts on valid, forged, missing-signature, empty,
-  swapped and cancelling rows;
+  swapped and cancelling rows, and on ten edge rows (one side empty,
+  uneven sides, None points, a valid subset, off-curve, (0, 0) and
+  non-canonical signatures), on both paths and against the `jax`
+  backend too;
 - a warm audit ships 0 G2 bytes and hits every non-empty row;
 - a keyless audit keeps the recompute path, and a short key list leaves
   the trailing rows uncached;
@@ -48,6 +51,65 @@ def period():
         msgs, sig_rows, pk_rows)
     assert want == [True, False, False, False, False, False]
     return msgs, sig_rows, pk_rows, row_keys, want
+
+
+@pytest.fixture(scope="module")
+def edge_period(period):
+    """`period` widened with ten more rows, probed against the reference
+    without divergence before they were pinned here: signatures empty
+    with pubkeys present and the reverse, fewer signatures than pubkeys
+    and the reverse, every signature None, a None pubkey, a valid 2-of-3
+    subset, an off-curve signature (1, 1), a (0, 0) signature, and a
+    signature whose x is given as x + p."""
+    msgs, sig_rows, pk_rows, row_keys, _ = period
+    keys = [ref.bls_keygen(b"precomp-port-%d" % j) for j in range(3)]
+    pks = [pk for _, pk in keys]
+    extra = []
+    for s in range(10):
+        m = b"precomp-edge-%d" % s
+        extra.append((m, [ref.bls_sign(m, sk) for sk, _ in keys]))
+    cases = [
+        ([], pks),
+        (extra[1][1], []),
+        (extra[2][1][:2], pks),
+        (extra[3][1], pks[:2]),
+        ([None] * 3, pks),
+        (extra[5][1], [pks[0], None, pks[2]]),
+        (extra[6][1][:2], pks[:2]),
+        (extra[7][1][:2] + [(1, 1)], pks),
+        (extra[8][1][:2] + [(0, 0)], pks),
+        ([(extra[9][1][0][0] + ref.P, extra[9][1][0][1])]
+         + extra[9][1][1:], pks),
+    ]
+    msgs = msgs + [m for m, _ in extra]
+    sig_rows = sig_rows + [sigs for sigs, _ in cases]
+    pk_rows = pk_rows + [row for _, row in cases]
+    row_keys = row_keys + [("edge", s) for s in range(len(cases))]
+    want = ref_get_backend("python").bls_verify_committees(
+        msgs, sig_rows, pk_rows)
+    assert want[:6] == [True] + [False] * 5 and want[12] and want[15]
+    return msgs, sig_rows, pk_rows, row_keys, want
+
+
+def test_edge_rows_match_python_backend_on_both_paths(edge_period):
+    """The widened fixture through the precomp path, cold and warm, and
+    the recompute path: the `python` backend's verdicts."""
+    msgs, sig_rows, pk_rows, row_keys, want = edge_period
+    backend = TorchSigBackend(device="cpu")
+    for _ in range(2):
+        assert backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                             pk_row_keys=row_keys) == want
+    warm = backend.last_timing
+    assert warm["g2_wire_bytes"] == 0 and warm["memo"]
+    assert warm["hit_rows"] == sum(1 for r in pk_rows if r)
+    assert backend.bls_verify_committees(msgs, sig_rows, pk_rows) == want
+    assert not backend.last_timing["precomp"]
+
+
+def test_edge_rows_match_jax_backend(edge_period):
+    msgs, sig_rows, pk_rows, row_keys, want = edge_period
+    assert ref_get_backend("jax").bls_verify_committees(
+        msgs, sig_rows, pk_rows, pk_row_keys=row_keys) == want
 
 
 def test_precomp_cold_and_warm_match_python_backend(period):
