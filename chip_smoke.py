@@ -4,7 +4,8 @@
 
 Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
-calls, `TorchSigBackend().bls_verify_committees`, on both of its paths:
+calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
+(and, last, the notary's vote phase at the same 100 shards, step 10):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -100,7 +101,26 @@ resident on the card) and the recompute path (without keys):
    before any broadcast). The committee sums' share of their bound is
    printed beside the ceiling that the fixed tree puts on any kernel
    returning the plain version's limbs: the additions the period needs
-   over those the padded tree makes.
+   over those the padded tree makes;
+10. the notary's vote phase at 100 shards: 100 proposer signatures from
+   seeded keys (the port's own signer) and 9 hostile rows (r = 0, r = n,
+   s = 0, s = n, an r with no curve point, recid 2 for the host
+   fallback, v = 5, a 64-byte signature, a tampered digest), and 16
+   sampled 4096-byte chunks per shard with depth-8 proofs (trees of 255
+   leaves, the chunks' keys among seeded random leaves) and 7 hostile
+   samples (a flipped chunk byte, a wrong sibling, a flipped index bit,
+   a proof of 9 levels, a 4095-byte chunk, an index outside the proven
+   tree, a wrong root). Counted from 0 around one
+   `TorchSigBackend().ecrecover_addresses` and one `das_verify_samples`:
+   one launch of `csrc/secp256k1.cu` and one of `csrc/das.cu` and no
+   other kernel; addresses and verdicts equal to the host's scalar
+   recovery and verifier row for row; each kernel equal to its plain
+   version on the card at the path's tensors (tolerance 0); each timed
+   (CUDA events) beside its bound (Montgomery products × 128
+   multiply-adds and squares × 100, counted per row from its ladder
+   scalars; keccak-f permutations × 4,320 32-bit operations with
+   three-input LOP3 logic, counted per sample from its proof depth) and its plain version's one run, and both calls end to end
+   (warm, median of 7, with their host marshal and bytes shipped).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -650,6 +670,255 @@ def aggregates_phase(label, bls, bn, route, build, backend, votes,
           f"({', '.join(f'{k} {v:.3f}' for k, v in split.items())}), idle "
           f"share {1 - busy / warm_ms:.3f} [{card}]", flush=True)
     return {"warm_ms": warm_ms, "cold_ms": cold_ms, "kernels_ms": busy}
+
+
+# the vote phase: a proposer signature per shard, VOTE_SAMPLES sampled
+# chunks per shard (`--da-samples` default, node/cli.py:126), each a leaf
+# of a commitment tree of TREE_LEAVES leaves (MAX_TOTAL_CHUNKS: depth 8)
+VOTE_SAMPLES = 16
+TREE_LEAVES = 255
+
+
+def _no_curve_point(P: int) -> int:
+    """The smallest x >= 5 with x^3 + 7 not a square mod P."""
+    x = 5
+    while pow((x ** 3 + 7) % P, (P - 1) // 2, P) == 1:
+        x += 1
+    return x
+
+
+def vote_period(ecdsa, das, keccak256, seed: int):
+    """One period's vote-phase inputs with known answers. Recovery: a
+    proposer signature per shard from seeded keys (the port's own
+    signer), then r = 0, r = n, s = 0, s = n, an r with no curve point,
+    recid 2 (the host fallback), v = 5, a 64-byte signature and a tampered
+    digest; the expected address of each row from the host's scalar
+    recovery. Samples: VOTE_SAMPLES full 4096-byte chunks per shard, each
+    at its index of a tree whose other leaves are seeded random 32-byte
+    values (the verifier cannot tell them from chunk keys), with its
+    depth-8 proof; then a flipped chunk byte, a wrong sibling, a flipped
+    index bit, a proof of 9 levels, a 4095-byte chunk, an index outside
+    the proven tree and a wrong root; the expected verdicts from the
+    scalar verifier."""
+    rng = np.random.default_rng(seed)
+    digests, sigs65, privs = [], [], []
+    for s in range(SHARDS):
+        priv = int.from_bytes(keccak256(b"vote/%d/proposer/%d" % (seed, s)),
+                              "big") % ecdsa.N or 1
+        digest = keccak256(b"vote/%d/header/%d" % (seed, s))
+        digests.append(digest)
+        sigs65.append(ecdsa.sign(digest, priv).to_bytes65())
+        privs.append(priv)
+    sig0 = ecdsa.Signature.from_bytes65(sigs65[0])
+    d0 = digests[0]
+    hostile = [
+        (d0, ecdsa.Signature(0, sig0.s, sig0.v).to_bytes65()),
+        (d0, ecdsa.Signature(ecdsa.N, sig0.s, sig0.v).to_bytes65()),
+        (d0, ecdsa.Signature(sig0.r, 0, sig0.v).to_bytes65()),
+        (d0, ecdsa.Signature(sig0.r, ecdsa.N, sig0.v).to_bytes65()),
+        (d0, ecdsa.Signature(_no_curve_point(ecdsa.P), sig0.s,
+                             sig0.v).to_bytes65()),
+        (d0, sigs65[0][:64] + bytes([2])),
+        (d0, sigs65[0][:64] + bytes([5])),
+        (d0, sigs65[0][:64]),
+        (keccak256(b"vote/%d/tampered" % seed), sigs65[0]),
+    ]
+    digests += [d for d, _ in hostile]
+    sigs65 += [sg for _, sg in hostile]
+
+    def host(digest, sig):
+        try:
+            return ecdsa.ecrecover_address(
+                digest, ecdsa.Signature.from_bytes65(sig))
+        except (ValueError, AssertionError):
+            return None
+
+    want_addr = [host(d, sg) for d, sg in zip(digests, sigs65)]
+    if want_addr[:SHARDS] != [ecdsa.priv_to_address(k) for k in privs] \
+            or want_addr[SHARDS:-1] != [None] * (len(hostile) - 1) \
+            or want_addr[-1] in (None, want_addr[0]):
+        fail("the host's recovery of the vote period is not as built")
+
+    chunks, indices, proofs, roots = [], [], [], []
+    for s in range(SHARDS):
+        picked = sorted(int(i) for i in rng.choice(TREE_LEAVES, VOTE_SAMPLES,
+                                                   replace=False))
+        data = rng.integers(0, 256, (VOTE_SAMPLES, 4096), dtype=np.uint8)
+        leaves = [rng.bytes(32) for _ in range(TREE_LEAVES)]
+        mine = [data[k].tobytes() for k in range(VOTE_SAMPLES)]
+        for k, i in enumerate(picked):
+            leaves[i] = das.chunk_leaf(mine[k])
+        levels = das.merkle_levels(leaves)
+        for k, i in enumerate(picked):
+            chunks.append(mine[k])
+            indices.append(i)
+            proofs.append(das.merkle_proof(levels, i))
+            roots.append(levels[-1][0])
+    c, i, p, root = chunks[0], indices[0], proofs[0], roots[0]
+    flip = lambda b, at: b[:at] + bytes([b[at] ^ 1]) + b[at + 1:]
+    bad = [(flip(c, 100), i, p, root),
+           (c, i, p[:3] + (flip(p[3], 0),) + p[4:], root),
+           (c, i ^ 1, p, root),
+           (c, i, p + (b"\x00" * 32,), root),
+           (c[:-1], i, p, root),
+           (c, i + 256, p, root),
+           (c, i, p, flip(root, 31))]
+    for row in bad:
+        for col, v in zip((chunks, indices, proofs, roots), row):
+            col.append(v)
+    want_ok = das.verify_samples(chunks, indices, proofs, roots)
+    if want_ok != [True] * (SHARDS * VOTE_SAMPLES) + [False] * len(bad):
+        fail("the scalar verdicts of the vote period are not as built")
+    return (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
+                                          want_ok)
+
+
+def once_ms(fn):
+    """(result, milliseconds) of one call, CUDA events, synchronized."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def vote_phase(card: str, seed: int) -> list:
+    """Step 10: the notary's vote phase at 100 shards. Counted from 0
+    around one `ecrecover_addresses` (the period's proposer signatures)
+    and one `das_verify_samples` (samples × shards): one launch of each
+    kernel and no other, the addresses and verdicts equal to the host's
+    scalar ones; then each kernel against its plain version on the card
+    at the main path's tensors (tolerance 0), timed beside its bound and
+    its plain version, and both calls end to end. Returns the two
+    kernels' entries of the kernels line."""
+    from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+    from gethsharding_tpu_torch.crypto.keccak import keccak256
+    from gethsharding_tpu_torch.das import proofs as das
+    from gethsharding_tpu_torch.ops import _build, limb, route
+    from gethsharding_tpu_torch.ops import secp256k1 as secp
+    from gethsharding_tpu_torch.sigbackend import marshal
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    t0 = time.perf_counter()
+    (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
+                                   want_ok) = vote_period(ecdsa, das,
+                                                          keccak256, seed)
+    n_sig, n_smp = len(digests), len(chunks)
+    print(f"vote period: {n_sig} proposer signatures ({SHARDS} shards and "
+          f"{n_sig - SHARDS} hostile rows), {n_smp} samples ({SHARDS} shards "
+          f"× {VOTE_SAMPLES}, trees of {TREE_LEAVES} leaves, and "
+          f"{n_smp - SHARDS * VOTE_SAMPLES} hostile rows), made in "
+          f"{time.perf_counter() - t0:.1f} s on the host", flush=True)
+
+    backend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    got_addr = backend.ecrecover_addresses(digests, sigs65)
+    got_ok = backend.das_verify_samples(chunks, indices, proofs, roots)
+    launches = {name: c for name, c in _build.launch_counts().items() if c}
+    print(f"vote phase: launches {launches}", flush=True)
+    if launches != {"ecrecover": 1, "das_samples": 1}:
+        fail(f"the vote phase did not run one launch of each of its two "
+             f"kernels alone: {launches}")
+    if got_addr != want_addr:
+        bad = [i for i, (g, w) in enumerate(zip(got_addr, want_addr))
+               if g != w]
+        fail(f"recovered addresses differ from the host's at rows {bad}")
+    if got_ok != want_ok:
+        bad = [i for i, (g, w) in enumerate(zip(got_ok, want_ok)) if g != w]
+        fail(f"sample verdicts differ from the scalar verifier's at {bad}")
+    print(f"vote phase: {sum(a is not None for a in got_addr)} of {n_sig} "
+          f"addresses recovered, equal to the host's row for row; "
+          f"{sum(got_ok)} of {n_smp} samples verified, equal to the scalar "
+          f"verifier's", flush=True)
+
+    dev = torch.device("cuda")
+    planes, _ = marshal.ecrecover_host_planes(digests, sigs65)
+    rec = [torch.as_tensor(a, device=dev) for a in planes]
+    rec_kernel = lambda: secp.ecrecover_kernel(*rec)
+    got = rec_kernel()
+    with route.plain_versions():
+        want, rec_plain_ms = once_ms(lambda: secp.ecrecover_plain(*rec))
+    rec_err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    print(f"kernel ecrecover: max |kernel - plain| over qx, qy = {rec_err} "
+          f"(tolerance 0), ok equal: {torch.equal(got[2], want[2])} "
+          f"({rec[0].shape[0]} rows)", flush=True)
+    if rec_err or not torch.equal(got[2], want[2]):
+        fail("ecrecover disagrees with its plain version")
+    ints = [limb.limbs_to_int(a[:n_sig]) for a in planes[:3]]
+    scalars = [secp.ladder_scalars(int(e), int(r), int(s))
+               for e, r, s in zip(*ints)]
+    squares, products = (sum(c) for c in zip(
+        *(secp.kernel_products(*u) for u in scalars)))
+    row_bytes = 5 * limb.NLIMBS * 4 + 4 + 1 + 1
+    rec_bound = bound(sum(secp.kernel_multiply_adds(*u) for u in scalars),
+                      n_sig * row_bytes)
+    rec_ms = cuda_ms(rec_kernel, 10)
+
+    st = das.marshal_samples(chunks, indices, proofs, roots,
+                             marshal.bucket_size(n_smp))
+    smp = [torch.as_tensor(st[k], device=dev) for k in das.PLANES]
+    das_kernel = lambda: das.verify_planes_kernel(*smp)
+    got = das_kernel()
+    with route.plain_versions():
+        want, das_plain_ms = once_ms(lambda: das.verify_planes(*smp))
+    das_err = int((got != want).sum().item())
+    print(f"kernel das_samples: rows where kernel != plain = {das_err} "
+          f"(tolerance 0; {smp[0].shape[0]} rows)", flush=True)
+    if das_err:
+        fail("das_samples disagrees with its plain version")
+    perms = sum(das.sample_permutations(int(d))
+                for d in st["levels"][:n_smp].sum(axis=1))
+    smp_bytes = sum(int(st[k][0].nbytes) for k in das.PLANES) + 1
+    das_bound = bound(perms * das.PERMUTATION_OPS, n_smp * smp_bytes)
+    das_ms = cuda_ms(das_kernel, 10)
+
+    for name, ms, plain_ms, r, unit in (
+            ("ecrecover", rec_ms, rec_plain_ms, rec_bound,
+             f"{squares} Montgomery squares × "
+             f"{secp.SQUARE_MULTIPLY_ADDS} and {products} other products × "
+             f"{secp.PRODUCT_MULTIPLY_ADDS} multiply-adds over {n_sig} rows; "
+             f"one thread per row, {-(-rec[0].shape[0] // 64)} blocks of 64 "
+             f"threads on 132 SMs"),
+            ("das_samples", das_ms, das_plain_ms, das_bound,
+             f"{perms} keccak-f permutations × {das.PERMUTATION_OPS} 32-bit "
+             f"operations over {n_smp} samples; a 128-thread block per "
+             f"sample")):
+        print(f"time {name}: kernel {ms:.4f} ms per launch, plain "
+              f"{plain_ms:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {unit}; {r['bytes']} B), "
+              f"{r['bound_ms'] / ms:.1%} of its bound, 1 launch per call "
+              f"[{card}]", flush=True)
+
+    call_rec = lambda: backend.ecrecover_addresses(digests, sigs65)
+    e2e_rec = host_ms(call_rec, 7)
+    rec_marshal = backend.last_timing["marshal_s"] * 1e3
+    call_das = lambda: backend.das_verify_samples(chunks, indices, proofs,
+                                                  roots)
+    e2e_das = host_ms(call_das, 7)
+    das_marshal = backend.last_timing["marshal_s"] * 1e3
+    wire = backend.last_wire["wire_bytes"]
+    rec_wire = sum(int(a.nbytes) for a in planes)
+    print(f"time vote phase end to end (warm, median of 7): "
+          f"ecrecover_addresses {n_sig} rows {e2e_rec:.2f} ms (host marshal "
+          f"{rec_marshal:.2f} ms, {rec_wire} B shipped; its kernel's share "
+          f"{rec_ms / e2e_rec:.3f}); das_verify_samples {n_smp} rows "
+          f"{e2e_das:.2f} ms (host marshal {das_marshal:.2f} ms, {wire} B "
+          f"shipped; its kernel's share {das_ms / e2e_das:.3f}) [{card}]",
+          flush=True)
+    entry = lambda name, kernel, err, ms, plain_ms, r: {
+        "name": name, "route": "cuda", "source": kernel.source,
+        "replaces": kernel.replaces, "launches": launches[name],
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None}
+    return [entry("ecrecover", secp.KERNEL, rec_err, rec_ms, rec_plain_ms,
+                  rec_bound),
+            entry("das_samples", das.KERNEL, das_err, das_ms, das_plain_ms,
+                  das_bound)]
 
 
 def exact_phase(seed: int) -> int:
@@ -1550,6 +1819,7 @@ def main() -> int:
           f"{kernel_ms:.2f} ms, glue and pull {device_ms - kernel_ms:.2f} "
           f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
     kernels += run_exact_phase(args.seed)
+    kernels += vote_phase(card, args.seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Host scalar crypto the port needs: keccak256 and the bn256 subset."""
+"""Host scalar crypto the port needs: keccak256, the bn256 subset and
+secp256k1 ECDSA."""

@@ -7,7 +7,8 @@ built with the host C compiler (`$CC`, else `cc`) on first use into
 `_build/` and bound with ctypes; `keccak256_py`, the pure-Python sponge
 (the port's own copy of the JAX package's scalar keccak), is its twin in
 the tests and the host's path only where the build or the load fails,
-which is logged once. `hash_to_g1` is the only caller.
+which is logged once. Its callers are `hash_to_g1`, the secp256k1
+addresses and the DAS proofs on the host.
 
 Note Ethereum's keccak256 uses the ORIGINAL Keccak multi-rate padding
 (domain byte 0x01), not the NIST SHA3 padding (0x06) — hashlib.sha3_256

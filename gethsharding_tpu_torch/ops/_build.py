@@ -49,6 +49,8 @@ SIGNATURES = {
     "gs_norm": [_P, _L, _I, _I, _P, _P, _P, _P],
     "gs_conv": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "gs_tower": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P, _P],
+    "gs_ecrecover": [_P] * 5 + [_I, _I] + [_P] * 4,
+    "gs_das_samples": [_P] * 6 + [_I, _P, _P],
 }
 
 _lib = None
@@ -181,13 +183,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def check_tensor(t, shape, name: str) -> None:
-    """What every entry point takes: a contiguous int32 CUDA tensor of
-    the given shape."""
+def check_tensor(t, shape, name: str, dtype=torch.int32) -> None:
+    """What every entry point takes: a contiguous CUDA tensor of the given
+    shape and type (int32 unless said)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.int32:
-        raise ValueError(f"{name}: expected int32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")

@@ -35,8 +35,11 @@ kernel; this routing is the port's own choice, so that every product on
 the card runs in a hand-written kernel. Both kernels run in the form the
 module was imported with.
 
-The relaxed normalize option and the secp256k1 moduli are not part of
-this module yet.
+`ModArith` takes any prime below 2^256: bn256's p (the audit) and
+secp256k1's p and n (`ops/secp256k1.py`). `pow_static`, `inv`, `select`
+and `lt_raw` (the raw-value comparison of the recovery's range checks)
+are the reference's, built on the same normalize.
+The relaxed normalize option is not part of this module yet.
 """
 
 from __future__ import annotations
@@ -200,12 +203,15 @@ _CANON_W = FOLD_BASE + 4
 
 
 class ModArith:
-    """Batched arithmetic mod a fixed prime p < 2^255 in the lazy form of
+    """Batched arithmetic mod a fixed prime p < 2^256 in the lazy form of
     `LIMB_FORM`; every method takes and returns int32 tensors (..., L) on
     any device."""
 
     def __init__(self, p: int):
+        if p.bit_length() > 256:
+            raise ValueError("modulus too large for the lazy limb form")
         self.p = p
+        self.one = int_to_limbs(1)
         self.fold_j = np.stack(
             [int_to_limbs(pow(1 << (LIMB_BITS * (FOLD_BASE + k)), 1, p),
                           FOLD_BASE)
@@ -297,6 +303,39 @@ class ModArith:
 
     def eq(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return (self.canon(x) == self.canon(y)).all(dim=-1)
+
+    def select(self, cond: torch.Tensor, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+        """Limbs of x where cond (...,) holds, else of y."""
+        return torch.where(cond[..., None], x, y)
+
+    def pow_static(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """x^e for a fixed exponent: the reference's right-to-left
+        square-and-multiply, with the product taken only at the bits that
+        are set (where its select keeps it) and no square after the top
+        bit (which nothing reads), so the limbs are the reference's."""
+        acc = const(self.one, x.device).expand(x.shape)
+        if e == 0:
+            return acc.clone()
+        base = x
+        for i in range(e.bit_length()):
+            if (e >> i) & 1:
+                acc = self.mul(acc, base)
+            if i + 1 < e.bit_length():
+                base = self.mul(base, base)
+        return acc
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """Modular inverse by Fermat (p prime); inv(0) = 0."""
+        return self.pow_static(x, self.p - 2)
+
+
+def lt_raw(x: torch.Tensor, bound: np.ndarray) -> torch.Tensor:
+    """Is the raw value of the limbs x below that of `bound` (limbs of
+    the same width)? Not a residue comparison: the sign of the exact
+    carry's borrow out of x - bound."""
+    borrow, _ = carry(x - const(bound, x.device))
+    return borrow < 0
 
 
 # the identity combine of one product plane (`ModArith.mul_cols`)

@@ -1,12 +1,15 @@
-"""Signature backends of the port: the BLS subset of the JAX package's
-`SigBackend` API (committee audits and aggregate votes), with the
-`torch` backend behind `get_backend("torch")`.
+"""Signature backends of the port: four of the five methods of the JAX
+package's `SigBackend` API (proposer-signature recovery, committee
+audits, aggregate votes and DAS samples; the polynomial multiproofs are
+not ported yet), with the `torch` backend behind `get_backend("torch")`.
 
 - ``marshal.py``: host -> limb planes, the padding policy, row keys.
 - ``cache.py``: `LineTableCache`, the resident line tables of the
   precomp path.
 - ``dispatch.py``: `TorchSigBackend`, the precomp audit (with keys), the
-  four-launch recompute audit (without) and the aggregate-vote check.
+  four-launch recompute audit (without), the aggregate-vote check, the
+  batched secp256k1 recovery and the DAS sample verifier (one launch
+  each).
 """
 
 from __future__ import annotations
@@ -40,9 +43,16 @@ class VerdictFuture:
 
 
 class SigBackend:
-    """Batch BLS signature operations of the notary and its callers."""
+    """Batch signature operations of the notary and its callers."""
 
     name = "abstract"
+
+    def ecrecover_addresses(self, digests: Sequence[bytes],
+                            sigs65: Sequence[bytes]) -> List[Optional[bytes]]:
+        """Recover the signer address per (32-byte digest, 65-byte
+        [R || S || V]) pair; None where the signature is invalid (a
+        malformed row is None, never an exception)."""
+        raise NotImplementedError
 
     def bls_verify_aggregates(
             self,
@@ -76,6 +86,22 @@ class SigBackend:
         """`bls_verify_committees` returning a verdict future: the work is
         launched before this returns, so the caller can marshal the next
         batch while it runs."""
+        raise NotImplementedError
+
+    def das_verify_samples(
+            self,
+            chunks: Sequence[bytes],
+            indices: Sequence[int],
+            proofs: Sequence[Sequence[bytes]],
+            roots: Sequence[bytes]) -> List[bool]:
+        """Verify one DAS sample per row: does `chunks[i]` sit at leaf
+        `indices[i]` of the commitment tree rooted at `roots[i]`, per the
+        sibling path `proofs[i]`? (das/proofs.py defines the leaf as the
+        chunk's netstore address, so the per-row work is a full BMT
+        recompute and a path fold.) Malformed rows (wrong chunk size, bad
+        index, over-deep or ragged proofs) are False, never an
+        exception: a hostile sample response costs a verdict, not a
+        batch."""
         raise NotImplementedError
 
 

@@ -25,6 +25,12 @@ limb form (`GETHSHARDING_TORCH_LIMB_FORM`).
 `bls_verify_aggregates` checks one host-aggregated vote per message:
 hash each message to G1, ship the affine planes, then one Miller launch
 and one final exponentiation (`bn.bls_verify_aggregate_batch`).
+
+The notary's vote phase runs on two more kernels, one launch each:
+`ecrecover_addresses` (the proposer signatures of a period,
+`ops/secp256k1.py` on `csrc/secp256k1.cu`; the rare recovery ids 2 and 3
+are recovered on the host) and `das_verify_samples` (samples × shards,
+`das/proofs.py` on `csrc/das.cu`).
 """
 
 from __future__ import annotations
@@ -35,9 +41,12 @@ import time
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+from gethsharding_tpu_torch.das import proofs as das_proofs
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import _build
 from gethsharding_tpu_torch.ops import bn256 as bn
+from gethsharding_tpu_torch.ops import secp256k1 as secp
 from gethsharding_tpu_torch.ops.limb import LIMB_FORM
 from gethsharding_tpu_torch.sigbackend import SigBackend, VerdictFuture
 from gethsharding_tpu_torch.sigbackend import marshal
@@ -76,10 +85,79 @@ class TorchSigBackend(SigBackend):
             precomp = knob == "1"
         self.precomp = bool(precomp)
         self.lines = LineTableCache(self.device)
-        # host seconds of the last audit's marshal and launch staging, its
-        # path and limb form, G2 bytes shipped, resident rows, whether the
-        # batch memo served them, and kernel launches
+        # host seconds of the last call's marshal and launch staging, its
+        # rows and bucket, kernel launches; for the audits also the path
+        # and limb form, G2 bytes shipped, resident rows and whether the
+        # batch memo served them
         self.last_timing: dict | None = None
+        # the sample planes' bytes of the last `das_verify_samples`
+        self.last_wire: dict | None = None
+
+    def ecrecover_addresses(self, digests, sigs65):
+        """One launch of the recovery kernel over the batch, padded to
+        `marshal.bucket_size`. Only v in {0, 1} goes to the device; v in
+        {2, 3} (r + n overflow, rare) is recovered on the host, anything
+        else is None."""
+        n = len(digests)
+        if n == 0:
+            return []
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        planes, host_rows = marshal.ecrecover_host_planes(digests, sigs65)
+        bucket = planes[0].shape[0]
+        t1 = time.perf_counter()
+        qx, qy, ok = secp.ecrecover_batch(
+            *(torch.as_tensor(a, device=self.device) for a in planes))
+        pubs = secp.limbs_to_pubkeys(qx, qy, ok)[:n]
+        out = [ecdsa.pubkey_to_address(p) if p is not None else None
+               for p in pubs]
+        for i in host_rows:
+            try:
+                out[i] = ecdsa.ecrecover_address(
+                    bytes(digests[i]),
+                    ecdsa.Signature.from_bytes65(bytes(sigs65[i])))
+            except (ValueError, AssertionError):
+                out[i] = None
+        self.last_timing = self._timing(before, t0, t1, n, bucket,
+                                        host_rows=len(host_rows))
+        return out
+
+    def das_verify_samples(self, chunks, indices, proofs, roots):
+        """One launch of the sample verifier over the batch, padded to
+        `marshal.bucket_size`; malformed rows are folded into the `valid`
+        plane on the host (`das_proofs.marshal_samples`)."""
+        n = len(chunks)
+        if n == 0:
+            self.last_wire = None
+            return []
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        bucket = marshal.bucket_size(n)
+        st = das_proofs.marshal_samples(chunks, indices, proofs, roots,
+                                        bucket)
+        planes = [st[k] for k in das_proofs.PLANES]
+        sample_bytes = sum(int(p.nbytes) for p in planes)
+        self.last_wire = {"op": "das_verify_samples",
+                          "wire_bytes": sample_bytes,
+                          "sample_wire_bytes": sample_bytes,
+                          "rows": n, "bucket": bucket}
+        t1 = time.perf_counter()
+        out = das_proofs.verify_planes(
+            *(torch.as_tensor(p, device=self.device) for p in planes))
+        res = [bool(b) for b in out.cpu()[:n].tolist()]
+        self.last_timing = self._timing(before, t0, t1, n, bucket)
+        return res
+
+    @staticmethod
+    def _timing(before, t0, t1, rows, bucket, **extra) -> dict:
+        """`last_timing` of a call: marshal and launch host seconds (to the
+        result where the call pulled it first), rows, bucket and kernel
+        launches, and what else the call reports."""
+        after = _build.launch_counts()
+        return dict(marshal_s=t1 - t0, launch_s=time.perf_counter() - t1,
+                    rows=rows, bucket=bucket,
+                    launches={k: c - before.get(k, 0)
+                              for k, c in after.items()}, **extra)
 
     def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
         n = len(messages)
@@ -98,14 +176,10 @@ class TorchSigBackend(SigBackend):
         t1 = time.perf_counter()
         out = bn.bls_verify_aggregate_batch(
             *(torch.as_tensor(a, device=self.device) for a in planes))
-        after = _build.launch_counts()
-        self.last_timing = {
-            "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
-            "rows": n, "bucket": bucket, "width": 1, "precomp": False,
-            "limb_form": LIMB_FORM,
-            "g2_wire_bytes": int(pkx.nbytes + pky.nbytes),
-            "hit_rows": 0, "memo": False,
-            "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
+        self.last_timing = self._timing(
+            before, t0, t1, n, bucket, width=1, precomp=False,
+            limb_form=LIMB_FORM, g2_wire_bytes=int(pkx.nbytes + pky.nbytes),
+            hit_rows=0, memo=False)
         return [bool(v) for v in out.cpu()[:n].tolist()]
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
@@ -130,14 +204,10 @@ class TorchSigBackend(SigBackend):
         else:
             out, t1, g2_bytes, hit_rows, memo, width = self._precomp_audit(
                 messages, sig_rows, pk_rows, keys, bucket)
-        after = _build.launch_counts()
-        self.last_timing = {
-            "marshal_s": t1 - t0, "launch_s": time.perf_counter() - t1,
-            "rows": n, "bucket": bucket, "width": width,
-            "precomp": keys is not None, "limb_form": LIMB_FORM,
-            "g2_wire_bytes": int(g2_bytes),
-            "hit_rows": hit_rows, "memo": memo,
-            "launches": {k: v - before.get(k, 0) for k, v in after.items()}}
+        self.last_timing = self._timing(
+            before, t0, t1, n, bucket, width=width,
+            precomp=keys is not None, limb_form=LIMB_FORM,
+            g2_wire_bytes=int(g2_bytes), hit_rows=hit_rows, memo=memo)
         return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])
 
     def _precomp_audit(self, messages, sig_rows, pk_rows, keys, bucket):

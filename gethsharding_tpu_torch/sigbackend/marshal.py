@@ -1,13 +1,17 @@
-"""Host -> limb marshalling for the committee audit: the padding policy,
-the fresh-per-period planes and the row keys of the line-table cache.
-Pure host arithmetic, no device."""
+"""Host -> limb marshalling: the padding policy, the committee audit's
+fresh-per-period planes and the row keys of the line-table cache, and the
+recovery's signature planes. Pure host arithmetic, no device."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
+
 from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
 from gethsharding_tpu_torch.ops import bn256 as bn
+from gethsharding_tpu_torch.ops import secp256k1 as secp
 
 
 def bucket_size(n: int) -> int:
@@ -55,3 +59,32 @@ def normalize_row_keys(pk_row_keys, n_rows: int):
         return None
     keys = list(pk_row_keys)[:n_rows]
     return keys + [None] * (n_rows - len(keys))
+
+
+def ecrecover_host_planes(digests: Sequence[bytes],
+                          sigs65: Sequence[bytes]):
+    """The recovery's planes (e, r, s, recid, valid), padded to
+    `bucket_size`, and the rows left to the host. Only 65-byte signatures
+    with v in {0, 1} are valid on the device; v in {2, 3} (r + n
+    overflow) is listed for the host, and every other row is a
+    placeholder (r = s = 1) with valid False."""
+    n = len(digests)
+    bucket = bucket_size(n)
+    placeholder = ecdsa.Signature(r=1, s=1, v=0)
+    sigs, valid, host_rows = [], [], []
+    for i, sig in enumerate(sigs65):
+        sig = bytes(sig)
+        if len(sig) == 65 and sig[64] in (0, 1):
+            sigs.append(ecdsa.Signature.from_bytes65(sig))
+            valid.append(True)
+        else:
+            if len(sig) == 65 and sig[64] in (2, 3):
+                host_rows.append(i)
+            sigs.append(placeholder)
+            valid.append(False)
+    sigs.extend([placeholder] * (bucket - n))
+    valid.extend([False] * (bucket - n))
+    e = secp.hashes_to_limbs([bytes(d) for d in digests]
+                             + [b"\x00" * 32] * (bucket - n))
+    r, s, v = secp.sigs_to_limbs(sigs)
+    return (e, r, s, v, np.asarray(valid)), host_rows

@@ -5,8 +5,9 @@ NVIDIA card and no JAX:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 
 Where there is no card the `cuda` tests skip with a reason; the wrapper
-checks below run everywhere. Workloads are protocol-true committees made
-with the port's own scalar crypto from fixed seeds."""
+checks below run everywhere. Workloads are protocol-true committees,
+signatures and DAS samples made with the port's own scalar crypto from
+fixed seeds."""
 
 import functools
 
@@ -15,9 +16,13 @@ import pytest
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+from gethsharding_tpu_torch.crypto.keccak import keccak256
+from gethsharding_tpu_torch.das import proofs as das
 from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route, tower
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import megakernels as mk
+from gethsharding_tpu_torch.ops import secp256k1 as secp
 from gethsharding_tpu_torch.sigbackend.dispatch import (TorchSigBackend,
                                                      committee_planes)
 
@@ -433,3 +438,154 @@ def test_aggregates_on_card(cuda):
     with route.plain_versions():
         plain = bn.bls_verify_aggregate_batch(*args)
     assert torch.equal(got, plain) and got.cpu().tolist() == want
+
+
+# == the vote phase: secp256k1 recovery and DAS samples ======================
+
+
+@functools.lru_cache(maxsize=None)
+def _signed(i: int):
+    priv = int.from_bytes(keccak256(b"cuda-vote-%d" % i), "big") % ecdsa.N
+    digest = keccak256(b"cuda-vote-msg-%d" % i)
+    return priv, digest, ecdsa.sign(digest, priv)
+
+
+def _recovery_planes(n: int, device):
+    """n kernel rows cycling through 8 valid signatures and the hostile
+    rows r = 0, s = n, recid 2, R = G, a tampered digest and valid
+    False; (e, r, s, recid, valid) on `device`."""
+    rows = []
+    for i in range(n):
+        _, digest, sig = _signed(i % 8)
+        kind = i % 13
+        e, r, s, v, ok = digest, sig.r, sig.s, sig.v, True
+        if kind == 8:
+            r = 0
+        elif kind == 9:
+            s = ecdsa.N
+        elif kind == 10:
+            v = 2
+        elif kind == 11:
+            r, v = ecdsa.GX, ecdsa.GY & 1
+        elif kind == 12:
+            e, ok = keccak256(b"tampered-%d" % i), i % 2 == 0
+        rows.append((int.from_bytes(e, "big"), r, s, v, ok))
+    e, r, s, v, ok = zip(*rows)
+    planes = (limb.ints_to_limbs(e), limb.ints_to_limbs(r),
+              limb.ints_to_limbs(s), np.asarray(v, np.int32),
+              np.asarray(ok, bool))
+    return [torch.as_tensor(a, device=device) for a in planes]
+
+
+def _sample_rows(n: int):
+    """n sample rows: 16 real samples of one depth-8 tree in turn, every
+    fifth row with a flipped chunk byte and every seventh with a wrong
+    root; (chunks, indices, proofs, roots)."""
+    rng = np.random.default_rng(17)
+    data = rng.integers(0, 256, (16, 4096), dtype=np.uint8)
+    chunks = [data[k].tobytes() for k in range(16)]
+    leaves = [rng.bytes(32) for _ in range(255)]
+    for k in range(16):
+        leaves[k * 15] = das.chunk_leaf(chunks[k])
+    levels = das.merkle_levels(leaves)
+    root = levels[-1][0]
+    rows = []
+    for i in range(n):
+        k = i % 16
+        chunk = chunks[k]
+        if i % 5 == 4:
+            chunk = bytes([chunk[0] ^ 1]) + chunk[1:]
+        rows.append((chunk, k * 15, das.merkle_proof(levels, k * 15),
+                     b"\x01" * 32 if i % 7 == 6 else root))
+    return tuple(map(list, zip(*rows)))
+
+
+def _sample_planes(n: int, device):
+    """`_sample_rows(n)` as the `marshal_samples` planes on `device`."""
+    st = das.marshal_samples(*_sample_rows(n), n)
+    return [torch.as_tensor(st[k], device=device) for k in das.PLANES]
+
+
+def test_vote_kernel_wrappers_refuse_cpu_tensors():
+    before = _build.launch_counts()
+    planes = _recovery_planes(3, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        secp.ecrecover_kernel(*planes)
+    with pytest.raises(ValueError, match="CUDA"):
+        das.verify_planes_kernel(*_sample_planes(2, "cpu"))
+    assert _build.launch_counts() == before
+
+
+@pytest.mark.cuda
+def test_vote_kernels_refuse_wrong_shapes_and_types(cuda):
+    before = _build.launch_counts()
+    e, r, s, v, ok = _recovery_planes(3, cuda)
+    with pytest.raises(ValueError, match="shape"):
+        secp.ecrecover_kernel(e, r[:, :-1].contiguous(), s, v, ok)
+    with pytest.raises(ValueError, match="bool"):
+        secp.ecrecover_kernel(e, r, s, v, ok.to(torch.int32))
+    planes = _sample_planes(2, cuda)
+    short = planes[0][:, :-1].contiguous()
+    with pytest.raises(ValueError, match="shape"):
+        das.verify_planes_kernel(short, *planes[1:])
+    with pytest.raises(ValueError, match="uint8"):
+        das.verify_planes_kernel(planes[0].to(torch.int32), *planes[1:])
+    assert _build.launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 64, 65, 113])
+def test_ecrecover_kernel_equals_plain_at_rows(cuda, n):
+    """One row, the kernel's block of 64 rows and one past it, and the
+    notary's 113: qx, qy and ok equal to the plain version on the card,
+    in one launch."""
+    planes = _recovery_planes(n, cuda)
+    before = secp.KERNEL.launches
+    got = secp.ecrecover_batch(*planes)
+    assert secp.KERNEL.launches == before + 1
+    with route.plain_versions():
+        want = secp.ecrecover_batch(*planes)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[2][0]
+    if n > 1:
+        assert not got[2].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 113, 1792])
+def test_das_kernel_equals_plain_at_rows(cuda, n):
+    """One sample, 113 and the bucket of a 100-shard period (1,792):
+    verdicts equal to the plain version on the card, in one launch."""
+    planes = _sample_planes(n, cuda)
+    before = das.KERNEL.launches
+    got = das.verify_planes(*planes)
+    assert das.KERNEL.launches == before + 1
+    with route.plain_versions():
+        want = das.verify_planes(*planes)
+    assert torch.equal(got, want)
+    if n > 1:
+        assert got.any() and not got.all()
+
+
+@pytest.mark.cuda
+def test_vote_phase_on_card(cuda):
+    """`ecrecover_addresses` and `das_verify_samples` through the
+    backend: one launch of each kernel and no other, the host's scalar
+    answers."""
+    digests, sigs65, want = [], [], []
+    for i in range(6):
+        _, digest, sig = _signed(i)
+        wire = sig.to_bytes65()
+        digests.append(digest)
+        sigs65.append(wire if i != 5 else wire[:64])
+        want.append(ecdsa.ecrecover_address(digest, sig) if i != 5 else None)
+    rows = _sample_rows(20)
+    backend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    assert backend.ecrecover_addresses(digests, sigs65) == want
+    assert backend.das_verify_samples(*rows) == das.verify_samples(*rows)
+    counts = {n: c for n, c in _build.launch_counts().items() if c}
+    assert counts == {"ecrecover": 1, "das_samples": 1}
+    assert backend.last_wire["rows"] == 20

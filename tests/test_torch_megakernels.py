@@ -35,6 +35,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_host_shim
 from gethsharding_tpu.crypto import bn256 as ref
 from gethsharding_tpu.ops import bn256_jax as k
 from gethsharding_tpu.ops import pallas_finalexp as m
@@ -230,24 +231,7 @@ def test_convert_widens_exact_planes():
 # is; the card itself is checked by the cuda tests below and by
 # chip_smoke.py.
 
-_SHIM = r"""
-struct Dim { unsigned x, y, z; };
-static Dim threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __constant__
-#define __shared__
-#define __launch_bounds__(...)
-#define __align__(n) __attribute__((aligned(n)))
-struct int4 { int x, y, z, w; };
-inline void __syncthreads() {}
-inline void __threadfence() {}
-inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
-template <class T> inline T __ldcg(const T* p) { return *p; }
-"""
+_SHIM = torch_host_shim.SHIM
 
 _DRIVERS = {
     "agg": r"""
