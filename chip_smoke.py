@@ -115,12 +115,18 @@ resident on the card) and the recompute path (without keys):
    one launch of `csrc/secp256k1.cu` and one of `csrc/das.cu` and no
    other kernel; addresses and verdicts equal to the host's scalar
    recovery and verifier row for row; each kernel equal to its plain
-   version on the card at the path's tensors (tolerance 0); each timed
-   (CUDA events) beside its bound (Montgomery products × 128
-   multiply-adds and squares × 100, counted per row from its ladder
-   scalars; keccak-f permutations × 4,320 32-bit operations with
-   three-input LOP3 logic, counted per sample from its proof depth) and its plain version's one run, and both calls end to end
-   (warm, median of 7, with their host marshal and bytes shipped).
+   version on the card at the path's tensors (tolerance 0), the
+   recovery also at the exact form's 22 limbs; the recovery kernel's
+   ptxas registers and stack frame (0 bytes, or the smoke fails); each
+   timed (CUDA events) beside its bound (the least multiply-adds the
+   recovery needs: products mod p at 74 and squares at 46 on p's special
+   form, the root's addition chain, no products for the inverses,
+   counted per row from its ladder scalars, with the share of PR 10's
+   fixed CIOS yardstick beside it; keccak-f permutations × 4,320 32-bit operations
+   with three-input LOP3 logic, counted per sample from its proof depth)
+   and its plain version's one run, the recovery also at one row (the
+   txpool's call), and both calls end to end (warm, median of 7, with
+   their host marshal and bytes shipped).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -314,9 +320,10 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
 
 
 def ptxas_report(log: str) -> list:
-    """(kernel, registers, spill stores, spill loads) of every entry
-    function in nvcc's -Xptxas -v log, names demangled to `name<args>`."""
-    rows, name, spill = [], "?", (0, 0)
+    """(kernel, registers, stack frame bytes, spill stores, spill loads)
+    of every entry function in nvcc's -Xptxas -v log, names demangled to
+    `name<args>`."""
+    rows, name, spill = [], "?", (0, 0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '_ZN2gs(\d+)(\w+)'",
                           line)
@@ -326,14 +333,35 @@ def ptxas_report(log: str) -> list:
             targs = re.match(r"ILi(\d+)E", rest[size:])
             if targs:
                 name += f"<{targs.group(1)}>"
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
+        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
         if found:
-            spill = (int(found.group(1)), int(found.group(2)))
+            spill = tuple(int(g) for g in found.groups())
         used = re.search(r"Used (\d+) registers", line)
         if used:
             rows.append((name, int(used.group(1))) + spill)
     return rows
+
+
+def kernel_ptxas(source: str, kernel: str, log: str):
+    """(registers, stack frame, spill stores, spill loads) of `kernel` from
+    the build's ptxas log, or, where the library was already built (no
+    log), from `source` compiled alone."""
+    from gethsharding_tpu_torch.ops import _build
+
+    rows = [r[1:] for r in ptxas_report(log) if r[0] == kernel]
+    if not rows:
+        obj = _build.BUILD_DIR / f"{kernel}.ptxas.o"
+        out = subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c",
+             str(_build.SRC_DIR / source), "-o", str(obj)],
+            capture_output=True, text=True, check=True, timeout=600)
+        obj.unlink(missing_ok=True)
+        rows = [r[1:] for r in ptxas_report(out.stdout + out.stderr)
+                if r[0] == kernel]
+    if not rows:
+        fail(f"ptxas reported nothing for {kernel}")
+    return rows[0]
 
 
 def max_abs_err(got, want) -> int:
@@ -848,15 +876,50 @@ def vote_phase(card: str, seed: int) -> list:
           f"({rec[0].shape[0]} rows)", flush=True)
     if rec_err or not torch.equal(got[2], want[2]):
         fail("ecrecover disagrees with its plain version")
+    nl22 = 22   # the exact form's limbs: every value here is below 2^256
+    short = [t[:, :nl22].contiguous() for t in rec[:3]] + rec[3:]
+    out22 = [torch.empty_like(short[0]), torch.empty_like(short[0]),
+             torch.empty_like(rec[4])]
+    secp.KERNEL.launch(*map(_build.ptr, short), short[0].shape[0], nl22,
+                       *map(_build.ptr, out22))
+    err22 = max(max_abs_err(out22[0], want[0][:, :nl22]),
+                max_abs_err(out22[1], want[1][:, :nl22]))
+    print(f"kernel ecrecover at {nl22} limbs: max |kernel - plain| = "
+          f"{err22} (tolerance 0), ok equal: "
+          f"{torch.equal(out22[2], want[2])}", flush=True)
+    if err22 or not torch.equal(out22[2], want[2]):
+        fail("ecrecover at 22 limbs disagrees with its plain version")
+    regs, stack, stores, loads = kernel_ptxas("secp256k1.cu",
+                                              "ecrecover_kernel",
+                                              _build.build_log)
+    print(f"kernel ecrecover: ptxas {regs} registers, stack frame {stack} "
+          f"B, spill stores {stores} B, spill loads {loads} B [{card}]",
+          flush=True)
+    if stack or stores or loads:
+        fail("ecrecover_kernel keeps operands in local memory")
+    src = (_build.SRC_DIR / "secp256k1.cu").read_text()
+    layout = {k: int(v) for k, v in re.findall(
+        r"constexpr int (SECP_\w+) = (\d+);", src)}
+    layout["SECP_ROWS"] = layout["SECP_WARP_ROWS"] * layout["SECP_WARPS"]
     ints = [limb.limbs_to_int(a[:n_sig]) for a in planes[:3]]
     scalars = [secp.ladder_scalars(int(e), int(r), int(s))
                for e, r, s in zip(*ints)]
     squares, products = (sum(c) for c in zip(
-        *(secp.kernel_products(*u) for u in scalars)))
+        *(secp.least_products(*u) for u in scalars)))
     row_bytes = 5 * limb.NLIMBS * 4 + 4 + 1 + 1
-    rec_bound = bound(sum(secp.kernel_multiply_adds(*u) for u in scalars),
+    rec_bound = bound(sum(secp.least_multiply_adds(*u) for u in scalars),
                       n_sig * row_bytes)
+    yard = bound(sum(secp.kernel_multiply_adds(*u) for u in scalars),
+                 n_sig * row_bytes)
     rec_ms = cuda_ms(rec_kernel, 10)
+    one = [t[:1].contiguous() for t in rec]
+    rec1_ms = cuda_ms(lambda: secp.ecrecover_kernel(*one), 10)
+    print(f"kernel ecrecover: the fixed yardstick (CIOS products, Fermat "
+          f"inverses; over-counts the function's work) "
+          f"{yard['multiply_adds']} multiply-adds, {yard['bound_ms']:.6f} "
+          f"ms, {yard['bound_ms'] / rec_ms:.2%} of it; at one row (bucket "
+          f"1, the txpool's call) {rec1_ms:.4f} ms per launch [{card}]",
+          flush=True)
 
     st = das.marshal_samples(chunks, indices, proofs, roots,
                              marshal.bucket_size(n_smp))
@@ -878,11 +941,14 @@ def vote_phase(card: str, seed: int) -> list:
 
     for name, ms, plain_ms, r, unit in (
             ("ecrecover", rec_ms, rec_plain_ms, rec_bound,
-             f"{squares} Montgomery squares × "
-             f"{secp.SQUARE_MULTIPLY_ADDS} and {products} other products × "
-             f"{secp.PRODUCT_MULTIPLY_ADDS} multiply-adds over {n_sig} rows; "
-             f"one thread per row, {-(-rec[0].shape[0] // 64)} blocks of 64 "
-             f"threads on 132 SMs"),
+             f"the least work: {squares} squares × "
+             f"{secp.LEAST_SQUARE_MULTIPLY_ADDS} and {products} other "
+             f"products × {secp.LEAST_PRODUCT_MULTIPLY_ADDS} multiply-adds "
+             f"mod p, {secp.LEAST_N_PRODUCTS * n_sig} × "
+             f"{secp.PRODUCT_MULTIPLY_ADDS} mod n, over {n_sig} rows; "
+             f"{layout['SECP_LANES']} lanes a row, "
+             f"{-(-rec[0].shape[0] // layout['SECP_ROWS'])} blocks of "
+             f"{layout['SECP_ROWS']} rows on 132 SMs"),
             ("das_samples", das_ms, das_plain_ms, das_bound,
              f"{perms} keccak-f permutations × {das.PERMUTATION_OPS} 32-bit "
              f"operations over {n_smp} samples; a 128-thread block per "
@@ -1302,9 +1368,9 @@ def main() -> int:
     if not keccak.native_available():
         fail("the host hash did not load its compiled keccak (csrc/keccak.c)")
     print("hash: keccak256 runs the compiled csrc/keccak.c (ctypes)")
-    for name, regs, stores, loads in ptxas_report(_build.build_log):
-        print(f"  ptxas {name}: {regs} registers, spill stores {stores} B, "
-              f"spill loads {loads} B")
+    for name, regs, stack, stores, loads in ptxas_report(_build.build_log):
+        print(f"  ptxas {name}: {regs} registers, stack frame {stack} B, "
+              f"spill stores {stores} B, spill loads {loads} B")
 
     t0 = time.perf_counter()
     msgs, sig_rows, pk_rows, keys, want = make_period(bls, args.seed)

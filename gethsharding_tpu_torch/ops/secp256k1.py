@@ -13,10 +13,12 @@ u1 = -e·r⁻¹ mod n and u2 = s·r⁻¹ mod n.
   (P = Q doubles, P = -Q is infinity, infinity operands pass through),
   and the same `ok` rule. Its limbs equal the reference's; it computes
   the doubling inside `_pt_add` only where some row selects it.
-- `ecrecover_kernel` launches the hand-written kernel: one thread per row
-  on 8 × 32-bit words in Montgomery form. It returns the same canonical
-  (qx, qy) and `ok`: every value it computes is the same residue, and the
-  outputs are canonical.
+- `ecrecover_kernel` launches the hand-written kernel: a group of 8 lanes
+  per row, each lane making one product of a ladder phase in registers
+  (8 × 32-bit words, p's special form), CIOS Montgomery products mod n.
+  It returns the same canonical (qx, qy) and `ok`: the same formulas up
+  to polynomial identities and the same cases, and the outputs are
+  canonical.
 - `ecrecover_batch` is the route (`ops/route.py`): the kernel for a CUDA
   tensor, the plain version for a CPU tensor and inside
   `route.plain_versions()`.
@@ -218,12 +220,36 @@ def ecrecover_batch(e, r, s, recid, valid):
 
 # == the kernel's work, for its bound =======================================
 
-# Montgomery products of a row (csrc/secp256k1.cu) as (squares, other
-# products), since a square needs fewer multiply-adds. The fixed part:
-# the conversions in (r mod p, r, e and s mod n, two products each) and
-# out (ry's parity, u1, u2, qx, qy), r³ (a square and a product), the
-# curve check (a square), u1 and u2, G + R (R has Z = 1), the affine
-# map's square and three products, and the three fixed-exponent powers
+# Two counts of a row's work, as (squares, other products), since a square
+# needs fewer multiply-adds. Both share the ladder: from the step after
+# the top set bit (before it the accumulator is infinity: no doubling, and
+# its first addition is a copy) a doubling per step and an addition per
+# step with a bit set. A row whose accumulator meets its own addend or its
+# negation (R = ±G) makes one more doubling there, or none after it
+# returns to infinity; the counts leave those out.
+DBL_PRODUCTS = (5, 2)                   # dbl-2009-l
+ADD_PRODUCTS = {1: (3, 8), 2: (4, 12)}  # addend G or R (Z = 1), G + R
+
+
+def _ladder_products(u1: int, u2: int) -> tuple[int, int]:
+    top = max(u1.bit_length(), u2.bit_length())
+    sq = pr = 0
+    for i in range(top - 2, -1, -1):
+        set_bits = ((u1 >> i) & 1) + ((u2 >> i) & 1)
+        add = ADD_PRODUCTS.get(set_bits, (0, 0))
+        sq += DBL_PRODUCTS[0] + add[0]
+        pr += DBL_PRODUCTS[1] + add[1]
+    return sq, pr
+
+
+# The yardstick: the joint ladder on CIOS Montgomery products (the first
+# port of csrc/secp256k1.cu). It stays fixed whatever the kernel runs, so
+# that its shares read the same work across designs; it over-counts the
+# function's work (see the least work below). The fixed part: the
+# conversions in (r mod p, r, e and s mod n, two products each) and out
+# (ry's parity, u1, u2, qx, qy), r³ (a square and a product), the curve
+# check (a square), u1 and u2, G + R (R has Z = 1), the affine map's
+# square and three products, and the three fixed-exponent powers
 # (square-and-multiply from the top bit).
 _POW = lambda e: (e.bit_length() - 1, bin(e).count("1") - 1)
 _POWS = [_POW((P + 1) // 4), _POW(N - 2), _POW(P - 2)]
@@ -235,32 +261,65 @@ FIXED_PRODUCTS = (1 + 1 + 3 + 1 + sum(sq for sq, _ in _POWS),
 # the 8 squares) and the same reduction.
 PRODUCT_MULTIPLY_ADDS = 128
 SQUARE_MULTIPLY_ADDS = 36 + 64
-DBL_PRODUCTS = (5, 2)                   # dbl-2009-l
-ADD_PRODUCTS = {1: (3, 8), 2: (4, 12)}  # addend G or R (Z = 1), G + R
 
 
 def kernel_products(u1: int, u2: int) -> tuple[int, int]:
-    """(squares, other products) the kernel makes for one row with ladder
-    scalars u1, u2: the fixed part, then from the step after the top set
-    bit (before it the accumulator is infinity: no doubling, and its
-    first addition is a copy) a doubling per step and an addition per
-    step with a bit set. A row whose accumulator meets its own addend or
-    its negation (R = ±G) makes one more doubling there, or none after
-    it returns to infinity; this count leaves those out."""
-    top = max(u1.bit_length(), u2.bit_length())
-    sq, pr = FIXED_PRODUCTS
-    for i in range(top - 2, -1, -1):
-        set_bits = ((u1 >> i) & 1) + ((u2 >> i) & 1)
-        add = ADD_PRODUCTS.get(set_bits, (0, 0))
-        sq += DBL_PRODUCTS[0] + add[0]
-        pr += DBL_PRODUCTS[1] + add[1]
-    return sq, pr
+    """(squares, other products) of the yardstick for one row with ladder
+    scalars u1, u2."""
+    sq, pr = _ladder_products(u1, u2)
+    return FIXED_PRODUCTS[0] + sq, FIXED_PRODUCTS[1] + pr
 
 
 def kernel_multiply_adds(u1: int, u2: int) -> int:
-    """32 x 32 -> 64-bit multiply-adds of one row's products."""
+    """32 x 32 -> 64-bit multiply-adds of the yardstick's products for one
+    row."""
     sq, pr = kernel_products(u1, u2)
     return sq * SQUARE_MULTIPLY_ADDS + pr * PRODUCT_MULTIPLY_ADDS
+
+
+def _chain(e: int, tail) -> tuple[int, int]:
+    """(squares, products) of x^e by an addition chain: the shared head
+    x^(2^223 - 1) (222 squares and 11 products through x^3, x^7, ...,
+    x^(2^220 - 1)), then per (k, m) of `tail` k squares and a product by
+    x^m (none for m = 0)."""
+    exp, squares, products = (1 << 223) - 1, 222, 11
+    for k, m in tail:
+        exp = (exp << k) + m
+        squares += k
+        products += m != 0
+    assert exp == e, (hex(exp), hex(e))
+    return squares, products
+
+
+# The least work the function needs, for the kernel's bound: products mod
+# p reduced by p's special form (2^256 = 2^32 + 977 mod p: the high half's
+# 8 words times 977, the 2^32 term a shift, then the two-word carry times
+# 977 once more), squares with their cross products once; the square root
+# (p + 1)/4 by its addition chain; both inverses, r^-1 mod n and Z^-1 mod
+# p, by the binary extended Euclid (shifts and subtractions, no products);
+# u1 and u2 as two CIOS products mod n; no conversions in or out.
+SQRT_CHAIN = _chain((P + 1) // 4, [(23, (1 << 22) - 1), (6, 3), (2, 0)])
+LEAST_FIXED_PRODUCTS = (  # r³, the root, the curve check, G + R, affine
+    1 + SQRT_CHAIN[0] + 1 + 3 + 1, 1 + SQRT_CHAIN[1] + 8 + 3)
+LEAST_N_PRODUCTS = 2
+REDUCE_P_MULTIPLY_ADDS = 8 + 2
+LEAST_PRODUCT_MULTIPLY_ADDS = 64 + REDUCE_P_MULTIPLY_ADDS
+LEAST_SQUARE_MULTIPLY_ADDS = 36 + REDUCE_P_MULTIPLY_ADDS
+
+
+def least_products(u1: int, u2: int) -> tuple[int, int]:
+    """(squares, other products) mod p of the least work for one row with
+    ladder scalars u1, u2; the LEAST_N_PRODUCTS products mod n apart."""
+    sq, pr = _ladder_products(u1, u2)
+    return LEAST_FIXED_PRODUCTS[0] + sq, LEAST_FIXED_PRODUCTS[1] + pr
+
+
+def least_multiply_adds(u1: int, u2: int) -> int:
+    """32 x 32 -> 64-bit multiply-adds of the least work for one row."""
+    sq, pr = least_products(u1, u2)
+    return (sq * LEAST_SQUARE_MULTIPLY_ADDS
+            + pr * LEAST_PRODUCT_MULTIPLY_ADDS
+            + LEAST_N_PRODUCTS * PRODUCT_MULTIPLY_ADDS)
 
 
 def ladder_scalars(e: int, r: int, s: int):

@@ -35,6 +35,10 @@ from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.sigbackend import SigBackend
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 
 def _aggregate(tag: bytes, n: int, message: bytes):
     keys = [ref.bls_keygen(tag + bytes([i])) for i in range(n)]

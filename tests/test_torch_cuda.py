@@ -452,29 +452,76 @@ def _signed(i: int):
 
 def _recovery_planes(n: int, device):
     """n kernel rows cycling through 8 valid signatures and the hostile
-    rows r = 0, s = n, recid 2, R = G, a tampered digest and valid
-    False; (e, r, s, recid, valid) on `device`."""
+    rows of tests/test_torch_ecrecover.py::_hostile_rows: r = 0, s = n,
+    recid 2, R = G, a tampered digest and valid False, r = p - 1,
+    r = 2^256 - 1, s = 2^256 - 1, digests 0, n and 2^256 - 1, ladders
+    whose accumulator meets its addend (G + R at R = G, R at R = 2G) or
+    its negation (R at R = -2G), a key at infinity, r = n, s = 0, an r
+    with no curve point, recid 5 and R = -G; (e, r, s, recid, valid) on
+    `device`. Row i depends on i alone."""
+    N, gx, gy_parity = ecdsa.N, ecdsa.GX, ecdsa.GY & 1
+    two_g = ecdsa.point_add((ecdsa.GX, ecdsa.GY), (ecdsa.GX, ecdsa.GY))
+    no_root = 5   # the smallest x >= 5 with x^3 + 7 not a square mod p
+    while pow((no_root ** 3 + 7) % ecdsa.P, (ecdsa.P - 1) // 2,
+              ecdsa.P) == 1:
+        no_root += 1
     rows = []
     for i in range(n):
         _, digest, sig = _signed(i % 8)
-        kind = i % 13
-        e, r, s, v, ok = digest, sig.r, sig.s, sig.v, True
+        kind = i % 28
+        e, r, s, v, ok = int.from_bytes(digest, "big"), sig.r, sig.s, \
+            sig.v, True
         if kind == 8:
             r = 0
         elif kind == 9:
-            s = ecdsa.N
+            s = N
         elif kind == 10:
             v = 2
         elif kind == 11:
-            r, v = ecdsa.GX, ecdsa.GY & 1
+            r, v = gx, gy_parity
         elif kind == 12:
-            e, ok = keccak256(b"tampered-%d" % i), i % 2 == 0
-        rows.append((int.from_bytes(e, "big"), r, s, v, ok))
+            e = int.from_bytes(keccak256(b"tampered-%d" % i), "big")
+            ok = i % 2 == 0
+        elif kind == 13:
+            r = ecdsa.P - 1
+        elif kind == 14:
+            r = (1 << 256) - 1
+        elif kind == 15:
+            s = (1 << 256) - 1
+        elif kind in (16, 17, 18):
+            e = (0, N, (1 << 256) - 1)[kind - 16]
+        elif kind == 19:
+            e, r, s, v = -3 * gx % N, gx, gx, gy_parity
+        elif kind in (20, 21):
+            e, r, s = -2 * two_g[0] % N, two_g[0], two_g[0]
+            v = (two_g[1] & 1) ^ (kind == 21)
+        elif kind == 22:
+            e, r, s, v = 5, gx, 5, gy_parity
+        elif kind == 23:
+            r = N
+        elif kind == 24:
+            s = 0
+        elif kind == 25:
+            r = no_root
+        elif kind == 26:
+            v = 5
+        elif kind == 27:
+            r, s, v = gx, 7, gy_parity ^ 1
+        rows.append((e, r, s, v, ok))
     e, r, s, v, ok = zip(*rows)
     planes = (limb.ints_to_limbs(e), limb.ints_to_limbs(r),
               limb.ints_to_limbs(s), np.asarray(v, np.int32),
               np.asarray(ok, bool))
     return [torch.as_tensor(a, device=device) for a in planes]
+
+
+@functools.lru_cache(maxsize=None)
+def _recovery_plain(n: int):
+    """`ecrecover_plain` on the card over `_recovery_planes(n)` (one call
+    of the plain ladder serves every prefix: rows are independent)."""
+    planes = _recovery_planes(n, torch.device("cuda"))
+    with route.plain_versions():
+        return tuple(secp.ecrecover_batch(*planes))
 
 
 def _sample_rows(n: int):
@@ -534,22 +581,51 @@ def test_vote_kernels_refuse_wrong_shapes_and_types(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 64, 65, 113])
+@pytest.mark.parametrize("n", [1, 3, 7, 17, 112, 113])
 def test_ecrecover_kernel_equals_plain_at_rows(cuda, n):
-    """One row, the kernel's block of 64 rows and one past it, and the
-    notary's 113: qx, qy and ok equal to the plain version on the card,
-    in one launch."""
+    """Row counts that leave a warp (4 rows) or a block (8 rows) part
+    full: one row, one less than a warp, one less than a block, two blocks
+    and one, and the notary's 112 and 113. qx, qy and ok equal to the
+    plain version on the card, in one launch, at 25 limbs and at the
+    exact form's 22 (every value is below 2^256)."""
     planes = _recovery_planes(n, cuda)
+    want = [w[:n] for w in _recovery_plain(113)]
     before = secp.KERNEL.launches
     got = secp.ecrecover_batch(*planes)
     assert secp.KERNEL.launches == before + 1
-    with route.plain_versions():
-        want = secp.ecrecover_batch(*planes)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[2][0]
-    if n > 1:
+    if n > 8:   # rows 0-7 are valid signatures
         assert not got[2].all()
+    nl = 22
+    qx, qy = (torch.empty((n, nl), dtype=torch.int32, device=cuda)
+              for _ in range(2))
+    ok = torch.empty(n, dtype=torch.bool, device=cuda)
+    short = [planes[k][:, :nl].contiguous() for k in range(3)]
+    secp.KERNEL.launch(*map(_build.ptr, short + planes[3:]), n, nl,
+                       *map(_build.ptr, (qx, qy, ok)))
+    assert torch.equal(qx, want[0][:, :nl]) and torch.equal(qy, want[1][:, :nl])
+    assert torch.equal(ok, want[2])
+
+
+@pytest.mark.cuda
+def test_ecrecover_is_one_launch_per_call(cuda):
+    """`ecrecover_batch` launches `gs_ecrecover` once per call, whatever
+    the leading dims or row count; the rows of a (2, 3) batch are those
+    of its flat 6."""
+    planes = _recovery_planes(23, cuda)
+    for n in (1, 9, 23):
+        before = secp.KERNEL.launches
+        secp.ecrecover_batch(*(t[:n] for t in planes))
+        assert secp.KERNEL.launches == before + 1
+    flat = secp.ecrecover_batch(*(t[:6] for t in planes))
+    before = secp.KERNEL.launches
+    lead = secp.ecrecover_batch(*(t[:6].reshape((2, 3) + t.shape[1:])
+                                  for t in planes))
+    assert secp.KERNEL.launches == before + 1
+    for g, w in zip(lead, flat):
+        assert torch.equal(g.reshape(w.shape), w)
 
 
 @pytest.mark.cuda

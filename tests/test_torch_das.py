@@ -52,6 +52,10 @@ from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 from gethsharding_tpu_torch.storage.bmt import bmt_hash
 from gethsharding_tpu_torch.storage.chunker import chunk_key
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 
 # == 1. batched keccak =======================================================
 

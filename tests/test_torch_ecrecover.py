@@ -13,14 +13,20 @@ CPU:
    tests/test_torch_exact.py does;
 2. `ecrecover_plain` against `secp256k1_jax.ecrecover_batch` (jitted, one
    compile shared by the module) on valid signatures and hostile rows:
-   r = 0, r = n, s = 0, s = n, an r with no curve point, recid 2 and 5,
-   a tampered digest, R = G and R = -G;
+   r = 0, r = n, r = p - 1, r = 2^256 - 1, s = 0, s = n, s = 2^256 - 1,
+   an r with no curve point, recid 2 and 5, a tampered digest, digests
+   0, n and 2^256 - 1, R = G and R = -G, and ladders whose accumulator
+   meets its addend (G + R at R = G, R at R = 2G) or its negation (R at
+   R = -2G), and a key at infinity;
 3. `csrc/secp256k1.cu` compiled for the host with g++ under the shim of
-   tests/torch_host_shim.py (one thread per block) against
-   `ecrecover_plain` on the same rows, at 25 and 22 limbs;
+   tests/torch_host_shim.py (one thread runs every lane of a block in
+   turn) against `ecrecover_plain` on the same rows, at 25 and 22 limbs,
+   and at row counts that leave a warp or a block part full;
 4. `TorchSigBackend(device="cpu").ecrecover_addresses` against the
-   reference `python` and `jax` backends on hostile 65-byte signatures
-   (the above, a 64-byte one, v = 5), the empty batch and a 1-row batch.
+   reference `python` and `jax` backends on the above as wire signatures
+   and the probes of ROADMAP.md §C (high s with v flipped, v = 27,
+   recid 3, 64- and 66-byte signatures, 0-, 31- and 33-byte digests),
+   the empty batch and a 1-row batch.
 
 Inputs come from numpy seeds and the scalar signer; integer arithmetic
 has no rounding, so every comparison is exact."""
@@ -28,6 +34,7 @@ has no rounding, so every comparison is exact."""
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -43,9 +50,14 @@ from gethsharding_tpu.crypto import secp256k1 as ref
 from gethsharding_tpu.crypto.keccak import keccak256
 from gethsharding_tpu.ops import secp256k1_jax as rk
 from gethsharding_tpu.sigbackend import get_backend as ref_get_backend
+from gethsharding_tpu.sigbackend import marshal as ref_marshal
 from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
 from gethsharding_tpu_torch.ops import secp256k1 as sk
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -175,6 +187,7 @@ def limb_results():
     for form in ("wide", "exact"):
         env = dict(os.environ, GETHSHARDING_TORCH_LIMB_FORM=form,
                    GETHSHARDING_TPU_LIMB_FORM=form, JAX_PLATFORMS="cpu",
+                   OMP_NUM_THREADS="2",
                    PYTHONPATH=str(REPO))
         procs[form] = subprocess.Popen(
             [sys.executable, "-c", _LIMB_SCRIPT], env=env, cwd=REPO,
@@ -220,25 +233,45 @@ def _no_curve_point() -> int:
     return x
 
 
+def _digest(e: int) -> bytes:
+    return (e % ref.N).to_bytes(32, "big")
+
+
 def _hostile_rows():
     """(digests, (r, s, recid) per row, label per row): 4 valid
-    signatures and the hostile rows. 14 rows, the bucket of the backend
-    case below, so the reference ladder compiles once."""
+    signatures and the hostile rows, 24 in all. The ladder rows pick
+    (u1, u2) = (-e·r^-1, s·r^-1) mod n: with R = G, (3, 1) makes the
+    accumulator 2G meet its addend G + R = 2G; with R = ±2G, (2, 1)
+    makes it meet R or -R; with R = G, (-5/r, 5/r) sums to infinity."""
     signed = [_signed(i) for i in range(4)]
     msg, sig = signed[0][1], signed[0][2]
     rows = [(m, (s.r, s.s, s.v), "valid") for _, m, s in signed]
     gy_parity = ref.GY & 1
+    two_g = ref.point_add((ref.GX, ref.GY), (ref.GX, ref.GY))
     rows += [
         (msg, (0, sig.s, sig.v), "r = 0"),
         (msg, (ref.N, sig.s, sig.v), "r = n"),
+        (msg, (ref.P - 1, sig.s, sig.v), "r = p - 1"),
+        (msg, ((1 << 256) - 1, sig.s, sig.v), "r = 2^256 - 1"),
         (msg, (sig.r, 0, sig.v), "s = 0"),
         (msg, (sig.r, ref.N, sig.v), "s = n"),
+        (msg, (sig.r, (1 << 256) - 1, sig.v), "s = 2^256 - 1"),
         (msg, (_no_curve_point(), sig.s, sig.v), "no curve point"),
         (msg, (sig.r, sig.s, 2), "recid 2"),
         (msg, (sig.r, sig.s, 5), "recid 5"),
         (keccak256(b"tampered"), (sig.r, sig.s, sig.v), "tampered"),
+        (bytes(32), (sig.r, sig.s, sig.v), "digest 0"),
+        (ref.N.to_bytes(32, "big"), (sig.r, sig.s, sig.v), "digest n"),
+        (b"\xff" * 32, (sig.r, sig.s, sig.v), "digest 2^256 - 1"),
         (msg, (ref.GX, 7, gy_parity), "R = G"),
         (msg, (ref.GX, 7, gy_parity ^ 1), "R = -G"),
+        (_digest(-3 * ref.GX), (ref.GX, ref.GX, gy_parity),
+         "meets G + R"),
+        (_digest(-2 * two_g[0]), (two_g[0], two_g[0], two_g[1] & 1),
+         "meets R"),
+        (_digest(-2 * two_g[0]), (two_g[0], two_g[0], two_g[1] & 1 ^ 1),
+         "meets -R"),
+        (_digest(5), (ref.GX, 5, gy_parity), "Q at infinity"),
     ]
     return rows
 
@@ -257,12 +290,15 @@ def hostile():
 
 @pytest.fixture(scope="module")
 def reference_out(hostile):
-    """The reference ladder, jitted as the `jax` backend jits it, so the
-    backend case below (14 rows too) reuses this compile."""
-    _, planes = hostile
-    qx, qy, ok = jax.jit(rk.ecrecover_batch)(*map(jnp.asarray, planes))
-    return (np.asarray(rk.FQ.canon(qx)), np.asarray(rk.FQ.canon(qy)),
-            np.asarray(ok))
+    """The reference ladder, jitted as the `jax` backend jits it and
+    padded to the backend case's bucket (32 rows), so that case reuses
+    this compile."""
+    rows, planes = hostile
+    pad = ref_marshal.bucket_size(len(_hostile_sigs65()[0])) - len(rows)
+    padded = [np.concatenate([a, a[:1].repeat(pad, axis=0)]) for a in planes]
+    qx, qy, ok = jax.jit(rk.ecrecover_batch)(*map(jnp.asarray, padded))
+    return tuple(np.asarray(o)[:len(rows)] for o in
+                 (rk.FQ.canon(qx), rk.FQ.canon(qy), ok))
 
 
 @pytest.fixture(scope="module")
@@ -279,7 +315,8 @@ def test_plain_recovery_equals_reference(hostile, reference_out, plain_out):
     labels = [label for _, _, label in rows]
     ok = plain_out[2].tolist()
     assert [label for label, good in zip(labels, ok) if good] == \
-        ["valid", "valid", "valid", "tampered", "R = G", "R = -G"]
+        ["valid", "valid", "valid", "tampered", "digest 0", "digest n",
+         "digest 2^256 - 1", "R = G", "R = -G", "meets G + R", "meets R"]
     # the recovered keys are the scalar truth's
     for i, (msg, (rr, ss, vv), _) in enumerate(rows):
         if ok[i]:
@@ -316,7 +353,7 @@ _RUNNER = r"""
 extern "C" void run(const int* e, const int* r, const int* s,
                     const int* recid, const unsigned char* valid, int n,
                     int nl, int* qx, int* qy, unsigned char* ok) {
-  for (int b = 0; b < n; ++b) {
+  for (int b = 0; b * gs::SECP_ROWS < n; ++b) {
     blockIdx.x = b;
     gs::ecrecover_kernel(e, r, s, recid, valid, n, nl, qx, qy, ok);
   }
@@ -354,6 +391,70 @@ def test_ecrecover_source_on_host_equals_plain(host_kernel, hostile,
     assert (got[2] == ok).all()
 
 
+@pytest.mark.parametrize("n", [1, 3, 7, 17, 112, 113])
+def test_ecrecover_source_on_host_at_row_counts(host_kernel, hostile,
+                                                plain_out, n):
+    """Row counts that leave a warp (4 rows) or a block (8 rows) part
+    full: one row, one less than a warp, one less than a block, two blocks
+    and one, and the notary's 112 and 113; the hostile rows repeated
+    (each row's outputs are its own, so the plain outputs repeat too)."""
+    _, planes = hostile
+    take = np.arange(n) % len(planes[0])
+    got = _on_host(host_kernel, *(a[take] for a in planes))
+    for g, w in zip(got, plain_out):
+        assert (g == w[take]).all()
+
+
+_FIELD_RUNNER = r"""
+extern "C" void field(const unsigned* a, const unsigned* b, const int* k,
+                      int n, unsigned* out) {
+  for (int i = 0; i < n; ++i) {
+    gs::Fe x, y;
+    for (int j = 0; j < 8; ++j) {
+      x.w[j] = a[8 * i + j];
+      y.w[j] = b[8 * i + j];
+    }
+    const gs::Fe r[4] = {gs::fp_mul(x, y), gs::fp_sqr(x),
+                         gs::fp_lin(x, (unsigned)k[2 * i], y, k[2 * i + 1]),
+                         gs::fp_canon(x)};
+    for (int f = 0; f < 4; ++f)
+      for (int j = 0; j < 8; ++j) out[32 * i + 8 * f + j] = r[f].w[j];
+  }
+}"""
+
+
+def test_field_source_on_host_equals_integers(tmp_path):
+    """The kernel's arithmetic mod p against Python integers: fp_mul,
+    fp_sqr and fp_lin below 2^256 and congruent, fp_canon below p, on
+    every pair of edge values (0, 1, p - 1, p, p + 1, 2^256 - 1, ...) at
+    the extreme coefficients and on seeded random pairs."""
+    lib = torch_host_shim.build(tmp_path, "secp256k1.cu", _FIELD_RUNNER)
+    P = ref.P
+    rng = np.random.default_rng(11)
+    rand = lambda bits: int.from_bytes(rng.bytes(32), "little") >> (256 - bits)
+    edge = [0, 1, 2, P - 1, P, P + 1, 2 * P - (1 << 256) + 5, (1 << 256) - 1,
+            (1 << 256) - (1 << 32), 1 << 255, (1 << 32) - 1]
+    vals = edge + [rand(256) for _ in range(64)] \
+        + [(1 << 256) - 1 - rand(40) for _ in range(16)]
+    pairs = [(x, y, 15, k2) for x in edge for y in edge for k2 in (-15, 15)]
+    pairs += [(vals[i], vals[j], int(k1), int(k2)) for i, j, k1, k2 in zip(
+        rng.integers(0, len(vals), 1000), rng.integers(0, len(vals), 1000),
+        rng.integers(0, 16, 1000), rng.integers(-15, 16, 1000))]
+    words = lambda v: [(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+    a = np.array([words(x) for x, _, _, _ in pairs], np.uint32)
+    b = np.array([words(y) for _, y, _, _ in pairs], np.uint32)
+    k = np.array([(k1, k2) for _, _, k1, k2 in pairs], np.int32)
+    out = np.zeros((len(pairs), 4, 8), np.uint32)
+    ptr = lambda arr: ctypes.c_void_p(arr.ctypes.data)
+    lib.field(ptr(a), ptr(b), ptr(k), len(pairs), ptr(out))
+    for (x, y, k1, k2), got in zip(pairs, out):
+        mul, sqr, lin, canon = (sum(int(w) << (32 * j)
+                                    for j, w in enumerate(r)) for r in got)
+        assert mul % P == x * y % P and sqr % P == x * x % P
+        assert lin % P == (k1 * x + k2 * y) % P
+        assert canon == x % P
+
+
 def test_kernel_products_count_the_ladder():
     """The bound's (squares, products) count: the fixed part, then a
     doubling (5 squares, 2 products) and an addition (3 + 8 with addend G
@@ -371,37 +472,106 @@ def test_kernel_products_count_the_ladder():
         (fsq + 9) * 100 + (fpr + 14) * 128)
 
 
+def test_least_products_count_the_function():
+    """The bound's least work: r^3, the root's addition chain (253 squares
+    and 13 products for (p + 1)/4), the curve check, G + R and the affine
+    map, no products for the inverses, then the yardstick's ladder; 74
+    multiply-adds a product and 46 a square mod p (the special form's
+    fold, 8 + 2), two CIOS products mod n."""
+    assert sk.SQRT_CHAIN == (253, 13)
+    fsq, fpr = sk.LEAST_FIXED_PRODUCTS
+    assert (fsq, fpr) == (1 + 253 + 1 + 3 + 1, 1 + 13 + 8 + 3)
+    assert sk.least_products(0, 0) == (fsq, fpr)
+    assert sk.least_products(1, 0) == (fsq, fpr)
+    assert sk.least_products(0b11, 0b11) == (fsq + 5 + 4, fpr + 2 + 12)
+    assert sk.least_multiply_adds(0b11, 0b11) == (
+        (fsq + 9) * 46 + (fpr + 14) * 74 + 2 * 128)
+
+
+def test_least_work_is_below_the_yardstick():
+    """Both counts walk the same ladder; the least work is below the
+    yardstick on every row, by ~2.4x on a full-width one."""
+    rng = np.random.default_rng(11)
+    scalars = [(0, 0), (1, 0), (0, sk.N - 1), (sk.N - 1, sk.N - 1)] + [
+        sk.ladder_scalars(*(int.from_bytes(rng.bytes(32), "big")
+                            for _ in range(3))) for _ in range(8)]
+    ysq, ypr = sk.FIXED_PRODUCTS
+    lsq, lpr = sk.LEAST_FIXED_PRODUCTS
+    for u1, u2 in scalars:
+        sq, pr = sk.kernel_products(u1, u2)
+        assert sk.least_products(u1, u2) == (sq - ysq + lsq, pr - ypr + lpr)
+        assert sk.least_multiply_adds(u1, u2) < sk.kernel_multiply_adds(
+            u1, u2)
+    ratio = (sk.kernel_multiply_adds(*scalars[-1])
+             / sk.least_multiply_adds(*scalars[-1]))
+    assert 2.0 < ratio < 3.0
+
+
+def test_clock_marks_are_in_the_source():
+    """scripts/torch_secp_clocks.py reads the stages at SECP_CLOCK(0..6):
+    each is in the source once, and the macro is empty unless the source
+    is built with SECP_CLOCKS."""
+    src = (torch_host_shim.SRC_DIR / "secp256k1.cu").read_text()
+    for i in range(7):
+        assert src.count(f"SECP_CLOCK({i});") == 1, i
+    assert re.search(r"#ifdef SECP_CLOCKS\n__device__ long long g_clk\[8\];",
+                     src)
+
+
 # == 4. the backend ==========================================================
 
 
 def _hostile_sigs65():
-    """(digests, sigs65) of the backend case: the kernel-level rows as
-    wire signatures (recid 2 goes to the host fallback, 5 is None), and
-    a 64-byte signature. 13 rows: bucket 14."""
-    digests, sigs = [], []
+    """(digests, sigs65, labels) of the backend case: the kernel-level
+    rows as wire signatures (recid 2 goes to the host fallback, 5 is
+    None), then the probes of ROADMAP.md §C on the first valid signature:
+    high s with v flipped (the same key), v = 27, recid 3, 64- and
+    66-byte signatures, and 0-, 31- and 33-byte digests. 32 rows: bucket
+    32, the reference ladder's compile above."""
+    digests, sigs, labels = [], [], []
     for msg, (rr, ss, vv), label in _hostile_rows():
-        if label.startswith("R = "):
-            continue
         digests.append(msg)
         sigs.append(ref.Signature(rr, ss, vv).to_bytes65())
-    digests.append(digests[0])
-    sigs.append(sigs[0][:64])
-    return digests, sigs
+        labels.append(label)
+    _, msg, sig = _signed(0)
+    wire = sig.to_bytes65()
+    probes = [
+        (msg, ref.Signature(sig.r, ref.N - sig.s, sig.v ^ 1).to_bytes65(),
+         "high s, v flipped"),
+        (msg, wire[:64] + bytes([27]), "v = 27"),
+        (msg, wire[:64] + bytes([3]), "recid 3"),
+        (msg, wire[:64], "64-byte signature"),
+        (msg, wire + b"\x00", "66-byte signature"),
+        (b"", wire, "0-byte digest"),
+        (msg[:31], wire, "31-byte digest"),
+        (msg + b"\x01", wire, "33-byte digest"),
+    ]
+    for d, sg, label in probes:
+        digests.append(d)
+        sigs.append(sg)
+        labels.append(label)
+    return digests, sigs, labels
 
 
 def test_backend_recovers_as_the_reference_backends():
-    digests, sigs = _hostile_sigs65()
+    digests, sigs, labels = _hostile_sigs65()
     want = ref_get_backend("python").ecrecover_addresses(digests, sigs)
-    assert sum(a is not None for a in want) == 5   # 4 valid, 1 tampered
+    assert [l for l, a in zip(labels, want) if a is not None] == [
+        "valid", "valid", "valid", "valid", "tampered", "digest 0",
+        "digest n", "digest 2^256 - 1", "R = G", "R = -G", "meets G + R",
+        "meets R", "high s, v flipped", "0-byte digest", "31-byte digest",
+        "33-byte digest"]
+    assert want[labels.index("high s, v flipped")] == want[0]
     assert ref_get_backend("jax").ecrecover_addresses(digests, sigs) == want
     backend = TorchSigBackend(device="cpu")
     got = backend.ecrecover_addresses(digests, sigs)
-    assert got == want
+    assert [(l, a) for l, a in zip(labels, got)] == \
+        [(l, a) for l, a in zip(labels, want)]
     assert all(a is None or isinstance(a, bytes) and len(a) == 20
                for a in got)
-    assert backend.last_timing["rows"] == 13
-    assert backend.last_timing["bucket"] == 14
-    assert backend.last_timing["host_rows"] == 1   # recid 2
+    assert backend.last_timing["rows"] == 32
+    assert backend.last_timing["bucket"] == 32
+    assert backend.last_timing["host_rows"] == 2   # recid 2 and 3
 
 
 def test_backend_empty_and_one_row_batches():

@@ -13,6 +13,10 @@ from gethsharding_tpu.ops import limb as ref_limb
 from gethsharding_tpu_torch.ops import limb
 from gethsharding_tpu_torch.ops.bn256 import FP, P
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 REF_FP = ref_limb.ModArith(P)
 MAX_COL = 4 * 25 * 4095 ** 2  # four summed 25-term product columns < 2^30.7
 

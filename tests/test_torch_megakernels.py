@@ -46,6 +46,10 @@ from gethsharding_tpu_torch.ops import conv, norm, tower
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.ops.limb import limbs_to_int
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 REF_C = m.Consts(*(jnp.asarray(c) for c in m._NP_CONSTS))
 PORT_C = mk.consts("cpu")
 

@@ -29,6 +29,10 @@ from gethsharding_tpu_torch.sigbackend import marshal
 from gethsharding_tpu_torch.sigbackend.cache import LineTableCache
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 
 @pytest.fixture(scope="module")
 def period():

@@ -21,6 +21,10 @@ from gethsharding_tpu_torch import sigbackend
 from gethsharding_tpu_torch.sigbackend import marshal
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

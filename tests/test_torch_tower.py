@@ -32,6 +32,10 @@ from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import conv, norm
 from gethsharding_tpu_torch.ops.limb import ints_to_limbs
 
+# Two intra-op threads: the suite runs several test files at once, one
+# process each, and the default (a thread per core) makes them fight.
+torch.set_num_threads(2)
+
 REF_FP = ref_limb.ModArith(bn.P)
 COMBS = {"fp2": "_COMB_FP2", "fp2_sqr": "_COMB_FP2_SQR", "fp12": "_COMB",
          "line": "_LCOMB"}

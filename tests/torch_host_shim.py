@@ -2,8 +2,9 @@
 
 g++ compiles `gethsharding_tpu_torch/csrc/<source>` under a shim that
 gives every block one thread: each phase's block-stride loop then runs
-its items in order in that thread and `__syncthreads()` is a no-op,
-which is a legal schedule of the kernels' block-cooperative loops. A
+its items (a block's rows and their lanes) in order in that thread and
+`__syncthreads()` and `__syncwarp()` are no-ops, which is a legal
+schedule of the kernels' block-cooperative loops. A
 runner appended to the source launches the blocks one after another. This
 checks a kernel's arithmetic and indexing where no card is; the card
 itself is checked by tests/test_torch_cuda.py and chip_smoke.py. Blocks
@@ -34,7 +35,9 @@ static Dim threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, blockDim{1, 1, 1};
 #define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 struct int4 { int x, y, z, w; };
+struct __attribute__((aligned(16))) uint4 { unsigned x, y, z, w; };
 inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
