@@ -116,17 +116,21 @@ resident on the card) and the recompute path (without keys):
    other kernel; addresses and verdicts equal to the host's scalar
    recovery and verifier row for row; each kernel equal to its plain
    version on the card at the path's tensors (tolerance 0), the
-   recovery also at the exact form's 22 limbs; the recovery kernel's
-   ptxas registers and stack frame (0 bytes, or the smoke fails); each
-   timed (CUDA events) beside its bound (the least multiply-adds the
+   recovery also at the exact form's 22 limbs; both kernels' ptxas
+   registers and stack frame (0 bytes and no spills, or the smoke
+   fails), and the sample kernel's keccak round counted in its SASS
+   (`cuobjdump -sass`) beside the bound's 180 operations; each timed
+   (CUDA events) beside its bound (the least multiply-adds the
    recovery needs: products mod p at 74 and squares at 46 on p's special
    form, the root's addition chain, no products for the inverses,
    counted per row from its ladder scalars, with the share of PR 10's
-   fixed CIOS yardstick beside it; keccak-f permutations × 4,320 32-bit operations
-   with three-input LOP3 logic, counted per sample from its proof depth)
-   and its plain version's one run, the recovery also at one row (the
-   txpool's call), and both calls end to end (warm, median of 7, with
-   their host marshal and bytes shipped).
+   fixed CIOS yardstick beside it; keccak-f permutations × 4,320 32-bit
+   operations with three-input LOP3 logic, counted per valid sample from
+   its proof depth, with the earlier count over every row beside it)
+   and its plain version's one run, each also at one row (the txpool's
+   call for the recovery), and both calls end to end (warm, median of 7,
+   with their host marshal and bytes shipped; the samples' call split
+   into marshal, upload with the kernel, and readback).
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -362,6 +366,79 @@ def kernel_ptxas(source: str, kernel: str, log: str):
     if not rows:
         fail(f"ptxas reported nothing for {kernel}")
     return rows[0]
+
+
+def source_constants(source: str, prefix: str) -> dict:
+    """The `constexpr int <prefix>... = <number>;` constants of a source
+    in csrc/, by name."""
+    from gethsharding_tpu_torch.ops import _build
+
+    src = (_build.SRC_DIR / source).read_text()
+    return {k: int(v) for k, v in re.findall(
+        rf"constexpr int ({prefix}\w+) = (\d+);", src)}
+
+
+def kernel_sass(source: str) -> str:
+    """`cuobjdump -sass` of `source` compiled alone for the card."""
+    from gethsharding_tpu_torch.ops import _build
+
+    nvcc = _build.nvcc_path()
+    cubin = _build.BUILD_DIR / f"{os.path.splitext(source)[0]}.sass.cubin"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin",
+                    str(_build.SRC_DIR / source), "-o", str(cubin)],
+                   capture_output=True, text=True, check=True, timeout=600)
+    out = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(cubin)], capture_output=True, text=True, check=True,
+        timeout=120)
+    cubin.unlink(missing_ok=True)
+    return out.stdout
+
+
+def sass_opcode(text: str) -> str:
+    """The opcode of one SASS instruction, without predicate or
+    modifiers (`@!P0 LOP3.LUT R1, ...` -> `LOP3`)."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0].split(".")[0] if words else ""
+
+
+def sass_inner_loops(sass: str, kernel: str) -> list:
+    """Opcode counts of each innermost loop of `kernel` in `cuobjdump
+    -sass` output: the instructions from a backward branch's target to
+    the branch."""
+    instrs, labels, inside = [], {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        label = re.match(r"\s*\.(L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(instrs)
+            continue
+        found = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if found:
+            instrs.append((int(found.group(1), 16), found.group(2)))
+    at = {addr: i for i, (addr, _) in enumerate(instrs)}
+    loops = []
+    for i, (_, text) in enumerate(instrs):
+        if sass_opcode(text) != "BRA":
+            continue
+        named = re.search(r"\(\.(L_x_\d+)\)", text)
+        address = re.search(r"0x([0-9a-f]+)", text)
+        j = (labels.get(named.group(1)) if named else
+             at.get(int(address.group(1), 16)) if address else None)
+        if j is not None and j <= i:
+            loops.append((j, i))
+    inner = [(j, i) for j, i in loops
+             if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                        for j2, i2 in loops)]
+    return [collections.Counter(sass_opcode(instrs[k][1])
+                                for k in range(j, i + 1)) for j, i in inner]
 
 
 def max_abs_err(got, want) -> int:
@@ -897,9 +974,7 @@ def vote_phase(card: str, seed: int) -> list:
           flush=True)
     if stack or stores or loads:
         fail("ecrecover_kernel keeps operands in local memory")
-    src = (_build.SRC_DIR / "secp256k1.cu").read_text()
-    layout = {k: int(v) for k, v in re.findall(
-        r"constexpr int (SECP_\w+) = (\d+);", src)}
+    layout = source_constants("secp256k1.cu", "SECP_")
     layout["SECP_ROWS"] = layout["SECP_WARP_ROWS"] * layout["SECP_WARPS"]
     ints = [limb.limbs_to_int(a[:n_sig]) for a in planes[:3]]
     scalars = [secp.ladder_scalars(int(e), int(r), int(s))
@@ -933,11 +1008,55 @@ def vote_phase(card: str, seed: int) -> list:
           f"(tolerance 0; {smp[0].shape[0]} rows)", flush=True)
     if das_err:
         fail("das_samples disagrees with its plain version")
-    perms = sum(das.sample_permutations(int(d))
-                for d in st["levels"][:n_smp].sum(axis=1))
-    smp_bytes = sum(int(st[k][0].nbytes) for k in das.PLANES) + 1
-    das_bound = bound(perms * das.PERMUTATION_OPS, n_smp * smp_bytes)
+    regs, stack, stores, loads = kernel_ptxas("das.cu", "das_kernel",
+                                              _build.build_log)
+    print(f"kernel das_samples: ptxas {regs} registers, stack frame {stack} "
+          f"B, spill stores {stores} B, spill loads {loads} B [{card}]",
+          flush=True)
+    if stack or stores or loads:
+        fail("das_kernel keeps its sponges in local memory")
+    das_layout = source_constants("das.cu", "DAS_")
+    unroll = das_layout["DAS_ROUND_UNROLL"]
+    try:
+        rounds = [c for c in sass_inner_loops(kernel_sass("das.cu"),
+                                              "das_kernel")
+                  if c["LOP3"] >= 100]
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"kernel das_samples: SASS not read ({exc})", flush=True)
+        rounds = None
+    for c in rounds or ():
+        per_round = sum(c.values()) / unroll
+        print(f"kernel das_samples: a keccak round in SASS (a loop of "
+              f"{unroll} rounds / {unroll}): {per_round:g} instructions "
+              f"against the bound's {das.ROUND_OPS}: " + ", ".join(
+                  f"{op} {n / unroll:g}" for op, n in c.most_common()),
+              flush=True)
+    if rounds == []:
+        print("kernel das_samples: no keccak round loop found in the SASS",
+              flush=True)
+    depths = st["levels"].sum(axis=1)
+    ok_rows = st["valid"]
+    perms = sum(das.sample_permutations(int(d)) for d in depths[ok_rows])
+    old_perms = sum(das.sample_permutations(int(d)) for d in depths[:n_smp])
+    smp_row_bytes = sum(int(st[k][0].nbytes) for k in das.PLANES[:-1])
+    # valid rows' planes, and the valid flag and verdict of every row
+    moved = int(ok_rows.sum()) * smp_row_bytes + 2 * smp[0].shape[0]
+    das_bound = bound(perms * das.PERMUTATION_OPS, moved)
+    old_bound = bound(old_perms * das.PERMUTATION_OPS,
+                      n_smp * (smp_row_bytes + 2))
     das_ms = cuda_ms(das_kernel, 10)
+    one = [t[:1].contiguous() for t in smp]
+    das1_ms = cuda_ms(lambda: das.verify_planes_kernel(*one), 10)
+    print(f"kernel das_samples: the bound over the {int(ok_rows.sum())} "
+          f"valid rows, {perms} permutations, {das_bound['bound_ms']:.6f} "
+          f"ms; the earlier count over all {n_smp} rows, {old_perms} "
+          f"permutations, {old_bound['bound_ms']:.6f} ms "
+          f"({old_bound['bound_ms'] / das_ms:.1%} of it); at one row "
+          f"{das1_ms:.4f} ms per launch [{card}]", flush=True)
+    # the launch's rows a block (das.cu `das_block_rows`)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    block_rows = min(das_layout["DAS_BLOCK_SAMPLES"],
+                     max(1, -(-smp[0].shape[0] // sms)))
 
     for name, ms, plain_ms, r, unit in (
             ("ecrecover", rec_ms, rec_plain_ms, rec_bound,
@@ -951,8 +1070,10 @@ def vote_phase(card: str, seed: int) -> list:
              f"{layout['SECP_ROWS']} rows on 132 SMs"),
             ("das_samples", das_ms, das_plain_ms, das_bound,
              f"{perms} keccak-f permutations × {das.PERMUTATION_OPS} 32-bit "
-             f"operations over {n_smp} samples; a 128-thread block per "
-             f"sample")):
+             f"operations over the {int(ok_rows.sum())} valid samples; "
+             f"{block_rows} samples a block of {das_layout['DAS_THREADS']} "
+             f"threads, {-(-smp[0].shape[0] // block_rows)} blocks on {sms} "
+             f"SMs")):
         print(f"time {name}: kernel {ms:.4f} ms per launch, plain "
               f"{plain_ms:.1f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: {unit}; {r['bytes']} B), "
@@ -962,10 +1083,15 @@ def vote_phase(card: str, seed: int) -> list:
     call_rec = lambda: backend.ecrecover_addresses(digests, sigs65)
     e2e_rec = host_ms(call_rec, 7)
     rec_marshal = backend.last_timing["marshal_s"] * 1e3
-    call_das = lambda: backend.das_verify_samples(chunks, indices, proofs,
-                                                  roots)
+    parts = ("marshal_s", "device_s", "readback_s")
+    das_split = []
+
+    def call_das():
+        backend.das_verify_samples(chunks, indices, proofs, roots)
+        das_split.append([backend.last_timing[k] * 1e3 for k in parts])
     e2e_das = host_ms(call_das, 7)
-    das_marshal = backend.last_timing["marshal_s"] * 1e3
+    split = dict(zip(parts, np.median(das_split[1:], axis=0)))
+    das_marshal = split["marshal_s"]
     wire = backend.last_wire["wire_bytes"]
     rec_wire = sum(int(a.nbytes) for a in planes)
     print(f"time vote phase end to end (warm, median of 7): "
@@ -975,6 +1101,9 @@ def vote_phase(card: str, seed: int) -> list:
           f"{e2e_das:.2f} ms (host marshal {das_marshal:.2f} ms, {wire} B "
           f"shipped; its kernel's share {das_ms / e2e_das:.3f}) [{card}]",
           flush=True)
+    print(f"time das_verify_samples, medians of those 7 calls: marshal "
+          f"{das_marshal:.3f} ms, upload and kernel {split['device_s']:.3f} "
+          f"ms, readback {split['readback_s']:.3f} ms [{card}]", flush=True)
     entry = lambda name, kernel, err, ms, plain_ms, r: {
         "name": name, "route": "cuda", "source": kernel.source,
         "replaces": kernel.replaces, "launches": launches[name],

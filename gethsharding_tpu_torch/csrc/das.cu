@@ -1,7 +1,8 @@
-// DAS sample verification, one 128-thread block per sample.
+// DAS sample verification: up to DAS_BLOCK_SAMPLES samples a block, their
+// tree levels and path folds packed into the block's warps together.
 //
 // Computes what the batched sample verifier `_build_batch_fn` of
-// gethsharding_tpu/das/proofs.py (:188, an XLA computation over
+// gethsharding_tpu/das/proofs.py (:177, an XLA computation over
 // ops/keccak_jax.py there, not a Pallas kernel) computes, and what its
 // plain twin `verify_planes_plain` (das/proofs.py) computes: per sample,
 // the BMT root of its 4096-byte chunk (128 keccaks of the 32-byte
@@ -17,18 +18,37 @@
 // 32-bit operations each (24 rounds of 180: LOP3 takes any three-input
 // logic function, so chi and theta's folded XOR are one per 32-bit half,
 // a five-way parity two; a 64-bit rotation is two funnel shifts), against
-// ~4.4 KB of input.
+// ~4.4 KB of input. A warp's instruction takes the same scheduler time
+// whatever share of its lanes is busy, so the design keeps warps full.
 //
-// The design: the simplest that is right. Each thread keeps one sponge's
-// 25 lanes in registers: thread i hashes segment i into shared memory,
-// then each of the 7 levels halves the threads that hash, with a barrier
-// between levels and two node buffers in turn, so no level writes what
-// it reads. One thread derives the key and folds the path. Every phase
-// is a block-stride loop that no item of the same phase reads back, so
-// one thread running the block (the host shim of the tests) is a legal
-// schedule. The levels above the leaves leave most of the block idle, and
-// the key and the fold (9 permutations) run on one thread; a block per
-// sample keeps 1,600 samples in one wave on 132 SMs.
+// The design. Thread per sponge: each item of work is one sponge whose
+// 25 lanes stay in registers, every message index is static (the padding
+// goes in by selects), so nothing of it spills to local memory. A block
+// takes `per_block` consecutive rows. Its first thread lists the
+// rows with `valid` set and writes out = 0 for the others, which are
+// never hashed (the bucket's pad rows and the host's rejections); a block
+// with none left returns. Every phase is then one block-stride loop over
+// the (sample, node) items of all the listed rows, so the narrow levels
+// of a block's samples share warps where one sample alone would leave a
+// warp 1/32 to 1/2 busy. The launch gives a block ceil(n / SMs) rows, at
+// most DAS_BLOCK_SAMPLES: a large batch runs in one wave of full blocks,
+// a small one spreads over the SMs.
+//
+// The phases:
+//
+//   1. leaf pairs, 64 items a sample: keccak of segments 2i and 2i + 1
+//      and of the two leaves, into node slot i (3 permutations);
+//   2. five pair levels (32, 16, 8, 4, 2 items a sample): item i of the
+//      level of stride s hashes slots 2is and (2i + 1)s into slot 2is,
+//      in place;
+//   3. the tail, 1 item a sample: the BMT root from slots 0 and 32, the
+//      netstore key, the path fold level by level (masked levels pass
+//      the node through), and the verdict (up to 10 permutations).
+//
+// A barrier ends each phase. No item reads a slot that another item of
+// its phase writes, so one thread running the block in order (the host
+// shim of the tests) is a legal schedule; the kernel uses no warp
+// shuffle.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -38,11 +58,15 @@ namespace gs {
 
 typedef unsigned long long u64;
 
-constexpr int DAS_THREADS = 128;   // one per 32-byte segment
+constexpr int DAS_BLOCK_SAMPLES = 13;  // most rows a block verifies together
+constexpr int DAS_THREADS = 256;       // threads a block
+constexpr int DAS_ROUND_UNROLL = 2;    // keccak rounds a trip of the loop
 constexpr int DAS_SEGMENTS = 128;
-constexpr int DAS_DEPTH = 8;       // proof levels
+constexpr int DAS_PAIRS = DAS_SEGMENTS / 2;   // node slots a sample
+constexpr int DAS_PAIR_LEVELS = 5;     // widths 32 .. 2 in shared memory
+constexpr int DAS_DEPTH = 8;           // proof levels
 constexpr int DAS_CHUNK = 4096;
-constexpr u64 DAS_SPAN = 4096;     // the chunk's span, little-endian u64
+constexpr u64 DAS_SPAN = 4096;         // the chunk's span, little-endian u64
 
 static __constant__ u64 DAS_RC[24] = {
     0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull,
@@ -59,6 +83,25 @@ __device__ __forceinline__ u64 rotl(u64 v) {
   return (v << S) | (v >> (64 - S));
 }
 
+// a ^ b ^ c in one three-input LOP3 per 32-bit half. Written as C, the
+// compiler shares theta's b ^ c between a column's five lanes and spends
+// an extra XOR on it per half: 60 operations where 50 do.
+__device__ __forceinline__ u64 xor3(u64 a, u64 b, u64 c) {
+#ifdef __CUDA_ARCH__
+  unsigned lo, hi;
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;"
+      : "=r"(lo)
+      : "r"((unsigned)a), "r"((unsigned)b), "r"((unsigned)c));
+  asm("lop3.b32 %0, %1, %2, %3, 0x96;"
+      : "=r"(hi)
+      : "r"((unsigned)(a >> 32)), "r"((unsigned)(b >> 32)),
+        "r"((unsigned)(c >> 32)));
+  return ((u64)hi << 32) | lo;
+#else
+  return a ^ b ^ c;
+#endif
+}
+
 // one rho-pi step: lane J takes the carried lane rotated by S
 #define GS_RHO_PI(J, S) \
   {                     \
@@ -67,16 +110,20 @@ __device__ __forceinline__ u64 rotl(u64 v) {
     carry = next;       \
   }
 
-__device__ __forceinline__ void keccak_f1600(u64* a) {
+__device__ __forceinline__ void keccak_f1600(u64 (&a)[25]) {
+#pragma unroll (DAS_ROUND_UNROLL)
   for (int round = 0; round < 24; ++round) {
-    u64 c[5], d[5];
+    u64 c[5];
 #pragma unroll
     for (int x = 0; x < 5; ++x)
       c[x] = a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20];
+    // theta: each lane takes both parities in one three-input XOR
 #pragma unroll
-    for (int x = 0; x < 5; ++x) d[x] = c[(x + 4) % 5] ^ rotl<1>(c[(x + 1) % 5]);
+    for (int x = 0; x < 5; ++x) {
+      const u64 left = c[(x + 4) % 5], right = rotl<1>(c[(x + 1) % 5]);
 #pragma unroll
-    for (int i = 0; i < 25; ++i) a[i] ^= d[i % 5];
+      for (int y = 0; y < 25; y += 5) a[y + x] = xor3(a[y + x], left, right);
+    }
     // rho and pi along the cycle of lanes that starts at lane 1
     u64 carry = a[1];
     GS_RHO_PI(10, 1) GS_RHO_PI(7, 3) GS_RHO_PI(11, 6) GS_RHO_PI(17, 10)
@@ -99,61 +146,139 @@ __device__ __forceinline__ void keccak_f1600(u64* a) {
 }
 #undef GS_RHO_PI
 
-// keccak-256 of `words` little-endian 64-bit words (a message of at most
-// 16 words, one block) into out[0..3]
-__device__ __forceinline__ void keccak_words(const u64* msg, int words,
-                                             u64* out) {
+// keccak-256 of the first `words` (4, 5 or 8) little-endian 64-bit words
+// of m, one block, into out. The length picks the padding by selects, so
+// every index into the sponge is static.
+__device__ __forceinline__ void keccak_msg(const u64 (&m)[8], int words,
+                                           u64 (&out)[4]) {
   u64 a[25];
 #pragma unroll
-  for (int i = 0; i < 25; ++i) a[i] = 0;
-  for (int i = 0; i < words; ++i) a[i] = msg[i];
-  a[words] ^= 0x01ull;
-  a[16] ^= 0x8000000000000000ull;
+  for (int i = 0; i < 8; ++i)
+    a[i] = (i < words ? m[i] : 0ull) ^ (i == words ? 0x01ull : 0ull);
+  a[8] = words == 8 ? 0x01ull : 0ull;
+#pragma unroll
+  for (int i = 9; i < 25; ++i) a[i] = 0;
+  a[16] = 0x8000000000000000ull;
   keccak_f1600(a);
+#pragma unroll
   for (int i = 0; i < 4; ++i) out[i] = a[i];
 }
 
+// rows a block takes for n rows on `sms` SMs
+inline int das_block_rows(int n, int sms) {
+  const int rows = sms > 0 ? (n + sms - 1) / sms : DAS_BLOCK_SAMPLES;
+  return rows < 1 ? 1 : rows > DAS_BLOCK_SAMPLES ? DAS_BLOCK_SAMPLES : rows;
+}
+
+__device__ __forceinline__ void load4(u64 (&dst)[4], const u64* src) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) dst[j] = src[j];
+}
+
 // chunks (n, 4096), sibs (n, 8, 32), roots (n, 32): bytes; bits, levels
-// (n, 8), valid (n,), out (n,): 0/1 bytes. Block b verifies sample b.
+// (n, 8), valid (n,), out (n,): 0/1 bytes. Block b verifies rows
+// b * per_block onwards, per_block <= DAS_BLOCK_SAMPLES.
 __global__ void __launch_bounds__(DAS_THREADS)
     das_kernel(const unsigned char* chunks, const unsigned char* sibs,
                const unsigned char* bits, const unsigned char* levels,
-               const unsigned char* roots, const unsigned char* valid,
-               unsigned char* out) {
-  __shared__ u64 nodes[2][DAS_SEGMENTS][4];
-  const long long row = blockIdx.x;
-  const u64* chunk =
-      reinterpret_cast<const u64*>(chunks + row * DAS_CHUNK);
-  for (int i = threadIdx.x; i < DAS_SEGMENTS; i += blockDim.x)
-    keccak_words(chunk + 4 * i, 4, nodes[0][i]);
-  __syncthreads();
-  int src = 0;
-  for (int width = DAS_SEGMENTS / 2; width >= 1; width /= 2) {
-    for (int i = threadIdx.x; i < width; i += blockDim.x)
-      keccak_words(nodes[src][2 * i], 8, nodes[src ^ 1][i]);
-    __syncthreads();
-    src ^= 1;
-  }
-  if (threadIdx.x != 0) return;
-  u64 msg[8], node[4];
-  msg[0] = DAS_SPAN;
-  for (int j = 0; j < 4; ++j) msg[1 + j] = nodes[src][0][j];
-  keccak_words(msg, 5, node);
-  for (int level = 0; level < DAS_DEPTH; ++level) {
-    const long long at = row * DAS_DEPTH + level;
-    if (!levels[at]) continue;
-    const u64* sib = reinterpret_cast<const u64*>(sibs + at * 32);
-    const int right = bits[at] != 0;
-    for (int j = 0; j < 4; ++j) {
-      msg[j + 4 * right] = node[j];
-      msg[j + 4 * (1 - right)] = sib[j];
+               const unsigned char* roots, const unsigned char* valid, int n,
+               int per_block, unsigned char* out) {
+  __shared__ u64 nodes[DAS_BLOCK_SAMPLES][DAS_PAIRS][4];
+  __shared__ int rows[DAS_BLOCK_SAMPLES];
+  __shared__ int listed;
+  const int first = blockIdx.x * per_block;
+  if (threadIdx.x == 0) {
+    int k = 0;
+    for (int s = 0; s < per_block && first + s < n; ++s) {
+      if (valid[first + s])
+        rows[k++] = first + s;
+      else
+        out[first + s] = 0;
     }
-    keccak_words(msg, 8, node);
+    listed = k;
   }
-  const u64* root = reinterpret_cast<const u64*>(roots + row * 32);
-  u64 diff = 0;
-  for (int j = 0; j < 4; ++j) diff |= node[j] ^ root[j];
-  out[row] = (valid[row] != 0) && diff == 0;
+  __syncthreads();
+  const int k = listed;
+  if (k == 0) return;
+
+  // 1. leaf pairs: two segments' keccaks, then their pair
+  for (int it = threadIdx.x; it < k * DAS_PAIRS; it += blockDim.x) {
+    const int s = it / DAS_PAIRS, i = it % DAS_PAIRS;
+    const u64* seg = reinterpret_cast<const u64*>(
+                         chunks + (long long)rows[s] * DAS_CHUNK) + 8 * i;
+    u64 left[4], h[4];
+#pragma unroll 1
+    for (int step = 0; step < 3; ++step) {
+      u64 m[8];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        m[j] = step == 2 ? left[j] : seg[4 * step + j];
+        m[4 + j] = step == 2 ? h[j] : 0ull;
+      }
+      keccak_msg(m, step == 2 ? 8 : 4, h);
+      if (step == 0) load4(left, h);
+    }
+    load4(nodes[s][i], h);
+  }
+
+  // 2. the pair levels, in place: slot 2is takes (2is, (2i + 1)s)
+  for (int level = 0; level < DAS_PAIR_LEVELS; ++level) {
+    __syncthreads();
+    const int shift = 5 - level, stride = 1 << level;   // 32 items down to 2
+    for (int it = threadIdx.x; it < k << shift; it += blockDim.x) {
+      const int s = it >> shift, at = (it & ((1 << shift) - 1)) * 2 * stride;
+      u64 m[8], h[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        m[j] = nodes[s][at][j];
+        m[4 + j] = nodes[s][at + stride][j];
+      }
+      keccak_msg(m, 8, h);
+      load4(nodes[s][at], h);
+    }
+  }
+  __syncthreads();
+
+  // 3. the tail: the BMT root, the netstore key, the path fold, the verdict
+  for (int s = threadIdx.x; s < k; s += blockDim.x) {
+    const long long row = rows[s];
+    u64 node[4];
+#pragma unroll 1
+    for (int step = 0; step < 2 + DAS_DEPTH; ++step) {
+      u64 m[8];
+      int words = 8;
+      if (step == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          m[j] = nodes[s][0][j];
+          m[4 + j] = nodes[s][DAS_PAIRS / 2][j];
+        }
+      } else if (step == 1) {
+        m[0] = DAS_SPAN;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m[1 + j] = node[j];
+        m[5] = m[6] = m[7] = 0;
+        words = 5;
+      } else {
+        const long long at = row * DAS_DEPTH + (step - 2);
+        if (!levels[at]) continue;
+        const u64* sib = reinterpret_cast<const u64*>(sibs + at * 32);
+        const bool right = bits[at] != 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const u64 sj = sib[j];
+          m[j] = right ? sj : node[j];
+          m[4 + j] = right ? node[j] : sj;
+        }
+      }
+      keccak_msg(m, words, node);
+    }
+    const u64* root = reinterpret_cast<const u64*>(roots + row * 32);
+    u64 diff = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) diff |= node[j] ^ root[j];
+    out[row] = diff == 0;
+  }
 }
 
 }  // namespace gs
@@ -171,9 +296,16 @@ extern "C" int gs_das_samples(const unsigned char* chunks,
                               unsigned char* out, cudaStream_t stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  gs::das_kernel<<<n, gs::DAS_THREADS, 0, stream>>>(chunks, sibs, bits,
-                                                    levels, roots, valid,
-                                                    out);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return (int)err;
+  const int per_block = gs::das_block_rows(n, sms);
+  gs::das_kernel<<<(n + per_block - 1) / per_block, gs::DAS_THREADS, 0,
+                   stream>>>(chunks, sibs, bits, levels, roots, valid, n,
+                             per_block, out);
   return (int)cudaGetLastError();
 }
 #endif

@@ -12,7 +12,8 @@ leaf i to the root (at most 8 siblings: a blob has at most 255 chunks).
   malformed row (wrong chunk size, bad index, an over-deep or ragged
   proof, a wrong-size root) folded into `valid`, so the batched verifier
   only computes the well-formed case and its verdicts equal the scalar
-  ones bit for bit;
+  ones bit for bit; `stage_samples` writes the same planes into arrays
+  the caller keeps (the backend's reused staging planes);
 - `verify_planes` is the route (`ops/route.py`): one launch of the
   kernel for CUDA tensors, `verify_planes_plain` (the reference's
   `_build_batch_fn`, on `ops/keccak.py`) for CPU tensors and inside
@@ -51,7 +52,7 @@ _SPAN = np.frombuffer(_SPAN_PREFIX, dtype=np.uint8).copy()
 
 KERNEL = _build.Kernel("das_samples", "gs_das_samples",
                        "gethsharding_tpu_torch/csrc/das.cu",
-                       "gethsharding_tpu/das/proofs.py:188")
+                       "gethsharding_tpu/das/proofs.py:177")
 
 
 def chunk_leaf(chunk: bytes) -> bytes:
@@ -136,45 +137,87 @@ def verify_samples(chunks: Sequence[bytes], indices: Sequence[int],
 # -- fixed-shape planes for the batched verifier ------------------------------
 
 
-def marshal_samples(chunks: Sequence[bytes], indices: Sequence[int],
-                    proofs: Sequence[Sequence[bytes]],
-                    roots: Sequence[bytes], bucket: int) -> dict:
-    """Rows -> fixed (bucket, ...) uint8 / bool planes: chunks (B, 4096),
-    sibs (B, 8, 32), bits and levels (B, 8), roots (B, 32), valid (B,).
-    Every scalar-path rejection becomes valid[b] = False here."""
-    n = len(chunks)
-    chunk_plane = np.zeros((bucket, DAS_CHUNK_SIZE), dtype=np.uint8)
-    sib_plane = np.zeros((bucket, MAX_PROOF_DEPTH, 32), dtype=np.uint8)
-    bit_plane = np.zeros((bucket, MAX_PROOF_DEPTH), dtype=bool)
-    lvl_plane = np.zeros((bucket, MAX_PROOF_DEPTH), dtype=bool)
-    root_plane = np.zeros((bucket, 32), dtype=np.uint8)
-    valid = np.zeros((bucket,), dtype=bool)
+PLANES = ("chunks", "sibs", "bits", "levels", "roots", "valid")
+
+_ZERO_CHUNK = bytes(DAS_CHUNK_SIZE)
+_ZERO_SIBS = [bytes(32 * k) for k in range(MAX_PROOF_DEPTH + 1)]
+_LEVELS = np.arange(MAX_PROOF_DEPTH)
+_SIBLING_SIZE = {32}
+
+
+def plane_shapes(bucket: int) -> dict:
+    """(shape, numpy dtype) of each sample plane at `bucket` rows."""
+    return {"chunks": ((bucket, DAS_CHUNK_SIZE), np.uint8),
+            "sibs": ((bucket, MAX_PROOF_DEPTH, 32), np.uint8),
+            "bits": ((bucket, MAX_PROOF_DEPTH), np.bool_),
+            "levels": ((bucket, MAX_PROOF_DEPTH), np.bool_),
+            "roots": ((bucket, 32), np.uint8),
+            "valid": ((bucket,), np.bool_)}
+
+
+def stage_samples(chunks: Sequence[bytes], indices: Sequence[int],
+                  proofs: Sequence[Sequence[bytes]], roots: Sequence[bytes],
+                  planes: dict) -> int:
+    """Write the rows into `planes` (numpy arrays of `plane_shapes`,
+    possibly holding an earlier call's rows): every byte of them, so they
+    equal `marshal_samples`' planes. One Python pass checks the rows as
+    the scalar path does; then each plane is one copy of a `b"".join`.
+    Returns the row count."""
+    n, bucket = len(chunks), planes["valid"].shape[0]
+    if n > bucket:
+        raise ValueError(f"{n} rows do not fit a bucket of {bucket}")
+    chunk_parts, sib_parts, root_parts = [], [], []
+    index_of, depth_of, rejected = [], [], []
+    add_chunk, add_sibs, add_root = (chunk_parts.append, sib_parts.extend,
+                                     root_parts.append)
+    add_index, add_depth = index_of.append, depth_of.append
     for b in range(n):
         chunk = bytes(chunks[b])
         root = bytes(roots[b])
-        proof = [bytes(s) for s in proofs[b]]
+        proof = list(map(bytes, proofs[b]))
         try:
             index = int(indices[b])
         except (TypeError, ValueError):
-            continue
-        if (len(chunk) != DAS_CHUNK_SIZE or len(root) != 32
-                or index < 0 or len(proof) > MAX_PROOF_DEPTH
-                or index >> len(proof)
-                or any(len(s) != 32 for s in proof)):
-            continue
-        chunk_plane[b] = np.frombuffer(chunk, dtype=np.uint8)
-        for level, sibling in enumerate(proof):
-            sib_plane[b, level] = np.frombuffer(sibling, dtype=np.uint8)
-            bit_plane[b, level] = bool((index >> level) & 1)
-            lvl_plane[b, level] = True
-        root_plane[b] = np.frombuffer(root, dtype=np.uint8)
-        valid[b] = True
-    return {"chunks": chunk_plane, "sibs": sib_plane, "bits": bit_plane,
-            "levels": lvl_plane, "roots": root_plane, "valid": valid,
-            "rows": n}
+            index = -1
+        depth = len(proof)
+        if (index < 0 or len(chunk) != DAS_CHUNK_SIZE or len(root) != 32
+                or depth > MAX_PROOF_DEPTH or index >> depth
+                or not set(map(len, proof)) <= _SIBLING_SIZE):
+            rejected.append(b)
+            chunk, root, proof, index, depth = _ZERO_CHUNK, ZERO_LEAF, [], 0, 0
+        add_chunk(chunk)
+        proof.append(_ZERO_SIBS[MAX_PROOF_DEPTH - depth])
+        add_sibs(proof)
+        add_root(root)
+        add_index(index)
+        add_depth(depth)
+    for key, parts in (("chunks", chunk_parts), ("sibs", sib_parts),
+                       ("roots", root_parts)):
+        plane = planes[key].reshape(bucket, -1)
+        plane[:n] = np.frombuffer(b"".join(parts), np.uint8).reshape(
+            n, plane.shape[1])
+        plane[n:] = 0
+    levels = _LEVELS < np.asarray(depth_of, np.int64).reshape(n, 1)
+    planes["levels"][:n] = levels
+    planes["bits"][:n] = ((np.asarray(index_of, np.int64).reshape(n, 1)
+                           >> _LEVELS) & 1).astype(bool) & levels
+    planes["valid"][:n] = True
+    planes["valid"][rejected] = False
+    for key in ("levels", "bits", "valid"):
+        planes[key][n:] = False
+    return n
 
 
-PLANES = ("chunks", "sibs", "bits", "levels", "roots", "valid")
+def marshal_samples(chunks: Sequence[bytes], indices: Sequence[int],
+                    proofs: Sequence[Sequence[bytes]],
+                    roots: Sequence[bytes], bucket: int) -> dict:
+    """Rows -> fresh (bucket, ...) uint8 / bool planes: chunks (B, 4096),
+    sibs (B, 8, 32), bits and levels (B, 8), roots (B, 32), valid (B,).
+    Every scalar-path rejection becomes valid[b] = False here."""
+    planes = {key: np.empty(shape, dtype)
+              for key, (shape, dtype) in plane_shapes(bucket).items()}
+    planes["rows"] = stage_samples(chunks, indices, proofs, roots, planes)
+    return planes
 
 
 def verify_planes_plain(chunks, sibs, bits, levels, roots, valid):

@@ -38,6 +38,7 @@ from __future__ import annotations
 import os
 import time
 
+import numpy as np
 import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
@@ -66,6 +67,10 @@ def committee_planes(messages, sig_rows, pk_rows):
             py, pm, host["hok"])
 
 
+_TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.bool_): torch.bool}
+
+
 class TorchSigBackend(SigBackend):
     """The committee audit through the CUDA kernels (`device=None` is the
     card) or, with `device="cpu"`, through their plain versions. With
@@ -92,6 +97,8 @@ class TorchSigBackend(SigBackend):
         self.last_timing: dict | None = None
         # the sample planes' bytes of the last `das_verify_samples`
         self.last_wire: dict | None = None
+        # `das_verify_samples`' staging planes, by bucket
+        self._sample_staging: dict = {}
 
     def ecrecover_addresses(self, digests, sigs65):
         """One launch of the recovery kernel over the batch, padded to
@@ -125,7 +132,9 @@ class TorchSigBackend(SigBackend):
     def das_verify_samples(self, chunks, indices, proofs, roots):
         """One launch of the sample verifier over the batch, padded to
         `marshal.bucket_size`; malformed rows are folded into the `valid`
-        plane on the host (`das_proofs.marshal_samples`)."""
+        plane on the host (`das_proofs.stage_samples`, into this bucket's
+        staging planes). `last_timing` splits the call into the marshal,
+        the upload with the kernel (`device_s`) and the readback."""
         n = len(chunks)
         if n == 0:
             self.last_wire = None
@@ -133,20 +142,42 @@ class TorchSigBackend(SigBackend):
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
-        st = das_proofs.marshal_samples(chunks, indices, proofs, roots,
-                                        bucket)
-        planes = [st[k] for k in das_proofs.PLANES]
-        sample_bytes = sum(int(p.nbytes) for p in planes)
+        staged, arrays = self.sample_staging(bucket)
+        das_proofs.stage_samples(chunks, indices, proofs, roots, arrays)
+        sample_bytes = sum(int(a.nbytes) for a in arrays.values())
         self.last_wire = {"op": "das_verify_samples",
                           "wire_bytes": sample_bytes,
                           "sample_wire_bytes": sample_bytes,
                           "rows": n, "bucket": bucket}
         t1 = time.perf_counter()
         out = das_proofs.verify_planes(
-            *(torch.as_tensor(p, device=self.device) for p in planes))
+            *(staged[k].to(self.device, non_blocking=True)
+              for k in das_proofs.PLANES))
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        t2 = time.perf_counter()
+        # the readback ends the call's use of the staging planes: the next
+        # call may overwrite them
         res = [bool(b) for b in out.cpu()[:n].tolist()]
-        self.last_timing = self._timing(before, t0, t1, n, bucket)
+        self.last_timing = self._timing(before, t0, t1, n, bucket,
+                                        device_s=t2 - t1,
+                                        readback_s=time.perf_counter() - t2)
         return res
+
+    def sample_staging(self, bucket: int):
+        """This bucket's sample planes, kept for reuse: torch tensors
+        (pinned on a CUDA backend, so uploads do not block) and numpy
+        views of them, by plane name."""
+        if bucket not in self._sample_staging:
+            pin = self.device.type == "cuda"
+            staged = {
+                key: torch.empty(shape, dtype=_TORCH_DTYPE[np.dtype(dt)],
+                                 pin_memory=pin)
+                for key, (shape, dt) in das_proofs.plane_shapes(
+                    bucket).items()}
+            self._sample_staging[bucket] = (
+                staged, {k: t.numpy() for k, t in staged.items()})
+        return self._sample_staging[bucket]
 
     @staticmethod
     def _timing(before, t0, t1, rows, bucket, **extra) -> dict:

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_das_rows
 from gethsharding_tpu_torch.crypto import bn256 as bls
 from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
 from gethsharding_tpu_torch.crypto.keccak import keccak256
@@ -628,20 +629,39 @@ def test_ecrecover_is_one_launch_per_call(cuda):
         assert torch.equal(g.reshape(w.shape), w)
 
 
+_DAS_S = torch_das_rows.block_samples()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 113, 1792])
+@pytest.mark.parametrize("n", sorted({1, _DAS_S - 1, _DAS_S, _DAS_S + 1, 15,
+                                      16, 113, 1792}))
 def test_das_kernel_equals_plain_at_rows(cuda, n):
-    """One sample, 113 and the bucket of a 100-shard period (1,792):
-    verdicts equal to the plain version on the card, in one launch."""
-    planes = _sample_planes(n, cuda)
-    before = das.KERNEL.launches
-    got = das.verify_planes(*planes)
-    assert das.KERNEL.launches == before + 1
-    with route.plain_versions():
-        want = das.verify_planes(*planes)
-    assert torch.equal(got, want)
+    """Row counts that leave a block of DAS_BLOCK_SAMPLES rows part full,
+    113 and the bucket of a 100-shard period (1,792): verdicts equal to
+    the plain version on the card, one launch a call, on samples of one
+    depth-8 tree, on rows of mixed depths (0, 2, 3 and 8 in each block)
+    with hostile and host-rejected rows, and on those rows with the
+    valid flag cleared for a whole block."""
+    mixed = das.marshal_samples(*torch_das_rows.mixed_rows(n), n)
+    dark = mixed["valid"].copy()
+    dark[_DAS_S:2 * _DAS_S] = False
+    for planes in (_sample_planes(n, cuda),
+                   [torch.as_tensor(mixed[k], device=cuda)
+                    for k in das.PLANES],
+                   [torch.as_tensor(mixed[k] if k != "valid" else dark,
+                                    device=cuda) for k in das.PLANES]):
+        before = das.KERNEL.launches
+        got = das.verify_planes(*planes)
+        assert das.KERNEL.launches == before + 1
+        with route.plain_versions():
+            want = das.verify_planes(*planes)
+        assert torch.equal(got, want)
+    assert got[:_DAS_S].tolist() == das.verify_samples(
+        *(col[:_DAS_S] for col in torch_das_rows.mixed_rows(n)))
     if n > 1:
-        assert got.any() and not got.all()
+        assert want.any() and not want.all()
+    if n > _DAS_S:
+        assert not got[_DAS_S:2 * _DAS_S].any()
 
 
 @pytest.mark.cuda

@@ -15,10 +15,18 @@ phase on the port, against the JAX package, on the CPU:
    index outside the proven tree, a wrong root, a withheld sample;
 4. `csrc/das.cu` compiled for the host (tests/torch_host_shim.py, one
    thread per block) against `verify_planes` on the same rows and on a
-   partial bucket;
+   partial bucket; on row counts that leave a block of
+   DAS_BLOCK_SAMPLES rows part full, with proofs of depths 0, 2, 3 and
+   8 mixed in each block (tests/torch_das_rows.py), a block whose rows
+   are all invalid and a bucket with pad rows;
 5. `TorchSigBackend(device="cpu").das_verify_samples` against the
    reference `python` and `jax` backends, with its wire ledger, on the
-   hostile set, the empty batch and a 1-row batch;
+   hostile set, the empty batch, a 1-row batch and the wire probes
+   (an index given as a bool, a float, a string, None, -1, 2^70 or one
+   past the proven tree; 31- and 33-byte roots; a proof as a list;
+   bytearray siblings; bytearray and memoryview chunks); the backend's
+   reused staging planes equal to `marshal_samples`' after calls of
+   other sizes into the same bucket;
 6. the reference's `Notary.verify_proposer_signatures` and
    `_sampled_verdicts` (merkle mode) on `TorchSigBackend(device="cpu")`,
    equal to the `python` backend's on a period with a forged proposer
@@ -35,6 +43,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_das_rows
 import torch_host_shim
 from gethsharding_tpu.crypto import secp256k1 as ref_ecdsa
 from gethsharding_tpu.crypto.keccak import keccak256
@@ -186,11 +195,16 @@ _RUNNER = r"""
 extern "C" void run(const unsigned char* chunks, const unsigned char* sibs,
                     const unsigned char* bits, const unsigned char* levels,
                     const unsigned char* roots, const unsigned char* valid,
-                    int n, unsigned char* out) {
-  for (int b = 0; b < n; ++b) {
+                    int n, int per_block, unsigned char* out) {
+  for (int b = 0; b * per_block < n; ++b) {
     blockIdx.x = b;
-    gs::das_kernel(chunks, sibs, bits, levels, roots, valid, out);
+    gs::das_kernel(chunks, sibs, bits, levels, roots, valid, n, per_block,
+                   out);
   }
+}
+
+extern "C" int block_rows(int n, int sms) {
+  return gs::das_block_rows(n, sms);
 }"""
 
 
@@ -200,11 +214,17 @@ def host_kernel(tmp_path_factory):
                                  "das.cu", _RUNNER)
 
 
-def _on_host(lib, plane_map, n):
+def _on_host(lib, plane_map, n, per_block=None):
+    """The kernel's verdicts on the first n rows of the planes, blocks of
+    `per_block` rows (None: as the launch picks them on 132 SMs); every
+    row's output byte must be written (0 or 1)."""
     arrs = [np.ascontiguousarray(plane_map[k][:n]) for k in proofs.PLANES]
-    out = np.zeros(n, np.uint8)
+    out = np.full(n, 0xAA, np.uint8)
     ptr = lambda a: ctypes.c_void_p(a.ctypes.data)
-    lib.run(*map(ptr, arrs), n, ptr(out))
+    if per_block is None:
+        per_block = lib.block_rows(n, 132)
+    lib.run(*map(ptr, arrs), n, per_block, ptr(out))
+    assert set(out.tolist()) <= {0, 1}
     return out.astype(bool)
 
 
@@ -216,6 +236,80 @@ def test_das_source_on_host_equals_plain(host_kernel, planes, plain_verdicts,
     got, _ = planes
     assert (_on_host(host_kernel, got, rows)
             == plain_verdicts[:rows].numpy()).all()
+
+
+S = torch_das_rows.block_samples()
+MIXED = 2 * S + 3       # three blocks, the last part full
+
+
+@pytest.fixture(scope="module")
+def mixed():
+    """The planes of `torch_das_rows.mixed_rows(MIXED)` (rows whose valid
+    flag is cleared for the whole second block) and the plain verdicts on
+    them; rows are independent, so a prefix of them is the verdicts of
+    the prefix."""
+    rows = torch_das_rows.mixed_rows(MIXED)
+    st = proofs.marshal_samples(*rows, MIXED)
+    want_rows = proofs.verify_samples(*rows)
+    assert st["valid"].any() and not st["valid"].all()
+    plain = proofs.verify_planes(*(torch.as_tensor(st[k])
+                                   for k in proofs.PLANES)).numpy()
+    assert plain.tolist() == want_rows
+    dark = {k: v.copy() for k, v in st.items() if k != "rows"}
+    dark["valid"][S:2 * S] = False
+    dark_plain = plain.copy()
+    dark_plain[S:2 * S] = False
+    return st, plain, dark, dark_plain
+
+
+def test_block_rows_follow_the_sms(host_kernel):
+    """The launch gives a block ceil(n / SMs) rows, 1 to
+    DAS_BLOCK_SAMPLES: the notary period's bucket of 1,792 rows takes S
+    rows a block on 132 SMs, a 10-shard period's 160 two."""
+    rows = host_kernel.block_rows
+    assert rows(1792, 132) == S == min(S, 14)
+    assert rows(160, 132) == 2 and rows(1, 132) == 1 and rows(0, 132) == 1
+    assert rows(132 * S + 1, 132) == S and rows(5, 0) == S
+
+
+@pytest.mark.parametrize("rows", sorted({1, S - 1, S, S + 1, 15, 16}))
+def test_das_source_on_host_part_full_blocks(host_kernel, rows):
+    """Row counts that leave a block part full, proofs of depths 0, 2, 3
+    and 8 mixed in each block, hostile and host-rejected rows."""
+    st = proofs.marshal_samples(*torch_das_rows.mixed_rows(rows), rows)
+    want = proofs.verify_samples(*torch_das_rows.mixed_rows(rows))
+    assert _on_host(host_kernel, st, rows, S).tolist() == want
+
+
+@pytest.mark.parametrize("per_block", sorted({1, 3, S}))
+def test_das_source_on_host_mixed_depths(host_kernel, mixed, per_block):
+    """Each block mixes the four trees' depths; verdicts equal the plain
+    version row for row whatever the rows a block, and every depth has a
+    True row."""
+    st, plain, _, _ = mixed
+    got = _on_host(host_kernel, st, MIXED, per_block)
+    assert (got == plain).all()
+    depths = st["levels"].sum(axis=1)
+    assert {int(d) for d in depths[got]} == {0, 2, 3, 8}
+
+
+def test_das_source_on_host_block_all_invalid(host_kernel, mixed):
+    """A block whose rows all have valid = 0 writes 0 for each of them and
+    leaves the blocks around it as they were."""
+    _, _, dark, dark_plain = mixed
+    got = _on_host(host_kernel, dark, MIXED, S)
+    assert not got[S:2 * S].any()
+    assert (got == dark_plain).all()
+
+
+def test_das_source_on_host_pad_rows(host_kernel):
+    """A bucket with pad rows: 13 rows in the backend's bucket of 14;
+    the pad row and the host's rejections are 0."""
+    rows = torch_das_rows.mixed_rows(13)
+    bucket = 14
+    st = proofs.marshal_samples(*rows, bucket)
+    got = _on_host(host_kernel, st, bucket, S)
+    assert got.tolist() == proofs.verify_samples(*rows) + [False]
 
 
 def test_sample_permutations_count_the_work():
@@ -251,6 +345,92 @@ def test_backend_empty_and_one_row_batches(samples):
     assert ref_get_backend("jax").das_verify_samples(*one) == want
     assert backend.das_verify_samples(*one) == want
     assert backend.last_wire["bucket"] == 1
+
+
+def _probe_rows():
+    """(rows, labels, verdicts): an honest sample at index 1 of a depth-4
+    tree and the wire probes, 16 rows (the hostile set's bucket, so the
+    `jax` backend reuses its compile). Indices go through `int()` as on
+    the scalar path: True, 1.0 and "1" name index 1."""
+    chunks, levels, root = _blob(13, 30000)
+    chunk, good = chunks[1], proofs.merkle_proof(levels, 1)
+    past = 1 << len(good)
+    probes = [
+        ("honest", chunk, 1, good, root, True),
+        ("index True", chunk, True, good, root, True),
+        ("index False", chunk, False, good, root, False),
+        ("index 1.0", chunk, 1.0, good, root, True),
+        ('index "1"', chunk, "1", good, root, True),
+        ('index "x"', chunk, "x", good, root, False),
+        ("index None", chunk, None, good, root, False),
+        ("index -1", chunk, -1, good, root, False),
+        ("index 2^70", chunk, 1 << 70, good, root, False),
+        ("one past the tree", chunk, past, good, root, False),
+        ("31-byte root", chunk, 1, good, root[:31], False),
+        ("33-byte root", chunk, 1, good, root + b"\x00", False),
+        ("proof as a list", chunk, 1, list(good), root, True),
+        ("bytearray siblings", chunk, 1,
+         tuple(bytearray(g) for g in good), root, True),
+        ("bytearray chunk", bytearray(chunk), 1, good, root, True),
+        ("memoryview chunk", memoryview(chunk), 1, good, root, True),
+    ]
+    labels = [p[0] for p in probes]
+    rows = tuple(list(col) for col in zip(*(p[1:5] for p in probes)))
+    return rows, labels, [p[5] for p in probes]
+
+
+def test_backend_wire_probes_equal_reference_backends():
+    """The probes through `TorchSigBackend(device="cpu")` give the
+    reference `python` and `jax` backends' verdicts and the scalar
+    truth's, row for row."""
+    rows, labels, want = _probe_rows()
+    assert rproofs.verify_samples(*rows) == want
+    assert proofs.verify_samples(*rows) == want
+    for name in ("python", "jax"):
+        assert ref_get_backend(name).das_verify_samples(*rows) == want, name
+    backend = TorchSigBackend(device="cpu")
+    got = backend.das_verify_samples(*rows)
+    assert got == want, [l for l, g, w in zip(labels, got, want) if g != w]
+    assert backend.last_wire["bucket"] == BUCKET
+
+
+def test_wire_probe_planes_on_host_kernel(host_kernel):
+    """The probes' planes equal the reference's, and the kernel source
+    under the host shim gives the plain version's verdicts on them."""
+    rows, _, want = _probe_rows()
+    got = proofs.marshal_samples(*rows, BUCKET)
+    ref = rproofs.marshal_samples(*rows, BUCKET)
+    for key in proofs.PLANES:
+        assert (got[key] == ref[key]).all(), key
+    plain = proofs.verify_planes(*(torch.as_tensor(got[k])
+                                   for k in proofs.PLANES))
+    assert plain.tolist() == want
+    assert _on_host(host_kernel, got, BUCKET).tolist() == want
+
+
+def test_staging_planes_equal_marshal(samples):
+    """The backend writes each call's planes into the staging planes it
+    keeps for the bucket; after calls of other sizes and other rows into
+    the same bucket they still equal `marshal_samples`' (no stale row of
+    an earlier call survives), and so do the verdicts."""
+    rows, _, want = samples
+    probes, _, probe_want = _probe_rows()
+    backend = TorchSigBackend(device="cpu")
+    flipped = tuple(col[::-1] for col in rows)
+    for batch, verdicts in ((probes, probe_want), (rows, want),
+                            (flipped, want[::-1])):
+        assert backend.das_verify_samples(*batch) == verdicts
+        staged, arrays = backend.sample_staging(BUCKET)
+        fresh = proofs.marshal_samples(*batch, BUCKET)
+        for key in proofs.PLANES:
+            assert (arrays[key] == fresh[key]).all(), key
+            assert (staged[key].numpy() == fresh[key]).all(), key
+    short = tuple(col[:4] for col in probes)
+    assert proofs.stage_samples(*short, arrays) == 4
+    fresh = proofs.marshal_samples(*short, BUCKET)
+    for key in proofs.PLANES:
+        assert (arrays[key] == fresh[key]).all(), key
+    assert len(backend._sample_staging) == 1
 
 
 # == 6. the notary's vote phase on the port ==================================
