@@ -11,7 +11,9 @@ resident on the card) and the recompute path (without keys):
 
 1. names the card and its power limit (nvidia-smi);
 2. builds the CUDA kernels of `gethsharding_tpu_torch/csrc/` (timed) and
-   prints each kernel's registers and spills (ptxas);
+   prints each kernel's registers and spills (ptxas); the exact form's
+   instances (`norm_kernel<W, 1>`, `tower_kernel<K, 1>`, and the probes of
+   the exact carries and tail) again, failing the run on a stack frame or a spill;
 3. makes a protocol-true period on the host: secret keys sk_j = j+1,
    votes (j+1)·H(m_s) and pubkeys (j+1)·G2 by repeated point addition,
    the committee order rotated per shard, and hostile rows with known
@@ -73,7 +75,14 @@ resident on the card) and the recompute path (without keys):
    exact tower kernel (`tower_exact`) on every product kind, the 22-limb
    conv (`conv_exact`) on every combine and the exact normalize at widths
    22 to 52, on the same edge inputs as above, against their plain
-   versions; then, counted from 0, the 100 × 135 recompute audit with
+   versions; the exact ladder's carries into 24, 23 and 22 limbs as its
+   tail runs them (`norm.carry_probe`), its tail alone (`norm.tail_probe`) and `norm_exact`
+   on `norm.carry_edge_rows` (whole-width
+   carries and borrows, alternating 0/4095, negative values, carries off
+   the top, ±2^28 and int32-edge limbs, seeded rows), against
+   `limb.carry`, `norm.tail_plain` and the plain normalize; then,
+   counted from 0, the
+   100 × 135 recompute audit with
    keys and precomp off (`TorchSigBackend(precomp=False)`): the expected
    verdicts, one launch of each audit kernel, the exact normalize's
    launches on every input shape, and verdicts and Miller product f
@@ -84,9 +93,11 @@ resident on the card) and the recompute path (without keys):
    normalize inputs and the batch's line tables and f against the plain
    route on the card; the aggregate votes of step 8 in this form; and it
    times both audits (cold, warm, and for precomp a period of new
-   messages with resident tables), the exact normalize, the exact tower
-   at each of its shapes in the warm audit and the 22-limb conv at the
-   line product. The subprocess failing fails the run.
+   messages with resident tables), the exact normalize (at its most
+   frequent shape of the recompute audit and at each shape of the warm
+   precomp audit), the exact tower at each of its shapes in the warm
+   audit and the 22-limb conv at the line product. The subprocess failing
+   fails the run.
    Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; the Fp2 products of the final exponentiation's Fp12
@@ -326,7 +337,8 @@ def count_multiply_adds(mk, fn, karatsuba: bool = False) -> int:
 def ptxas_report(log: str) -> list:
     """(kernel, registers, stack frame bytes, spill stores, spill loads)
     of every entry function in nvcc's -Xptxas -v log, names demangled to
-    `name<args>`."""
+    `name<args>` (an int argument, then a NormForm one: `norm_kernel<25,
+    1>` is the exact form's instance)."""
     rows, name, spill = [], "?", (0, 0, 0)
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '_ZN2gs(\d+)(\w+)'",
@@ -334,9 +346,10 @@ def ptxas_report(log: str) -> list:
         if entry:
             size, rest = int(entry.group(1)), entry.group(2)
             name = rest[:size]
-            targs = re.match(r"ILi(\d+)E", rest[size:])
+            targs = re.match(r"ILi(\d+)E(?:L\w*?NormFormE(\d+)E)?",
+                             rest[size:])
             if targs:
-                name += f"<{targs.group(1)}>"
+                name += "<" + ", ".join(g for g in targs.groups() if g) + ">"
         found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
         if found:
@@ -366,6 +379,33 @@ def kernel_ptxas(source: str, kernel: str, log: str):
     if not rows:
         fail(f"ptxas reported nothing for {kernel}")
     return rows[0]
+
+
+def exact_ptxas(log: str) -> list:
+    """The ptxas rows of the exact form's instances (norm_kernel<W, 1>,
+    tower_kernel<K, 1>) and of the exact carry's and tail's probes, from
+    the build's log or, where the library was already built, from
+    norm.cu and tower.cu compiled alone (both nvcc processes at once)."""
+    from gethsharding_tpu_torch.ops import _build
+
+    pick = lambda rows: [r for r in rows if r[0].endswith(", 1>")
+                         or r[0].startswith(("norm_carry_kernel",
+                                             "norm_tail_kernel"))]
+    rows = pick(ptxas_report(log))
+    if not rows:
+        procs = [subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-c",
+             str(_build.SRC_DIR / src), "-o",
+             str(_build.BUILD_DIR / f"{src}.ptxas.o")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in ("norm.cu", "tower.cu")]
+        for src, proc in zip(("norm.cu", "tower.cu"), procs):
+            out, _ = proc.communicate(timeout=600)
+            (_build.BUILD_DIR / f"{src}.ptxas.o").unlink(missing_ok=True)
+            rows += pick(ptxas_report(out))
+    if len([r for r in rows if r[0].endswith(", 1>")]) != 8:
+        fail(f"ptxas reported {len(rows)} rows for the exact instances")
+    return rows
 
 
 def source_constants(source: str, prefix: str) -> dict:
@@ -1164,6 +1204,30 @@ def exact_phase(seed: int) -> int:
               flush=True)
         if err:
             fail(f"{name} disagrees with its plain version")
+    # the ladder's carries as its tail runs them, the tail, and the whole
+    # normalize, on rows that run the carries' longest chains
+    crafted = norm.carry_edge_rows(seed, random_rows=4000).to(dev)
+    carry_err = max(max_abs_err(norm.carry_probe(crafted, nout),
+                                norm.carry_plain(crafted, nout))
+                    for nout in norm.CARRY_WIDTHS)
+    tail_err = max_abs_err(norm.tail_probe(bn.FP, crafted),
+                           norm.tail_plain(bn.FP, crafted))
+    crafted_err = max_abs_err(bn.FP.normalize(crafted),
+                              norm.normalize_plain(bn.FP, crafted))
+    print(f"exact form: the ladder's carries as its tail runs them "
+          f"(gs_norm_carry) into "
+          f"{norm.CARRY_WIDTHS} limbs: max |kernel - limb.carry| = "
+          f"{carry_err}; its tail alone (gs_norm_tail): max |kernel - "
+          f"tail_plain| = {tail_err}; norm_exact on the same rows: max "
+          f"|kernel - plain| = {crafted_err} (tolerance 0; "
+          f"{crafted.shape[0]} rows: "
+          f"whole-width carries and borrows, alternating 0/4095, negative "
+          f"values, carries off the top, ±2^28 and int32-edge limbs, "
+          f"seeded rows within ±2^26)", flush=True)
+    if carry_err or tail_err or crafted_err:
+        fail("the exact carry, tail or norm_exact disagrees with its plain "
+             "version on the crafted rows")
+    edge["norm"] = max(edge["norm"], crafted_err)
 
     # -- the recompute audit (keys, precomp off) ----------------------------
     backend = TorchSigBackend(precomp=False)
@@ -1374,6 +1438,16 @@ def exact_phase(seed: int) -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})
 
+    # the exact normalize at each shape of the warm precomp audit
+    for key in sorted(k for k in warm_log.counts if k[0] == "norm"):
+        sample = warm_log.samples[key]
+        ms_w = cuda_ms(lambda: norm.normalize_kernel(*sample), 50)
+        r_w = norm_exact_work(key)
+        print(f"time norm_exact: kernel {ms_w:.5f} ms per launch at {key[1]} "
+              f"({warm_log.counts[key]} launches per warm precomp audit), "
+              f"bound {r_w['bound_ms']:.6f} ms ({r_w['bound_by']}) [{card}]",
+              flush=True)
+
     # the exact tower at each shape of the warm precomp audit
     warm_counts = warm_log.counts
     tower_keys = sorted((k for k in warm_counts if k[0] == "tower"),
@@ -1500,6 +1574,12 @@ def main() -> int:
     for name, regs, stack, stores, loads in ptxas_report(_build.build_log):
         print(f"  ptxas {name}: {regs} registers, stack frame {stack} B, "
               f"spill stores {stores} B, spill loads {loads} B")
+    # the exact form's instances: its ladder keeps every limb in registers
+    for name, regs, stack, stores, loads in exact_ptxas(_build.build_log):
+        print(f"exact form: ptxas {name}: {regs} registers, stack frame "
+              f"{stack} B, spill stores {stores} B, spill loads {loads} B")
+        if stack or stores or loads:
+            fail(f"the exact instance {name} has a stack frame or spills")
 
     t0 = time.perf_counter()
     msgs, sig_rows, pk_rows, keys, want = make_period(bls, args.seed)

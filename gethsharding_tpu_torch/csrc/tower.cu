@@ -47,15 +47,20 @@
 // What bounds it on this card: latency. An Fp12 product needs ~90,000
 // int32 multiply-adds and ~3.6 KB in and out per row, a fraction of a
 // microsecond at the card's peaks even at 112 rows; what costs is the
-// chain of dependent phases (four normalizes deep; the exact form's
-// normalize is a longer ladder) and, before this kernel, one launch per
-// conv and per normalize with PyTorch glue between. The design: one
-// block of 512 threads per row for the Fp12 kinds (xi·v made once for
-// the six outputs), one or eight rows per block for the Fp2 and Fp
-// kinds; each phase spreads over the block's lanes (balanced column
-// pairs per lane in the conv: five per lane, with the operand rows in
-// registers, for the Fp12 kinds, whose conv is bound by shared-memory
-// loads, one for the others; a limb per lane in the normalize).
+// chain of dependent phases (four normalizes deep) and, before this
+// kernel, one launch per conv and per normalize with PyTorch glue
+// between. The design: one block of 512 threads per row for the Fp12
+// kinds (xi·v made once for the six outputs), one or eight rows per
+// block for the Fp2 and Fp kinds; each phase spreads over the block's
+// lanes (balanced column pairs per lane in the conv: five per lane, with
+// the operand rows in registers, for the Fp12 kinds, whose conv is bound
+// by shared-memory loads, one for the others; a limb per lane in the
+// normalize). A wide normalize is three block phases, an exact one
+// (norm.cuh) four: the first stage's rounds and fold (2 rows × 2 limbs a
+// thread), the second stage, and a tail, one thread per row (the 36
+// plane rows of an Fp12 product in 2 of the 16 warps), whose three exact
+// carries go in words of three limbs in registers with the short folds
+// between them.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -152,9 +157,14 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
   constexpr int OUTW = S::C * NL;               // ints per (row, k)
   constexpr int NMAX = tower_max(NACC, NXI);    // rows of a normalize
   constexpr int NZ = tower_max(NACC * NC, NXI * XIW);
-  constexpr int NT3 = tower_max(tower_max(NACC * (ACCW + 3),
-                                          NXI * (XIW + 3)),
-                                NACC * (NL + 3));
+  // the exact tail loads its fold words after its first carry (norm.cuh
+  // exact_tail): without it ptxas holds the 256-thread Fp kind at 80
+  // registers and spills
+  constexpr bool FENCE = true;
+  constexpr int NT3 =
+      tower_max(tower_max(NACC * norm_scratch_row<ACCW, F>(),
+                          NXI * norm_scratch_row<XIW, F>()),
+                NACC * norm_scratch_row<NL, F>());
   __shared__ __align__(16) int s_u[S::ROWS * UW];
   __shared__ __align__(16) int s_v[S::ROWS * VW];
   __shared__ int s_xi[XI ? S::ROWS * VW : 1];
@@ -205,8 +215,8 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
       s_z[t] = c == 0 ? a[l] * 9 - a[SL + l] + xipad[l] : a[l] + a[SL + l] * 9;
     }
     __syncthreads();
-    norm_rows<XIW, F>(s_z, XIW, XIW, rows * 12, s_xi, SL, fold, lift, s_t3,
-                      s_f);
+    norm_rows<XIW, F, FENCE>(s_z, XIW, XIW, rows * 12, s_xi, SL, fold,
+                             lift, s_t3, s_f);
   }
 
   // the planes of each output k, padded: NP column pairs per lane
@@ -230,8 +240,9 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
   }
   __syncthreads();
   const int nrk = rows * S::K;
-  norm_rows<ACCW, F>(s_z, NC, accw, nrk * PL, S::GR == 1 ? s_cur : s_parts,
-                     NL, fold, lift, s_t3, s_f);
+  norm_rows<ACCW, F, FENCE>(s_z, NC, accw, nrk * PL,
+                            S::GR == 1 ? s_cur : s_parts, NL, fold, lift,
+                            s_t3, s_f);
 
   // merge the groups in order: ((g0 + g1) -> normalize) + g2 -> normalize
   for (int g = 1; g < S::GR; ++g) {
@@ -241,8 +252,8 @@ __global__ void __launch_bounds__(TowerShape<KIND>::THREADS)
       s_z[t] = prev + s_parts[(rc * S::GR + g) * NL + l];
     }
     __syncthreads();
-    norm_rows<NL, F>(s_z, NL, NL, nrk * S::C, s_cur, NL, fold, lift, s_t3,
-                     s_f);
+    norm_rows<NL, F, FENCE>(s_z, NL, NL, nrk * S::C, s_cur, NL, fold, lift,
+                            s_t3, s_f);
   }
 
   // the block's rows lie back to back in out

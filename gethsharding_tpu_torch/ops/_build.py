@@ -47,6 +47,8 @@ SIGNATURES = {
     "gs_miller": [_P] * 9 + [_I, _P, _P, _P, _I, _P, _P],
     "gs_finalexp": [_P, _P, _I, _P, _I, _P, _P],
     "gs_norm": [_P, _L, _I, _I, _P, _P, _P, _P],
+    "gs_norm_carry": [_P, _L, _I, _P, _P],
+    "gs_norm_tail": [_P, _L, _P, _P, _P],
     "gs_conv": [_P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P],
     "gs_tower": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P, _P],
     "gs_ecrecover": [_P] * 5 + [_I, _I] + [_P] * 4,

@@ -201,6 +201,55 @@ def test_norm_exact_kernel_equals_plain(cuda, width):
                                                        form="exact"))
 
 
+def test_carry_probe_refuses_what_the_kernel_does_not_take():
+    acc = torch.zeros((3, 22), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        norm.carry_probe(acc, 24)
+    with pytest.raises(ValueError, match="into 25"):
+        norm.carry_probe(acc, 25)
+    with pytest.raises(ValueError, match="carry of 23 limbs"):
+        norm.carry_probe(torch.zeros((3, 23), dtype=torch.int32), 24)
+    with pytest.raises(ValueError, match="CUDA"):
+        norm.tail_probe(bn.FP, acc)
+    with pytest.raises(ValueError, match="tail of 25 limbs"):
+        norm.tail_probe(bn.FP, torch.zeros((3, 25), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nout", norm.CARRY_WIDTHS)
+def test_norm_carry_probe_equals_ripple(cuda, nout):
+    """The exact ladder's carry alone on the card (`gs_norm_carry`) on the
+    crafted rows of `norm.carry_edge_rows` and 1,000 seeded ones, a
+    partial block among them: equal to `limb.carry` with the carry off
+    the top dropped, and to a Python integer ripple on the crafted rows."""
+    acc = norm.carry_edge_rows(seed=nout, random_rows=1000 + nout)
+    got = norm.carry_probe(acc.to(cuda), nout)
+    want = norm.carry_plain(acc, nout)
+    assert torch.equal(got.cpu(), want)
+    for row, limbs in zip(acc[:32].tolist(), want[:32].tolist()):
+        v = sum(x << (12 * j) for j, x in enumerate(row)) % (1 << 12 * nout)
+        assert limbs == [(v >> (12 * j)) & 4095 for j in range(nout)]
+
+
+@pytest.mark.cuda
+def test_norm_tail_probe_equals_plain(cuda):
+    """The exact ladder's tail alone on the card (`gs_norm_tail`) on the
+    crafted rows and 1,001 seeded ones: equal to `norm.tail_plain`."""
+    acc = norm.carry_edge_rows(seed=4, random_rows=1001)
+    got = norm.tail_probe(bn.FP, acc.to(cuda))
+    assert torch.equal(got.cpu(), norm.tail_plain(bn.FP, acc))
+
+
+@pytest.mark.cuda
+def test_norm_exact_kernel_on_crafted_rows(cuda):
+    """The crafted carry rows as 22-limb accumulators through the exact
+    normalize on the card."""
+    z = norm.carry_edge_rows(seed=3, random_rows=203)
+    got = norm.normalize_kernel(bn.FP, z.to(cuda), form="exact")
+    assert torch.equal(got.cpu(),
+                       norm.normalize_plain(bn.FP, z, form="exact"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fp2", [False, True])
 @pytest.mark.parametrize("n", [1, 112, 300])

@@ -292,6 +292,25 @@ extern "C" void run(const int* z, long long n, int w, int form,
                     const int* fold, const int* lift, int* out) {
   if (form == gs::NORM_EXACT) run_form<gs::NORM_EXACT>(z, n, w, fold, lift, out);
   else run_form<gs::NORM_WIDE>(z, n, w, fold, lift, out);
+}
+template <int NOUT>
+static void carry_nout(const int* acc, long long n, int* out) {
+  for (long long b = 0; b * gs::NORM_ROWS < n; ++b) {
+    blockIdx.x = b;
+    gs::norm_carry_kernel<NOUT>(acc, n, out);
+  }
+}
+extern "C" void run_carry(const int* acc, long long n, int nout, int* out) {
+  if (nout == 22) carry_nout<22>(acc, n, out);
+  else if (nout == 23) carry_nout<23>(acc, n, out);
+  else carry_nout<24>(acc, n, out);
+}
+extern "C" void run_tail(const int* acc, long long n, const int* fold,
+                         int* out) {
+  for (long long b = 0; b * gs::NORM_ROWS < n; ++b) {
+    blockIdx.x = b;
+    gs::norm_tail_kernel(acc, n, fold, out);
+  }
 }""",
     "conv": r"""
 namespace gs { int smem[1 << 16] __attribute__((aligned(16))); }
@@ -625,7 +644,9 @@ def test_norm_source_on_host_equals_plain(host_kernels, width):
 def _norm_edge_rows(rng, n, width):
     """n accumulators of `width` limbs, value >= 0: random limbs inside
     |limb| < 2^30.7, then rows at the bound edge (every limb ±(2^30.7 - 1),
-    the top positive) and rows of -1 and 0 limbs over a positive top."""
+    the top positive), rows of -1 and 0 limbs over a positive top, and two
+    propagation rows: 4095 limbs with 4096 at limb 0, and 0 limbs with -1
+    at limb 0 over a top limb of 1."""
     edge = int(2 ** 30.7) - 1
     z = rng.integers(-edge, edge + 1, (n, width)).astype(np.int32)
     z[:, -1] = np.abs(z[:, -1]) + (1 << 29)    # value >= 0
@@ -635,17 +656,78 @@ def _norm_edge_rows(rng, n, width):
     z[2] = -1
     z[2, -1] = 1
     z[3] = 0
+    z[4] = 4095
+    z[4, 0] = 4096
+    z[5] = 0
+    z[5, 0] = -1
+    z[5, -1] = 1
     return torch.as_tensor(z)
+
+
+def _host_norm(kernel, z, form):
+    n, width = z.shape
+    out = torch.zeros((n, 22 if form else 25), dtype=torch.int32)
+    kernel.run(_p(z), ctypes.c_longlong(n), width, form,
+               _p(mk.const(pbn.FP.fold_j, "cpu")),
+               _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
+    return out
 
 
 @pytest.mark.parametrize("width", [19, 22, 25, 26, 43, 49, norm.MAX_WIDTH])
 def test_norm_exact_source_on_host_equals_plain(host_kernels, width):
-    z = _norm_edge_rows(np.random.default_rng(87), 9, width)
-    out = torch.zeros((9, 22), dtype=torch.int32)
-    host_kernels["norm"].run(_p(z), ctypes.c_longlong(9), width, 1,
-                             _p(mk.const(pbn.FP.fold_j, "cpu")),
-                             _p(mk.const(pbn.FP.lift, "cpu")), _p(out))
-    assert torch.equal(out, norm.normalize_plain(pbn.FP, z, form="exact"))
+    """The exact branch of norm.cu on edge rows: three block phases and a
+    tail of word carries, one thread a row."""
+    z = _norm_edge_rows(np.random.default_rng(87), 11, width)
+    assert torch.equal(_host_norm(host_kernels["norm"], z, 1),
+                       norm.normalize_plain(pbn.FP, z, form="exact"))
+
+
+def _python_carry(row, nout):
+    """The canonical 12-bit digits of the row's value mod 2^(12·nout), by
+    Python integers."""
+    v = sum(int(x) << (12 * j) for j, x in enumerate(row)) % (1 << 12 * nout)
+    return [(v >> (12 * j)) & 4095 for j in range(nout)]
+
+
+@pytest.mark.parametrize("nout", norm.CARRY_WIDTHS)
+def test_norm_carry_source_on_host_equals_ripple(host_kernels, nout):
+    """One of the exact ladder's carries as its tail runs it (norm.cu
+    `norm_carry_kernel`: `carry_top`'s top limbs over its uncarried
+    words, made canonical by the tail's last carry) on the crafted rows
+    of `norm.carry_edge_rows` (whole-width carries and borrows,
+    alternating 0/4095, negative values, carries off the top, ±2^28 and
+    int32-edge limbs): equal to `limb.carry` and to a Python integer
+    ripple, the carry off the top dropped."""
+    acc = norm.carry_edge_rows(seed=nout)
+    n = acc.shape[0]
+    out = torch.full((n, nout), -7, dtype=torch.int32)
+    host_kernels["norm"].run_carry(_p(acc), ctypes.c_longlong(n), nout,
+                                   _p(out))
+    want = norm.carry_plain(acc, nout)
+    assert torch.equal(out, want)
+    assert want.tolist() == [_python_carry(r, nout) for r in acc.tolist()]
+
+
+def test_norm_tail_source_on_host_equals_plain(host_kernels):
+    """The exact ladder's tail alone (norm.cu `norm_tail_kernel`: carry
+    into 24, fold, carry into 23, fold, carry into 22, its first two
+    carries writing only their top limbs) on the crafted rows of
+    `norm.carry_edge_rows`: equal to `norm.tail_plain`."""
+    acc = norm.carry_edge_rows(seed=9, random_rows=40)
+    n = acc.shape[0]
+    out = torch.full((n, 22), -7, dtype=torch.int32)
+    host_kernels["norm"].run_tail(_p(acc), ctypes.c_longlong(n),
+                                  _p(mk.const(pbn.FP.fold_j, "cpu")),
+                                  _p(out))
+    assert torch.equal(out, norm.tail_plain(pbn.FP, acc))
+
+
+def test_norm_exact_source_on_host_crafted_rows(host_kernels):
+    """The crafted carry rows as 22-limb accumulators through the whole
+    exact normalize."""
+    z = norm.carry_edge_rows(seed=5)
+    assert torch.equal(_host_norm(host_kernels["norm"], z, 1),
+                       norm.normalize_plain(pbn.FP, z, form="exact"))
 
 
 def _host_conv(kernel, x, y, comb, rpb):
