@@ -5,7 +5,8 @@
 Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
 calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
-(and, last, the notary's vote phase at the same 100 shards, step 10):
+(and, last, the notary's vote phase and its `--da-proofs poly` phase at
+the same 100 shards, steps 10 and 11):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -96,8 +97,10 @@ resident on the card) and the recompute path (without keys):
    messages with resident tables), the exact normalize (at its most
    frequent shape of the recompute audit and at each shape of the warm
    precomp audit), the exact tower at each of its shapes in the warm
-   audit and the 22-limb conv at the line product. The subprocess failing
-   fails the run.
+   audit and the 22-limb conv at the line product; and the hostile and
+   infinity rows of step 11 through `das_verify_multiproofs` at 22
+   limbs, counted and held as there. The subprocess failing fails the
+   run.
    Each kernel's bound counts the
    work the period needs (m - 1 additions for m votes, one pairing per
    non-empty row; the Fp2 products of the final exponentiation's Fp12
@@ -141,7 +144,25 @@ resident on the card) and the recompute path (without keys):
    and its plain version's one run, each also at one row (the txpool's
    call for the recovery), and both calls end to end (warm, median of 7,
    with their host marshal and bytes shipped; the samples' call split
-   into marshal, upload with the kernel, and readback).
+   into marshal, upload with the kernel, and readback);
+11. the notary's `--da-proofs poly` phase at 100 shards on the dev SRS
+   (built first, timed): one row per shard, 16 indices without repeats
+   over n = 255 chunk values (seeded 4096-byte chunks), committed and
+   opened with the port's own `pcs.commit` / `open_multi`, and 12 more
+   rows: a tampered eval, proof and commitment, an off-curve commitment,
+   a short proof, a commitment coordinate >= p, duplicate indices, an
+   empty set, an index outside the domain, an all-zero proof on a
+   non-constant polynomial, and two rows True through the infinity
+   path (a constant polynomial; a set opening every index of a 16-value
+   domain). The port's scalar `verify_multiproofs` must give the known
+   answers on those rows and two honest ones; then, counted from 0
+   around one `TorchSigBackend().das_verify_multiproofs` over all 112
+   rows: one `miller` and one `finalexp` launch (normalizes as glue) and
+   no other kernel, the known verdicts, equal to the same planes through
+   the plain versions on the card. Timed: the call, its host marshal
+   split into G1 MSMs, G2 MSMs, the scalar pairings of the infinity rows
+   and the rest, the device path with pull on the staged planes (median
+   of 7), its kernels under the profiler and the idle share.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -261,17 +282,49 @@ def device_times(fn):
     return by_name, wall_ms
 
 
+KERNEL_LABELS = ("tower_kernel", "conv_kernel", "norm_kernel", "agg_kernel",
+                 "miller_kernel", "finalexp_kernel")
+
+
+def kernel_label(name: str) -> str:
+    """The port's kernel a device event belongs to, or "glue" (PyTorch's
+    own kernels: elementwise ops, copies)."""
+    return next((k for k in KERNEL_LABELS if k in name), "glue")
+
+
 def kernel_split(by_name) -> dict:
     """Device ms by the port's kernels (conv, norm, the audit kernels)
     and PyTorch's own (glue: elementwise ops, copies)."""
     split = collections.Counter()
     for name, ms in by_name.items():
-        label = next((k for k in ("tower_kernel", "conv_kernel",
-                                  "norm_kernel", "agg_kernel",
-                                  "miller_kernel", "finalexp_kernel")
-                      if k in name), "glue")
-        split[label] += ms
+        split[kernel_label(name)] += ms
     return split
+
+
+def traced_calls(fn, runs: int, per_call: dict):
+    """`fn` run `runs` times in one torch.profiler session: (device ms
+    per call by label, launches the trace kept by label). A trace can
+    lose a launch, so each of the port's kernels in `per_call` (label ->
+    launches per call) is the mean of its kept launches times its
+    launches per call; glue is its total over `runs`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total, kept = collections.Counter(), collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            label = kernel_label(evt.name)
+            total[label] += evt.time_range.elapsed_us() / 1e3
+            kept[label] += 1
+    return ({label: total[label] / kept[label] * per_call[label]
+             if label in per_call else total[label] / runs
+             for label in total}, kept)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -1156,6 +1209,246 @@ def vote_phase(card: str, seed: int) -> list:
                   das_bound)]
 
 
+# the multiproof phase: one row per shard, VOTE_SAMPLES indices sampled
+# without repeats from a domain of TREE_LEAVES (MAX_TOTAL_CHUNKS) chunk
+# values, each a 4096-byte chunk's keccak mod N
+POLY_ROWS = SHARDS
+POLY_CHUNK = 4096
+
+
+class MultiproofSplit:
+    """While open, times the multiproof marshal's G1 MSMs, G2 MSMs and
+    scalar pairings (the rows with a point at infinity are settled on
+    the host) by wrapping `pcs.g1_msm`, `pcs.g2_msm` and
+    `pcs.pairing_check`, and keeps the planes that the backend passes to
+    `bls_verify_aggregate_batch`."""
+
+    def __init__(self, pcs, bn):
+        self.pcs, self.bn = pcs, bn
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+        self.planes = None
+
+    def __enter__(self):
+        pcs, bn = self.pcs, self.bn
+        self._saved = (pcs.g1_msm, pcs.g2_msm, pcs.pairing_check,
+                       bn.bls_verify_aggregate_batch)
+        pcs.g1_msm = self._timed("g1_msm", pcs.g1_msm)
+        pcs.g2_msm = self._timed("g2_msm", pcs.g2_msm)
+        pcs.pairing_check = self._timed("pairing_check", pcs.pairing_check)
+        batch = bn.bls_verify_aggregate_batch
+
+        def keep(*args):
+            self.planes = [a.clone() for a in args]
+            return batch(*args)
+        bn.bls_verify_aggregate_batch = keep
+        return self
+
+    def __exit__(self, *exc):
+        (self.pcs.g1_msm, self.pcs.g2_msm, self.pcs.pairing_check,
+         self.bn.bls_verify_aggregate_batch) = self._saved
+
+    def _timed(self, name, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+                self.calls[name] += 1
+        return run
+
+
+def poly_values(pcs, rng, n: int) -> list:
+    """n chunk values of seeded random 4096-byte chunks."""
+    data = rng.integers(0, 256, (n, POLY_CHUNK), dtype=np.uint8)
+    return [pcs.chunk_value(row.tobytes()) for row in data]
+
+
+def poly_opened(pcs, values, indices) -> tuple:
+    """An honest multiproof row: (commitment, indices, evals, proof, n)."""
+    proof, evals = pcs.open_multi(values, indices)
+    return (pcs.g1_to_bytes(pcs.commit(values)), list(indices), evals,
+            pcs.g1_to_bytes(proof), len(values))
+
+
+def poly_hostile(pcs, bls, seed: int):
+    """The multiproof phase's hostile rows, from their own honest row over
+    TREE_LEAVES values: a tampered eval, proof and commitment, an
+    off-curve commitment, a short proof, a commitment coordinate >= p,
+    duplicate indices, an empty set, an index outside the domain, an
+    all-zero (infinity) proof on a non-constant polynomial; then two rows
+    True through the infinity path: a constant polynomial (π at infinity)
+    and a set that opens every index of a 16-value domain (A and π at
+    infinity). Returns (names, rows, expected verdicts)."""
+    rng = np.random.default_rng([seed, 1])
+    idx = sorted(int(i) for i in rng.choice(TREE_LEAVES, VOTE_SAMPLES,
+                                            replace=False))
+    c, idx, ev, pf, n = poly_opened(pcs, poly_values(pcs, rng, TREE_LEAVES),
+                                    idx)
+    c_pt, p_pt = pcs.g1_from_bytes(c), pcs.g1_from_bytes(pf)
+    x = int.from_bytes(c[:32], "big")
+    table = [
+        ("tampered eval", (c, idx, [ev[0], (ev[1] + 1) % pcs.N] + ev[2:],
+                           pf, n)),
+        ("tampered proof",
+         (c, idx, ev, pcs.g1_to_bytes(bls.g1_add(p_pt, bls.G1_GEN)), n)),
+        ("tampered commitment",
+         (pcs.g1_to_bytes(bls.g1_add(c_pt, bls.G1_GEN)), idx, ev, pf, n)),
+        ("off-curve commitment", (b"\x07" * 64, idx, ev, pf, n)),
+        ("short proof", (c, idx, ev, pf[:32], n)),
+        ("coordinate >= p",
+         ((x + bls.P).to_bytes(32, "big") + c[32:], idx, ev, pf, n)),
+        ("duplicate indices", (c, [idx[0]] + idx[:-1], ev, pf, n)),
+        ("empty set", (c, [], [], pf, n)),
+        ("index outside the domain", (c, idx[:-1] + [n], ev, pf, n)),
+        ("zero proof", (c, idx, ev, b"\x00" * 64, n)),
+        ("constant polynomial",
+         poly_opened(pcs, [ev[0]] * TREE_LEAVES, idx)),
+        ("every index", poly_opened(pcs, poly_values(pcs, rng, 16),
+                                    range(16))),
+    ]
+    names = [name for name, _ in table]
+    return names, [row for _, row in table], [False] * 10 + [True, True]
+
+
+def poly_period(pcs, seed: int, rows: int) -> list:
+    """One honest multiproof row per shard: TREE_LEAVES chunk values,
+    VOTE_SAMPLES indices without repeats, from a seeded generator."""
+    rng = np.random.default_rng([seed, 0])
+    out = []
+    for _ in range(rows):
+        values = poly_values(pcs, rng, TREE_LEAVES)
+        idx = sorted(int(i) for i in rng.choice(TREE_LEAVES, VOTE_SAMPLES,
+                                                replace=False))
+        out.append(poly_opened(pcs, values, idx))
+    return out
+
+
+def multiproof_check(label, pcs, bn, route, build, backend, rows, want,
+                     split=None):
+    """Counted from 0 around one `das_verify_multiproofs` call: one Miller
+    and one final-exponentiation launch (normalizes between them are
+    glue) and no other kernel, the expected verdicts, and the same planes
+    through the plain versions on the card. Returns (verdicts, launches,
+    the call's host seconds, the planes on the card)."""
+    cols = [list(col) for col in zip(*rows)]
+    for k in build.KERNELS.values():
+        k.launches = 0
+    split = split or MultiproofSplit(pcs, bn)
+    with split:
+        t0 = time.perf_counter()
+        got = backend.das_verify_multiproofs(*cols)
+        call_s = time.perf_counter() - t0
+    launches = {n: c for n, c in build.launch_counts().items() if c}
+    timing = backend.last_timing["launches"]
+    print(f"{label}multiproofs ({len(rows)} rows, bucket "
+          f"{backend.last_wire['bucket']}): launches {launches}", flush=True)
+    if timing.get("miller") != 1 or timing.get("finalexp") != 1 or any(
+            c for n, c in launches.items()
+            if n not in ("miller", "finalexp", "norm", "norm_exact")):
+        fail(f"{label}das_verify_multiproofs did not run one Miller and one "
+             f"final-exponentiation launch alone: {launches}")
+    if got != want:
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        fail(f"{label}multiproof verdicts differ from the known answers at "
+             f"rows {bad}")
+    with route.plain_versions():
+        plain = bn.bls_verify_aggregate_batch(*split.planes)
+    if plain.cpu().tolist()[:len(rows)] != want:
+        fail(f"{label}the plain versions on the card give other multiproof "
+             f"verdicts")
+    print(f"{label}multiproofs: {sum(got)} of {len(rows)} rows verified, "
+          f"equal to the known answers and to the plain versions on the "
+          f"card", flush=True)
+    return got, launches, call_s, split.planes
+
+
+def multiproof_phase(card: str, seed: int) -> None:
+    """Step 11: the notary's `--da-proofs poly` phase at 100 shards
+    through `TorchSigBackend().das_verify_multiproofs`, on the dev SRS."""
+    from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.das import pcs, poly_proofs
+    from gethsharding_tpu_torch.ops import _build, route
+    from gethsharding_tpu_torch.ops import bn256 as bn
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    t0 = time.perf_counter()
+    srs = pcs.dev_srs()
+    srs_s = time.perf_counter() - t0
+    print(f"multiproof SRS: {len(srs.g1_powers)} G1 and {len(srs.g2_powers)} "
+          f"G2 powers of τ, built in {srs_s:.2f} s on the host (once per "
+          f"process)", flush=True)
+    t0 = time.perf_counter()
+    honest = poly_period(pcs, seed, POLY_ROWS)
+    names, hostile, hostile_want = poly_hostile(pcs, bls, seed)
+    rows = honest + hostile
+    want = [True] * POLY_ROWS + hostile_want
+    print(f"multiproof period: {len(rows)} rows ({POLY_ROWS} shards of "
+          f"{SHARDS}, not cut: {VOTE_SAMPLES} indices over n = "
+          f"{TREE_LEAVES} each; {len(hostile)} hostile and infinity rows), "
+          f"made in {time.perf_counter() - t0:.1f} s on the host",
+          flush=True)
+    # the port's scalar verdicts on the hostile rows and two honest ones
+    t0 = time.perf_counter()
+    picked = hostile + honest[:2]
+    scalar = poly_proofs.verify_multiproofs(
+        *(list(col) for col in zip(*picked)))
+    if scalar != hostile_want + [True, True]:
+        bad = [n for n, g, w in zip(names + ["honest 0", "honest 1"], scalar,
+                                    hostile_want + [True, True]) if g != w]
+        fail(f"the scalar multiproof verdicts are not as built: {bad}")
+    print(f"multiproofs: the port's scalar verify_multiproofs agrees on the "
+          f"{len(hostile)} hostile and infinity rows and 2 honest rows "
+          f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+
+    backend = TorchSigBackend()
+    split = MultiproofSplit(pcs, bn)
+    got, launches, call_s, planes = multiproof_check(
+        "", pcs, bn, route, _build, backend, rows, want, split)
+    marshal_s = backend.last_timing["marshal_s"]
+    g1_s, g2_s = split.seconds["g1_msm"], split.seconds["g2_msm"]
+    pair_s = split.seconds["pairing_check"]
+    device = lambda: bn.bls_verify_aggregate_batch(*planes).cpu()
+    device_ms = host_ms(device, 7)
+    # the same with the planes' upload, as the backend runs it
+    host = [p.cpu().numpy() for p in planes]
+    upload = lambda: bn.bls_verify_aggregate_batch(
+        *(torch.as_tensor(a, device="cuda") for a in host)).cpu()
+    upload_ms = host_ms(upload, 7)
+    # its kernels over 5 calls in one trace: traces of one call lost its
+    # Miller launch in a whole smoke run
+    runs = 5
+    split_ms, kept = traced_calls(upload, runs, {
+        "miller_kernel": launches["miller"],
+        "finalexp_kernel": launches["finalexp"],
+        "norm_kernel": launches.get("norm", 0)})
+    lost = [k for k in ("miller_kernel", "finalexp_kernel")
+            if k not in split_ms]
+    if lost:
+        print(f"multiproofs: the trace of {runs} calls kept no launch of "
+              f"{lost}: their device time is not measured here", flush=True)
+    busy = sum(split_ms.values())
+    print(f"time multiproofs (das_verify_multiproofs, {len(rows)} rows, "
+          f"bucket {backend.last_wire['bucket']}, {sum(got)} true): one call "
+          f"{call_s * 1e3:.1f} ms; SRS built once {srs_s * 1e3:.1f} ms; host "
+          f"marshal {marshal_s * 1e3:.1f} ms = G1 MSMs {g1_s * 1e3:.1f} ms "
+          f"({split.calls['g1_msm']} calls) + G2 MSMs {g2_s * 1e3:.1f} ms "
+          f"({split.calls['g2_msm']} calls) + scalar pairings of the "
+          f"infinity rows {pair_s * 1e3:.1f} ms ({split.calls['pairing_check']}"
+          f" calls) + the rest {(marshal_s - g1_s - g2_s - pair_s) * 1e3:.1f} "
+          f"ms; {backend.last_wire['wire_bytes']} B shipped; device path "
+          f"with pull on staged planes median {device_ms:.2f} ms of 7, "
+          f"with the upload {upload_ms:.2f} ms; its device time "
+          f"{busy:.3f} ms a call under the profiler "
+          f"({', '.join(f'{k} {v:.3f}' for k, v in split_ms.items())}; "
+          f"launches kept in the trace of {runs} calls: "
+          f"{', '.join(f'{k} {v}' for k, v in kept.items())}), idle "
+          f"share {1 - busy / upload_ms:.3f} of the device path, "
+          f"{1 - busy / (call_s * 1e3):.5f} of the call; launches {launches} "
+          f"[{card}]", flush=True)
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
     exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
@@ -1363,6 +1656,11 @@ def exact_phase(seed: int) -> int:
     votes = aggregate_votes(bls, msgs, sig_rows, pk_rows, want)
     aggregates_phase("exact form: ", bls, bn, route, _build, pbackend, votes,
                      card)
+    # the multiproof phase's hostile and infinity rows at 22 limbs
+    from gethsharding_tpu_torch.das import pcs
+    _, hostile, hostile_want = poly_hostile(pcs, bls, seed)
+    multiproof_check("exact form: ", pcs, bn, route, _build, pbackend,
+                     hostile, hostile_want)
 
     # -- times ---------------------------------------------------------------
     votes_n = SHARDS * COMMITTEE
@@ -2095,6 +2393,7 @@ def main() -> int:
           f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
     kernels += run_exact_phase(args.seed)
     kernels += vote_phase(card, args.seed)
+    multiproof_phase(card, args.seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@
 22-limb exact or 25-limb wide form) into port tensors: int32, 25 limbs,
 on the port's device. `line_tables_from_reference` carries the state of
 the precomp path across: a resident line table and its infinity flags.
+`srs_from_reference` carries the DAS multiproofs' structured reference
+string across: the same powers of τ as the port's `pcs.SRS`.
 `reference_tables` reads the reference's constant
 tables and kernel programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
@@ -15,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.das import pcs
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import megakernels as mk
@@ -54,6 +58,18 @@ def line_tables_from_reference(tab, inf, device=None):
                          f"tables {tab.shape[:-4]}")
     return (to_port(tab, device),
             torch.as_tensor(inf, device=resolve_device(device)))
+
+
+def srs_from_reference(srs) -> pcs.SRS:
+    """A reference `das/pcs.py` SRS (G1 powers as (x, y) int pairs, G2
+    powers as pairs of the reference's `Fp2`, None for infinity) -> the
+    port's `pcs.SRS` with the same seed, τ and powers."""
+    fp2 = lambda v: bls.Fp2(int(v.a), int(v.b))
+    g1 = lambda pt: None if pt is None else (int(pt[0]), int(pt[1]))
+    g2 = lambda pt: None if pt is None else (fp2(pt[0]), fp2(pt[1]))
+    return pcs.SRS(seed=str(srs.seed), tau=int(srs.tau),
+                   g1_powers=tuple(map(g1, srs.g1_powers)),
+                   g2_powers=tuple(map(g2, srs.g2_powers)))
 
 
 def reference_tables(pallas_finalexp, bn256_jax) -> dict:

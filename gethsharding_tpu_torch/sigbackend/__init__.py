@@ -1,15 +1,15 @@
-"""Signature backends of the port: four of the five methods of the JAX
-package's `SigBackend` API (proposer-signature recovery, committee
-audits, aggregate votes and DAS samples; the polynomial multiproofs are
-not ported yet), with the `torch` backend behind `get_backend("torch")`.
+"""Signature backends of the port: the five methods of the JAX package's
+`SigBackend` API (proposer-signature recovery, committee audits,
+aggregate votes, DAS samples and DAS polynomial multiproofs), with the
+`torch` backend behind `get_backend("torch")`.
 
 - ``marshal.py``: host -> limb planes, the padding policy, row keys.
 - ``cache.py``: `LineTableCache`, the resident line tables of the
   precomp path.
 - ``dispatch.py``: `TorchSigBackend`, the precomp audit (with keys), the
-  four-launch recompute audit (without), the aggregate-vote check, the
-  batched secp256k1 recovery and the DAS sample verifier (one launch
-  each).
+  four-launch recompute audit (without), the aggregate-vote check and
+  the multiproofs on its two kernels, the batched secp256k1 recovery and
+  the DAS sample verifier (one launch each).
 """
 
 from __future__ import annotations
@@ -102,6 +102,24 @@ class SigBackend:
         index, over-deep or ragged proofs) are False, never an
         exception: a hostile sample response costs a verdict, not a
         batch."""
+        raise NotImplementedError
+
+    def das_verify_multiproofs(
+            self,
+            commitments: Sequence[bytes],
+            index_rows: Sequence[Sequence[int]],
+            eval_rows: Sequence[Sequence[int]],
+            proofs: Sequence[bytes],
+            ns: Sequence[int]) -> List[bool]:
+        """Verify one DAS polynomial multiproof per row: does the 64-byte
+        G1 point `proofs[i]` open the 64-byte commitment `commitments[i]`
+        to the claimed chunk-value evaluations `eval_rows[i]` at the
+        sampled index set `index_rows[i]`, over a degree-<ns[i]
+        evaluation domain? (das/pcs.py defines the scheme; one row is one
+        sampled collation, the proof constant-size however many chunks
+        the row samples.) Malformed rows (bad shapes, undecodable or
+        off-curve points, duplicate or out-of-domain indices) are False,
+        never an exception."""
         raise NotImplementedError
 
 

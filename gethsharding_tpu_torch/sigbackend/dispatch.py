@@ -25,6 +25,9 @@ limb form (`GETHSHARDING_TORCH_LIMB_FORM`).
 `bls_verify_aggregates` checks one host-aggregated vote per message:
 hash each message to G1, ship the affine planes, then one Miller launch
 and one final exponentiation (`bn.bls_verify_aggregate_batch`).
+`das_verify_multiproofs` runs the DAS polynomial multiproofs of a period
+on the same two launches, after the host folds each row into its three
+pairing points (`das/poly_proofs.py`).
 
 The notary's vote phase runs on two more kernels, one launch each:
 `ecrecover_addresses` (the proposer signatures of a period,
@@ -43,6 +46,7 @@ import torch
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
 from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+from gethsharding_tpu_torch.das import poly_proofs
 from gethsharding_tpu_torch.das import proofs as das_proofs
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import _build
@@ -95,7 +99,8 @@ class TorchSigBackend(SigBackend):
         # and limb form, G2 bytes shipped, resident rows and whether the
         # batch memo served them
         self.last_timing: dict | None = None
-        # the sample planes' bytes of the last `das_verify_samples`
+        # the planes' bytes of the last `das_verify_samples` or
+        # `das_verify_multiproofs`
         self.last_wire: dict | None = None
         # `das_verify_samples`' staging planes, by bucket
         self._sample_staging: dict = {}
@@ -212,6 +217,40 @@ class TorchSigBackend(SigBackend):
             limb_form=LIMB_FORM, g2_wire_bytes=int(pkx.nbytes + pky.nbytes),
             hit_rows=0, memo=False)
         return [bool(v) for v in out.cpu()[:n].tolist()]
+
+    def das_verify_multiproofs(self, commitments, index_rows, eval_rows,
+                               proofs, ns):
+        """One Miller and one final-exponentiation launch for the whole
+        batch, padded to `marshal.bucket_size`: per row the host folds the
+        interpolation and vanishing MSMs into the points A = C − [r(τ)]₁,
+        π and Z = [z_S(τ)]₂ (`poly_proofs.marshal_multiproofs`), and
+        `bn.bls_verify_aggregate_batch` checks e(A, G2)·e(−π, Z) == 1 with
+        π in the hash slot, A in the signature slot and Z in the pubkey
+        slot. The MSMs, and the scalar pairing that settles a row with a
+        point at infinity, run on the host by design, as in the JAX
+        package; they are not a fallback of the kernels. The dev SRS is
+        built on the first call of the process (`pcs.dev_srs`), not with
+        the backend."""
+        n = len(commitments)
+        if n == 0:
+            self.last_wire = None
+            return []
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        bucket = marshal.bucket_size(n)
+        st = poly_proofs.marshal_multiproofs(commitments, index_rows,
+                                             eval_rows, proofs, ns, bucket)
+        planes = [st[k] for k in poly_proofs.PLANES]
+        wire = sum(int(a.nbytes) for a in planes)
+        self.last_wire = {"op": "das_verify_multiproofs", "wire_bytes": wire,
+                          "sample_wire_bytes": wire, "rows": n,
+                          "bucket": bucket}
+        t1 = time.perf_counter()
+        out = bn.bls_verify_aggregate_batch(
+            *(torch.as_tensor(a, device=self.device) for a in planes))
+        res = [bool(v) for v in out.cpu()[:n].tolist()]
+        self.last_timing = self._timing(before, t0, t1, n, bucket)
+        return res
 
     def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
                                     pk_row_keys=None) -> VerdictFuture:

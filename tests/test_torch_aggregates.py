@@ -6,7 +6,9 @@ the kernels:
   reference `python` and `jax` backends' verdicts on valid, forged,
   swapped-message, infinity-signature and infinity-pubkey rows, and on
   empty and one-row batches (the reference's cases in
-  tests/test_sigbackend.py and tests/test_soundness.py);
+  tests/test_sigbackend.py and tests/test_soundness.py), and on ten
+  wire probes: coordinates + p, (1, 1) and (0, 0) signatures, a negated
+  signature, an off-curve pubkey, the generators, the empty message;
 - the Miller product f of `bn.bls_verify_aggregate_batch` (affine points
   at Z = 1 through the projective Miller product) equals the reference's
   projective `_bls_miller_opt` at z = 1 mod p and, limb for limb, the
@@ -90,6 +92,50 @@ def test_aggregates_empty_and_one_row_batches(hostile, rows):
         want = ref_get_backend("python").bls_verify_aggregates(*batch)
         assert backend.bls_verify_aggregates(*batch) == want
         assert len(want) == rows
+
+
+def _probes(hostile):
+    """The ten wire probes of `bls_verify_aggregates`: a valid vote; the
+    signature's x + p and y + p; signatures (1, 1) and (0, 0); the
+    negated signature; the pubkey's x.a + p; an off-curve pubkey; the
+    generators (G1, G2); a vote on the empty message."""
+    msgs, sigs, pks, _ = hostile
+    m, (x, y), pk = msgs[0], sigs[0], pks[0]
+    P = ref.P
+    off_curve = (ref.Fp2(pk[0].a, pk[0].b), ref.Fp2(pk[1].a + 1, pk[1].b))
+    empty_sig, empty_pk = _aggregate(b"agg-empty", 2, b"")
+    return [
+        ("valid", m, (x, y), pk),
+        ("sig x + p", m, (x + P, y), pk),
+        ("sig y + p", m, (x, y + P), pk),
+        ("sig (1, 1)", m, (1, 1), pk),
+        ("sig (0, 0)", m, (0, 0), pk),
+        ("negated sig", m, ref.g1_neg((x, y)), pk),
+        ("pk x.a + p", m, (x, y), (ref.Fp2(pk[0].a + P, pk[0].b), pk[1])),
+        ("off-curve pk", m, (x, y), off_curve),
+        ("generators", m, ref.G1_GEN, ref.G2_GEN),
+        ("empty message", b"", empty_sig, empty_pk),
+    ]
+
+
+def test_aggregate_probes_match_python_and_jax(hostile):
+    """The probes of the `bls_verify_aggregates` wire, in two batches of
+    five (bucket 8, the compile the other cases use): the port equals
+    the reference `python` and `jax` backends on each."""
+    probes = _probes(hostile)
+    names = [name for name, *_ in probes]
+    backend = TorchSigBackend(device="cpu")
+    python, jax_backend = ref_get_backend("python"), ref_get_backend("jax")
+    got, want, want_jax = [], [], []
+    for half in (probes[:5], probes[5:]):
+        cols = [list(col) for col in zip(*(row[1:] for row in half))]
+        got += backend.bls_verify_aggregates(*cols)
+        want += python.bls_verify_aggregates(*cols)
+        want_jax += jax_backend.bls_verify_aggregates(*cols)
+    assert dict(zip(names, got)) == dict(zip(names, want)) == \
+        dict(zip(names, want_jax))
+    assert want == [True, True, True, False, False, False, True, False,
+                    False, True]
 
 
 def test_g2_to_limbs_equals_reference(hostile):

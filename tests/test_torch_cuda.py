@@ -16,9 +16,11 @@ import pytest
 import torch
 
 import torch_das_rows
+import torch_poly_rows
 from gethsharding_tpu_torch.crypto import bn256 as bls
 from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
 from gethsharding_tpu_torch.crypto.keccak import keccak256
+from gethsharding_tpu_torch.das import poly_proofs
 from gethsharding_tpu_torch.das import proofs as das
 from gethsharding_tpu_torch.ops import _build, conv, limb, norm, route, tower
 from gethsharding_tpu_torch.ops import bn256 as bn
@@ -488,6 +490,31 @@ def test_aggregates_on_card(cuda):
     with route.plain_versions():
         plain = bn.bls_verify_aggregate_batch(*args)
     assert torch.equal(got, plain) and got.cpu().tolist() == want
+
+
+@pytest.mark.cuda
+def test_multiproofs_on_card(cuda):
+    """`das_verify_multiproofs` on the hostile and infinity rows: one
+    Miller and one final-exponentiation launch and no other kernel but
+    the normalizes between them, the verdicts of the port's scalar
+    `verify_multiproofs` and of the plain versions on the same planes."""
+    names, rows, known = torch_poly_rows.hostile_rows()
+    cols = torch_poly_rows.columns(rows)
+    want = poly_proofs.verify_multiproofs(*cols)
+    assert want == list(known)
+    backend = TorchSigBackend()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    assert backend.das_verify_multiproofs(*cols) == want
+    counts = {n: c for n, c in _build.launch_counts().items()
+              if c and n != "norm"}
+    assert counts == {"miller": 1, "finalexp": 1}
+    assert backend.last_timing["launches"]["miller"] == 1
+    st = poly_proofs.marshal_multiproofs(*cols, backend.last_wire["bucket"])
+    args = [torch.as_tensor(st[k], device=cuda) for k in poly_proofs.PLANES]
+    with route.plain_versions():
+        plain = bn.bls_verify_aggregate_batch(*args)
+    assert plain.cpu().tolist()[:len(rows)] == want
 
 
 # == the vote phase: secp256k1 recovery and DAS samples ======================

@@ -19,9 +19,11 @@ kernels' 22-limb boundaries; the recompute audit on
 refuse (25-limb operands, CPU tensors); the exact form's tower packs and
 their widths (planes of 45 columns, xi pad of 23 limbs);
 `precompute_g2_lines` and `miller_loop_precomp` against the reference's
-exact-form oracles; and the precomp audit on `TorchSigBackend(device=
+exact-form oracles; the precomp audit on `TorchSigBackend(device=
 "cpu")`, cold and warm, against the `python` backend, with no G2 bytes
-shipped warm. In the `slow` tier, the Miller product f against the
+shipped warm; and `das_verify_multiproofs` on the hostile and infinity
+rows of tests/torch_poly_rows.py against the `python` backend, its
+22-limb planes against the reference's. In the `slow` tier, the Miller product f against the
 reference's exact-form oracle."""
 
 import json
@@ -36,22 +38,27 @@ REPO = Path(__file__).resolve().parents[1]
 WIDTHS = (22, 25, 43, 49, 52)
 
 _SCRIPT = r'''
-import json, sys, traceback
+import json, os, sys, traceback
 import numpy as np
 import jax.numpy as jnp
 import torch
 
 from gethsharding_tpu.crypto import bn256 as ref
+from gethsharding_tpu.das import poly_proofs as ref_poly
 from gethsharding_tpu.ops import bn256_jax as k
 from gethsharding_tpu.ops import limb as rlimb
 from gethsharding_tpu.ops import pallas_finalexp as m
 from gethsharding_tpu.ops.pallas_norm import normalize_pallas
 from gethsharding_tpu.sigbackend import get_backend as ref_get_backend
 from gethsharding_tpu_torch import convert
+from gethsharding_tpu_torch.das import poly_proofs
 from gethsharding_tpu_torch.ops import bn256 as pbn
 from gethsharding_tpu_torch.ops import _build, conv, limb, norm, tower
 from gethsharding_tpu_torch.ops import megakernels as mk
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+sys.path.insert(0, "tests")
+import torch_poly_rows
 
 P = ref.P
 REF_FP = k.FP
@@ -392,6 +399,27 @@ def _():
     assert warm["memo"]
 
 
+@check("multiproofs")
+def _():
+    """das_verify_multiproofs at 22 limbs on the hostile and infinity rows
+    of tests/torch_poly_rows.py: the reference `python` backend's
+    verdicts, and planes equal to the reference's exact-form planes (both
+    sides on a dev SRS of 16 powers, which every row fits)."""
+    os.environ["GETHSHARDING_DAS_SRS_SIZE"] = torch_poly_rows.SMALL_SRS_SIZE
+    _, rows, known = torch_poly_rows.hostile_rows()
+    cols = torch_poly_rows.columns(rows)
+    want = ref_get_backend("python").das_verify_multiproofs(*cols)
+    assert want == list(known), want
+    backend = TorchSigBackend(device="cpu")
+    assert backend.das_verify_multiproofs(*cols) == want
+    assert backend.last_wire["bucket"] == 14
+    got = poly_proofs.marshal_multiproofs(*cols, 16)
+    ref_planes = ref_poly.marshal_multiproofs(*cols, 16)
+    assert got["ax"].shape == (16, 22) and got["zx"].shape == (16, 2, 22)
+    for key in poly_proofs.PLANES:
+        same(got[key], ref_planes[key])
+
+
 if "--slow" in sys.argv:
     @check("miller-oracle")
     def _():
@@ -448,7 +476,7 @@ def exact_checks():
                             "constants", "tower-ops", "converters",
                             "kernel-boundaries", "audit", "refusals",
                             "plan-packs", "precomp-tables", "miller-precomp",
-                            "precomp-audit"])
+                            "precomp-audit", "multiproofs"])
 def test_exact_form_matches_reference(exact_checks, name):
     assert name in exact_checks, sorted(exact_checks)
     assert exact_checks[name] is None, exact_checks[name]
