@@ -5,8 +5,10 @@
 Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
 calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
-(and, last, the notary's vote phase and its `--da-proofs poly` phase at
-the same 100 shards, steps 10 and 11):
+(and, after it, the notary's vote phase and its `--da-proofs poly`
+phase at the same 100 shards, steps 10 and 11, and last the collation
+replay of BASELINE config 4 and the fused period step of config 5,
+steps 12 and 13):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -162,7 +164,37 @@ resident on the card) and the recompute path (without keys):
    the plain versions on the card. Timed: the call, its host marshal
    split into G1 MSMs, G2 MSMs, the scalar pairings of the infinity rows
    and the rest, the device path with pull on the staged planes (median
-   of 7), its kernels under the profiler and the idle share.
+   of 7), its kernels under the profiler and the idle share;
+12. the collation replay (`ops/replay.py::replay_batch`) on config 4 as
+   bench.py:556-584 defines it (64 transfers from one sender, the
+   recipient as coinbase), on the same collation over a state of 4,096
+   accounts (4,094 seeded genesis accounts beside the sender and the
+   recipient), and on the hostile batch of tests/torch_replay_rows.py
+   (every rejection class, the sender as coinbase, the zero-address row,
+   a wrapping balance, v = 29, to = None, a value of 2^256, a nonce of
+   2^31, overflowing gas costs). Counted from 0 around each call: one
+   `ecrecover`, two `keccak_fixed` (addresses, roots) and one `replay`
+   launch and no other kernel; statuses equal to the port's scalar
+   replay, roots to `scalar_root_with_padding` and the canonical roots
+   to the scalar trie; `csrc/keccak_fixed.cu` and `csrc/replay.cu` equal
+   to their plain versions on the card at the path's tensors (tolerance
+   0); both kernels' ptxas registers and stack (a stack frame or a spill
+   fails the run); timed (CUDA events) beside their bounds (keccak-f
+   permutations × 4,320 32-bit operations; the replay's bytes against
+   its word operations) and their plain versions, and config 4 end to
+   end (warm, median of 7) with its host marshal apart and its kernels
+   under the profiler;
+13. the fused period step of config 5 as bench.py:586-605 defines it
+   (`parallel/stress.py::StressPipeline`, 1,024 shards, 2 votes and 1
+   transaction a shard, a pool of 135), its host build timed on its own
+   line, at quorum 90 (nothing elected) and quorum 2 (every shard
+   elects). Counted from 0: three `keccak_fixed` and one launch each of
+   `agg_g1`, `agg_g2`, `miller`, `finalexp`, `ecrecover` and `replay`,
+   normalizes as glue; every attempt accepted, every aggregate and
+   transaction valid, 2,048 votes, 0 or 1,024 elected; equal to the
+   plain versions on the card (run once, at quorum 90: the quorum moves
+   only the elected flags and their total); timed warm (median of 7)
+   with its split by kernel and the idle share.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -283,7 +315,8 @@ def device_times(fn):
 
 
 KERNEL_LABELS = ("tower_kernel", "conv_kernel", "norm_kernel", "agg_kernel",
-                 "miller_kernel", "finalexp_kernel")
+                 "miller_kernel", "finalexp_kernel", "keccak_fixed_kernel",
+                 "replay_kernel", "ecrecover_kernel")
 
 
 def kernel_label(name: str) -> str:
@@ -1449,6 +1482,343 @@ def multiproof_phase(card: str, seed: int) -> None:
           f"[{card}]", flush=True)
 
 
+# Step 12: config 4 (bench.py:556-584) and the same collation over a shard
+# state of REPLAY_ACCOUNTS rows; step 13: config 5 (bench.py:586-605).
+CONFIG4_TXS = 64
+REPLAY_ACCOUNTS = 4096
+STRESS_SHARDS = 1024
+STRESS_VOTES = 2
+STRESS_TXS = 1
+REPLAY_LAUNCHES = {"ecrecover": 1, "keccak_fixed": 2, "replay": 1}
+STRESS_LAUNCHES = {"keccak_fixed": 3, "agg_g1": 1, "agg_g2": 1, "miller": 1,
+                   "finalexp": 1, "ecrecover": 1, "replay": 1}
+
+
+def config4_collation(sp, Transaction, ecdsa, Address20):
+    """bench.py's config 4: 64 transfers from one sender (nonces 0-63,
+    price 1, gas limit 30,000, value 1, payload b"x"), the recipient as
+    coinbase, the sender funded with 10^12."""
+    priv = 0xB0B
+    sender = Address20(ecdsa.priv_to_address(priv))
+    to = Address20(ecdsa.priv_to_address(0xA11CE))
+    txs = [sp.sign_transaction(
+        Transaction(nonce=i, gas_price=1, gas_limit=30000, to=to, value=1,
+                    payload=b"x"), priv) for i in range(CONFIG4_TXS)]
+    return txs, {sender: sp.AccountState(balance=10 ** 12)}, to
+
+
+def replay_path_planes(replay, secp, inp):
+    """What `replay_batch` hands its kernels, run on the card: the
+    addresses' keccak input (S·T, 64), the replay's 13 planes, and the
+    roots' keccak input (S, 60·A) of the replay's outputs."""
+    s, t = inp.tx_recid.shape
+    flat = lambda x: x.reshape((s * t,) + x.shape[2:])
+    qx, qy, ok = secp.ecrecover_batch(flat(inp.tx_e), flat(inp.tx_r),
+                                      flat(inp.tx_s), flat(inp.tx_recid),
+                                      flat(inp.tx_valid))
+    pub = replay.pubkey_bytes(qx, qy)
+    senders = replay.keccak256(pub)[..., 12:].reshape(s, t, 20)
+    planes = [inp.addrs, inp.nonces, inp.balances, inp.coinbase_ix,
+              senders.contiguous(), ok.reshape(s, t), inp.tx_nonce,
+              inp.tx_gas_limit, inp.tx_intrinsic, inp.tx_price, inp.tx_value,
+              inp.tx_to, inp.tx_valid]
+    nonces, balances, _, _ = replay.shard_replay_kernel(*planes)
+    return pub, planes, replay.state_blob(inp.addrs, nonces, balances)
+
+
+def replay_bound(planes, statuses) -> dict:
+    """The least time of the replay on these planes: bytes (the tables in
+    and out, the transaction planes once, statuses and gas out) against
+    operations (per applied transaction 72 32-bit word operations: the two
+    products, two compares, the subtraction, the debit and the three row
+    updates; per transaction two binary searches of the sorted table,
+    ⌈log2 A⌉ compares of 5 words each)."""
+    S, A = planes[1].shape
+    T = planes[6].shape[1]
+    moved = nbytes(*planes) + nbytes(*planes[1:3]) + S * T * (1 + 4)
+    applied = int(statuses.sum().item())
+    ops = applied * 72 + S * T * 2 * max(1, math.ceil(math.log2(A))) * 5
+    return bound(ops, moved)
+
+
+def replay_phase(card: str, seed: int) -> list:
+    """Step 12: config 4 and the same collation over a state of 4,096
+    accounts, and the hostile batch of tests/torch_replay_rows.py. Counted
+    from 0 around each `replay_batch`: one recovery, two keccak and one
+    replay launch and no other kernel; the statuses of the port's scalar
+    replay; the roots equal to `scalar_root_with_padding` and the
+    canonical roots to the scalar trie; each new kernel equal to its plain
+    version at the path's tensors (tolerance 0); ptxas of both kernels;
+    timed beside their bounds; config 4 end to end with its host marshal
+    apart. Returns the two kernels' entries of the kernels line."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_replay_rows
+    from gethsharding_tpu_torch.core import state_processor as sp
+    from gethsharding_tpu_torch.core.types import Transaction
+    from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+    from gethsharding_tpu_torch.das import proofs as das
+    from gethsharding_tpu_torch.ops import _build, keccak, replay, route
+    from gethsharding_tpu_torch.ops import secp256k1 as secp
+    from gethsharding_tpu_torch.utils.hexbytes import Address20
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    txs, genesis, coinbase = config4_collation(sp, Transaction, ecdsa,
+                                               Address20)
+    rng = np.random.default_rng(seed)
+    big = dict(genesis)
+    while len(big) < REPLAY_ACCOUNTS - 1:     # the recipient makes 4,096
+        addr = Address20(rng.bytes(20))
+        if addr != coinbase:
+            big[addr] = sp.AccountState(
+                nonce=int(rng.integers(0, 1000)),
+                balance=int(rng.integers(1, 2 ** 62)) * 10 ** 6)
+    hostile = torch_replay_rows.batch(sp, Transaction, ecdsa, Address20)
+    scenarios = [("config 4", [txs], [genesis], [coinbase]),
+                 (f"config 4 over {REPLAY_ACCOUNTS} accounts", [txs], [big],
+                  [coinbase]),
+                 ("hostile batch", *hostile)]
+    print(f"replay: config 4 ({CONFIG4_TXS} transactions), its state of "
+          f"{REPLAY_ACCOUNTS} accounts and the hostile batch "
+          f"({sum(map(len, hostile[0]))} transactions over "
+          f"{len(hostile[0])} shards) made in {time.perf_counter() - t0:.1f} "
+          f"s on the host", flush=True)
+
+    kernel_err = {"keccak_fixed": 0, "replay": 0}
+    path = {}
+    for label, shard_txs, gens, coins in scenarios:
+        t0 = time.perf_counter()
+        inp = replay.build_replay_inputs(shard_txs, gens, coins, device=dev)
+        torch.cuda.synchronize()
+        marshal_s = time.perf_counter() - t0
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        out = replay.replay_batch(inp)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in _build.launch_counts().items() if c}
+        if launches != REPLAY_LAUNCHES:
+            fail(f"replay ({label}) did not run one recovery, two keccak "
+                 f"and one replay launch alone: {launches}")
+        a_total = inp.addrs.shape[1]
+        want_status, want_roots, want_canon = [], [], []
+        for stxs, gen, coin in zip(shard_txs, gens, coins):
+            state = sp.ShardState({a: sp.AccountState(v.nonce, v.balance)
+                                   for a, v in gen.items()})
+            for addr in sp.replay_account_table(stxs, state.accounts, coin):
+                state.get(addr)
+            receipts = sp.process(state, stxs, coin)
+            pad = out.statuses.shape[1] - len(stxs)
+            want_status.append([r.status == 1 for r in receipts]
+                               + [False] * pad)
+            want_roots.append(bytes(replay.scalar_root_with_padding(
+                state, a_total)))
+            want_canon.append(bytes(state.trie_root()))
+        if out.statuses.tolist() != want_status:
+            fail(f"replay ({label}): statuses differ from the scalar "
+                 f"replay's")
+        if [bytes(r) for r in out.roots.cpu().numpy()] != want_roots:
+            fail(f"replay ({label}): roots differ from the scalar root")
+        canon = [bytes(r) for r in replay.canonical_state_roots(inp, out)]
+        if canon != want_canon:
+            fail(f"replay ({label}): canonical roots differ from the trie")
+        # each kernel against its plain version at the path's tensors
+        # (the plain versions timed once here)
+        pub, planes, rows = replay_path_planes(replay, secp, inp)
+        got = replay.shard_replay_kernel(*planes)
+        with route.plain_versions():
+            want, p_replay = once_ms(lambda: replay.shard_replay(*planes))
+        kernel_err["replay"] = max(kernel_err["replay"],
+                                   max_abs_err(tuple(got), tuple(want)))
+        p_keccak = []
+        for msgs in (pub, rows):
+            want, ms = once_ms(lambda: keccak.keccak256_fixed(msgs))
+            p_keccak.append(ms)
+            kernel_err["keccak_fixed"] = max(
+                kernel_err["keccak_fixed"],
+                max_abs_err(keccak.keccak_fixed_kernel(msgs), want))
+        if any(kernel_err.values()):
+            fail(f"replay ({label}): a kernel disagrees with its plain "
+                 f"version: {kernel_err}")
+        n_ok = int(out.statuses.sum())
+        print(f"replay ({label}): {out.statuses.shape[0]} shards × "
+              f"{out.statuses.shape[1]} transactions over {a_total} rows, "
+              f"{n_ok} applied; launches {launches}; statuses, roots and "
+              f"canonical roots equal to the scalar replay's; keccak_fixed "
+              f"and replay equal to their plain versions (max |kernel - "
+              f"plain| {kernel_err}, tolerance 0); host marshal "
+              f"{marshal_s * 1e3:.1f} ms", flush=True)
+        path[label] = (inp, out, launches, pub, planes, rows, p_replay,
+                       p_keccak)
+
+    for name, source, kern in (("keccak_fixed", "keccak_fixed.cu",
+                                "keccak_fixed_kernel"),
+                               ("replay", "replay.cu", "replay_kernel")):
+        regs, stack, stores, loads = kernel_ptxas(source, kern,
+                                                  _build.build_log)
+        print(f"kernel {name}: ptxas {regs} registers, stack frame {stack} "
+              f"B, spill stores {stores} B, spill loads {loads} B [{card}]",
+              flush=True)
+        if stack or stores or loads:
+            fail(f"{kern} keeps values in local memory")
+
+    # times at the 4,096-row state: each kernel beside its bound and its
+    # plain version, per replay_batch
+    (inp, out, launches, pub, planes, rows, p_replay,
+     (p_pub, p_root)) = path[scenarios[1][0]]
+    k_pub = cuda_ms(lambda: keccak.keccak_fixed_kernel(pub), 20)
+    k_root = cuda_ms(lambda: keccak.keccak_fixed_kernel(rows), 5)
+    k_replay = cuda_ms(lambda: replay.shard_replay_kernel(*planes), 10)
+    perms_pub = keccak.permutations(*pub.shape)
+    perms_root = keccak.permutations(*rows.shape)
+    keccak_bound = bound((perms_pub + perms_root) * das.PERMUTATION_OPS,
+                         nbytes(pub, rows) + 32 * (pub.shape[0]
+                                                   + rows.shape[0]))
+    root_bound = bound(perms_root * das.PERMUTATION_OPS, nbytes(rows) + 32)
+    rep_bound = replay_bound(planes, out.statuses)
+    print(f"time keccak_fixed (config 4 over {REPLAY_ACCOUNTS} accounts, "
+          f"per replay_batch: the addresses, {pub.shape[0]} × {pub.shape[1]} "
+          f"B, {perms_pub} permutations, {k_pub:.4f} ms; the root, one "
+          f"message of {rows.shape[1]} B, {perms_root} permutations in "
+          f"turn on one thread, {k_root:.4f} ms, its bound "
+          f"{root_bound['bound_ms']:.6f} ms): kernel {k_pub + k_root:.4f} "
+          f"ms, plain {p_pub + p_root:.1f} ms, bound "
+          f"{keccak_bound['bound_ms']:.6f} ms ({keccak_bound['bound_by']}: "
+          f"{perms_pub + perms_root} permutations × {das.PERMUTATION_OPS} "
+          f"32-bit operations; {keccak_bound['bytes']} B), "
+          f"{keccak_bound['bound_ms'] / (k_pub + k_root):.3%} of its bound; "
+          f"the root's sponge {k_root / perms_root * 1e3:.3f} µs a "
+          f"permutation [{card}]", flush=True)
+    print(f"time replay (config 4 over {REPLAY_ACCOUNTS} accounts, "
+          f"{planes[6].shape[1]} transactions, one block of 256 threads): "
+          f"kernel {k_replay:.4f} ms, plain {p_replay:.1f} ms, bound "
+          f"{rep_bound['bound_ms']:.6f} ms ({rep_bound['bound_by']}: "
+          f"{rep_bound['bytes']} B, {rep_bound['multiply_adds']} word "
+          f"operations), {rep_bound['bound_ms'] / k_replay:.3%} of its "
+          f"bound [{card}]", flush=True)
+
+    # config 4 end to end: the host marshal apart from the device path
+    for label, shard_txs, gens, coins in scenarios[:2]:
+        inp = replay.build_replay_inputs(shard_txs, gens, coins, device=dev)
+        marshal_ms = host_ms(lambda: replay.build_replay_inputs(
+            shard_txs, gens, coins, device=dev), 7)
+        device_ms = host_ms(lambda: replay.replay_batch(inp).roots.cpu(), 7)
+        runs = 5
+        split_ms, kept = traced_calls(
+            lambda: replay.replay_batch(inp).roots.cpu(), runs,
+            {"ecrecover_kernel": 1, "keccak_fixed_kernel": 2,
+             "replay_kernel": 1})
+        busy = sum(split_ms.values())
+        print(f"time replay_batch ({label}, warm, median of 7): host "
+              f"marshal {marshal_ms:.2f} ms; device path with the roots' "
+              f"pull {device_ms:.3f} ms, {CONFIG4_TXS / device_ms * 1e3:.0f} "
+              f"txs/s ({CONFIG4_TXS / (marshal_ms + device_ms) * 1e3:.0f} "
+              f"with the marshal); device time {busy:.3f} ms a call "
+              f"({', '.join(f'{k} {v:.4f}' for k, v in split_ms.items())}; "
+              f"launches kept in a trace of {runs} calls: "
+              f"{', '.join(f'{k} {v}' for k, v in kept.items())}), idle "
+              f"share {1 - busy / device_ms:.3f} of the device path "
+              f"[{card}]", flush=True)
+
+    launches = path[scenarios[1][0]][2]
+    entry = lambda name, kernel, ms, plain_ms, r: {
+        "name": name, "route": "cuda", "source": kernel.source,
+        "replaces": kernel.replaces, "launches": launches[name],
+        "max_abs_err": kernel_err[name], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None}
+    return [entry("keccak_fixed", keccak.KERNEL, k_pub + k_root,
+                  p_pub + p_root, keccak_bound),
+            entry("replay", replay.KERNEL, k_replay, p_replay, rep_bound)]
+
+
+def stress_phase(card: str, seed: int) -> None:
+    """Step 13: config 5 on one card, 1,024 shards, 2 votes and 1
+    transaction a shard, a pool of 135, at quorum 90 (nothing elected)
+    and at quorum 2 (every shard elects). Counted from 0 around each
+    `StressPipeline.run`: 3 keccak (sampling, addresses, roots) and one
+    launch of each committee-sum, Miller, final-exponentiation, recovery
+    and replay kernel, normalizes as glue; every attempt accepted, every
+    aggregate and transaction valid, 2,048 votes; equal to the plain
+    versions on the card; timed warm with its split by kernel and the
+    idle share."""
+    from gethsharding_tpu_torch.ops import _build, route
+    from gethsharding_tpu_torch.parallel import stress
+    from gethsharding_tpu_torch.params import Config
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    inputs, pool, bh, size, _ = stress.build_stress_inputs(
+        STRESS_SHARDS, votes_per_shard=STRESS_VOTES,
+        txs_per_shard=STRESS_TXS, committee_size=COMMITTEE, seed=seed + 7,
+        device=dev)
+    torch.cuda.synchronize()
+    print(f"stress build: build_stress_inputs({STRESS_SHARDS}, "
+          f"votes_per_shard={STRESS_VOTES}, txs_per_shard={STRESS_TXS}, "
+          f"committee_size={COMMITTEE}) {time.perf_counter() - t0:.1f} s on "
+          f"the host", flush=True)
+    votes = STRESS_SHARDS * STRESS_VOTES
+    plain = None
+    for quorum, elected in ((Config().quorum_size, 0), (2, STRESS_SHARDS)):
+        pipe = stress.StressPipeline(Config(quorum_size=quorum))
+        run = lambda: pipe.run(inputs, pool, bh, 1, size)
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in _build.launch_counts().items() if c}
+        if {k: v for k, v in launches.items() if k != "norm"} \
+                != STRESS_LAUNCHES:
+            fail(f"the stress step (quorum {quorum}) ran other launches: "
+                 f"{launches}")
+        if not (bool(out.accepted.all()) and bool(out.agg_ok.all())
+                and bool(out.tx_status.all())):
+            fail(f"the stress step (quorum {quorum}) rejected a vote, an "
+                 f"aggregate or a transaction")
+        totals = (int(out.total_votes), int(out.total_elected),
+                  int(out.total_txs))
+        if totals != (votes, elected, STRESS_SHARDS * STRESS_TXS):
+            fail(f"the stress step (quorum {quorum}) totals {totals}")
+        # the plain versions once, at quorum 90: the quorum moves only
+        # is_elected and its total, checked above
+        if plain is None:
+            with route.plain_versions():
+                plain, plain_ms = once_ms(run)
+        same = [n for n in stress.StressOutputs._fields
+                if n not in ("is_elected", "total_elected")
+                or quorum == Config().quorum_size]
+        diff = [n for n in same
+                if not torch.equal(getattr(out, n), getattr(plain, n))]
+        if diff:
+            fail(f"the stress step (quorum {quorum}) differs from its plain "
+                 f"versions in {diff}")
+        if not bool(out.is_elected.all() if elected else
+                    ~out.is_elected.any()):
+            fail(f"the stress step (quorum {quorum}) elected "
+                 f"{int(out.is_elected.sum())} shards")
+        step_ms = host_ms(lambda: run().total_txs.item(), 7)
+        runs = 5
+        split_ms, kept = traced_calls(
+            lambda: run().total_txs.item(), runs,
+            {"keccak_fixed_kernel": 3, "agg_kernel": 2, "miller_kernel": 1,
+             "finalexp_kernel": 1, "ecrecover_kernel": 1,
+             "replay_kernel": 1, "norm_kernel": launches.get("norm", 0)})
+        busy = sum(split_ms.values())
+        print(f"stress step (quorum {quorum}): {STRESS_SHARDS} shards, "
+              f"totals votes {totals[0]}, elected {totals[1]}, txs "
+              f"{totals[2]}; launches {launches}; equal to the plain "
+              f"versions (their run at quorum 90: {plain_ms:.0f} ms on the "
+              f"card)", flush=True)
+        print(f"time stress step (quorum {quorum}, warm, median of 7, to "
+              f"the totals' pull): {step_ms:.2f} ms, "
+              f"{STRESS_SHARDS / step_ms * 1e3:.0f} shards/s; device time "
+              f"{busy:.3f} ms a step "
+              f"({', '.join(f'{k} {v:.3f}' for k, v in split_ms.items())}; "
+              f"launches kept in a trace of {runs} steps: "
+              f"{', '.join(f'{k} {v}' for k, v in kept.items())}), idle "
+              f"share {1 - busy / step_ms:.3f} [{card}]", flush=True)
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
     exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
@@ -2394,6 +2764,8 @@ def main() -> int:
     kernels += run_exact_phase(args.seed)
     kernels += vote_phase(card, args.seed)
     multiproof_phase(card, args.seed)
+    kernels += replay_phase(card, args.seed)
+    stress_phase(card, args.seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,11 @@ on the port's device. `line_tables_from_reference` carries the state of
 the precomp path across: a resident line table and its infinity flags.
 `srs_from_reference` carries the DAS multiproofs' structured reference
 string across: the same powers of τ as the port's `pcs.SRS`.
-`reference_tables` reads the reference's constant
+`replay_inputs_from_reference`, `vote_state_from_reference`,
+`vote_attempts_from_reference` and `stress_inputs_from_reference` carry
+the replay, vote-batch and stress planes across (the reference's
+NamedTuples of arrays, read as numpy), limb planes in the port's limb
+form. `reference_tables` reads the reference's constant
 tables and kernel programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
 for byte against the port's own re-derived tables (`port_tables`).
@@ -22,6 +26,7 @@ from gethsharding_tpu_torch.das import pcs
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import megakernels as mk
+from gethsharding_tpu_torch.ops.limb import NLIMBS
 
 # constant tables of the megakernel module, by name in both packages
 KERNEL_TABLES = ("_FOLD_J", "_LIFT_RELAXED", "_MUL_PAD", "_FP2_PAD",
@@ -43,6 +48,84 @@ def to_port(plane, device=None) -> torch.Tensor:
                            arr.dtype)], axis=-1)
     return torch.as_tensor(arr.astype(np.int32),
                            device=resolve_device(device))
+
+
+def limbs_to_port_form(plane, device=None) -> torch.Tensor:
+    """A 12-bit limb plane (..., 22 | 25) -> int32 (..., NLIMBS) at the
+    port's limb form: zero limbs added, or dropped where they are zero
+    (a canonical value below 2^264 fits either form)."""
+    arr = np.asarray(plane)
+    width = arr.shape[-1]
+    if width not in (22, mk.KNL):
+        raise ValueError(f"not a limb plane: last axis {width}")
+    if width > NLIMBS:
+        if arr[..., NLIMBS:].any():
+            raise ValueError(f"limbs beyond the port's {NLIMBS} are not zero")
+        arr = arr[..., :NLIMBS]
+    elif width < NLIMBS:
+        arr = np.concatenate(
+            [arr, np.zeros(arr.shape[:-1] + (NLIMBS - width,), arr.dtype)],
+            axis=-1)
+    return torch.as_tensor(arr.astype(np.int32),
+                           device=resolve_device(device))
+
+
+def _planes(ref, names, limbs, dtypes, device):
+    """The named fields of a reference NamedTuple as port tensors: limb
+    planes in the port's form, the rest in their dtype."""
+    dev = resolve_device(device)
+    out = {}
+    for name in names:
+        arr = np.asarray(getattr(ref, name))
+        if name in limbs:
+            out[name] = limbs_to_port_form(arr, dev)
+        else:
+            out[name] = torch.as_tensor(arr.astype(dtypes[arr.dtype.kind]),
+                                        device=dev)
+    return out
+
+
+# the dtype of a plane by its numpy kind: bool, uint8 bytes, int32
+_KINDS = {"b": np.bool_, "u": np.uint8, "i": np.int32}
+_REPLAY_LIMBS = ("tx_e", "tx_r", "tx_s")
+_BLS_LIMBS = ("hx", "hy", "sigx", "sigy", "pkx", "pky")
+
+
+def replay_inputs_from_reference(inp, device=None):
+    """A reference `replay_jax.ReplayInputs` -> the port's
+    `ops/replay.py::ReplayInputs` on `device`."""
+    from gethsharding_tpu_torch.ops import replay
+
+    return replay.ReplayInputs(**_planes(
+        inp, replay.ReplayInputs._fields, _REPLAY_LIMBS, _KINDS, device))
+
+
+def vote_state_from_reference(state, device=None):
+    """A reference `smc_jax.VoteState` -> the port's
+    `ops/smc.py::VoteState`."""
+    from gethsharding_tpu_torch.ops import smc
+
+    return smc.VoteState(**_planes(state, smc.VoteState._fields, (), _KINDS,
+                                   device))
+
+
+def vote_attempts_from_reference(att, device=None):
+    """A reference `smc_jax.VoteAttempts` -> the port's
+    `ops/smc.py::VoteAttempts`."""
+    from gethsharding_tpu_torch.ops import smc
+
+    return smc.VoteAttempts(**_planes(att, smc.VoteAttempts._fields, (),
+                                      _KINDS, device))
+
+
+def stress_inputs_from_reference(inp, device=None):
+    """A reference `parallel/stress.py::StressInputs` -> the port's
+    `parallel/stress.py::StressInputs`."""
+    from gethsharding_tpu_torch.parallel import stress
+
+    return stress.StressInputs(**_planes(
+        inp, stress.StressInputs._fields, _REPLAY_LIMBS + _BLS_LIMBS,
+        _KINDS, device))
 
 
 def line_tables_from_reference(tab, inf, device=None):

@@ -53,6 +53,8 @@ SIGNATURES = {
     "gs_tower": [_I, _I, _P, _P, _L, _I, _P, _P, _I, _P, _P],
     "gs_ecrecover": [_P] * 5 + [_I, _I] + [_P] * 4,
     "gs_das_samples": [_P] * 6 + [_I, _P, _P],
+    "gs_keccak_fixed": [_P, _L, _L, _P, _P],
+    "gs_replay": [_P] * 13 + [_I] * 3 + [_P] * 6,
 }
 
 _lib = None

@@ -11,14 +11,20 @@ sponges.
 
 The public layout is the reference's: (..., L) uint8 messages in, (...,
 32) uint8 digests out, Ethereum's keccak (0x01 domain byte, not NIST
-SHA3). It is the plain version of `csrc/das.cu`'s sponges
-(`das/proofs.py`) and is held against the reference and the host keccak
-(`crypto/keccak.py`) by the tests.
+SHA3). `keccak256_fixed` is the plain version of `csrc/das.cu`'s sponges
+(`das/proofs.py`) and of `csrc/keccak_fixed.cu`, and is held against the
+reference and the host keccak (`crypto/keccak.py`) by the tests. It never
+launches a kernel, so it stays the yardstick the sample kernel is held
+against. `keccak256` is the route: `csrc/keccak_fixed.cu`
+(`keccak_fixed_kernel`, one launch, a thread a message) for a CUDA
+tensor, `keccak256_fixed` for a CPU tensor and inside
+`route.plain_versions()`; the replay and the vote batch hash through it.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -26,7 +32,12 @@ import torch
 from gethsharding_tpu_torch.crypto.keccak import (RATE_BYTES,
                                                   ROTATION_OFFSETS,
                                                   ROUND_CONSTANTS)
+from gethsharding_tpu_torch.ops import _build, route
 from gethsharding_tpu_torch.ops.limb import const
+
+KERNEL = _build.Kernel("keccak_fixed", "gs_keccak_fixed",
+                       "gethsharding_tpu_torch/csrc/keccak_fixed.cu",
+                       "gethsharding_tpu/ops/keccak_jax.py:123")
 
 RATE_LANES = RATE_BYTES // 8  # 17
 
@@ -114,3 +125,36 @@ def keccak256_fixed(data: torch.Tensor) -> torch.Tensor:
                            state[..., RATE_LANES:]], dim=-1)
         state = keccak_f1600(state)
     return state[..., :4].contiguous().view(torch.uint8)
+
+
+def keccak_fixed_kernel(data: torch.Tensor) -> torch.Tensor:
+    """Launch `csrc/keccak_fixed.cu` on data (N, L) uint8, a contiguous
+    CUDA tensor; returns (N, 32) uint8, equal to `keccak256_fixed`."""
+    if data.dim() != 2:
+        raise ValueError(f"data: expected (N, L), got {tuple(data.shape)}")
+    n, length = data.shape
+    _build.check_tensor(data, (n, length), "data", torch.uint8)
+    out = torch.empty((n, 32), dtype=torch.uint8, device=data.device)
+    if n:
+        KERNEL.launch(_build.ptr(data), n, length, _build.ptr(out))
+    return out
+
+
+def keccak256(data: torch.Tensor) -> torch.Tensor:
+    """Batched keccak-256 over fixed-length messages, (..., L) uint8 ->
+    (..., 32) uint8: the kernel for a CUDA tensor (one launch), the plain
+    version for a CPU tensor."""
+    if not route.use_kernel(data):
+        return keccak256_fixed(data)
+    lead, length = data.shape[:-1], data.shape[-1]
+    flat = data.reshape(math.prod(lead), length).to(torch.uint8).contiguous()
+    return keccak_fixed_kernel(flat).reshape(lead + (32,))
+
+
+# -- the kernel's work, for its bound ----------------------------------------
+
+
+def permutations(n: int, length: int) -> int:
+    """keccak-f permutations of n messages of `length` bytes: one a
+    136-byte block, the padding's included."""
+    return n * (length // RATE_BYTES + 1)

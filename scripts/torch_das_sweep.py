@@ -74,8 +74,9 @@ def main() -> int:
         cu, lib = out_dir / f"das_{tag}.cu", out_dir / f"libdas_{tag}.so"
         cu.write_text(variant_source(src, values))
         procs.append((values, lib, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o",
-             str(lib), str(cu)], stdout=subprocess.PIPE,
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+             str(_build.SRC_DIR), "-shared", "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     card = chip_smoke.card_line()
     print(card, flush=True)

@@ -761,3 +761,131 @@ def test_vote_phase_on_card(cuda):
     counts = {n: c for n, c in _build.launch_counts().items() if c}
     assert counts == {"ecrecover": 1, "das_samples": 1}
     assert backend.last_wire["rows"] == 20
+
+
+# == the replay's kernels: keccak_fixed and replay ============================
+
+
+def _launches_from_zero():
+    for k in _build.KERNELS.values():
+        k.launches = 0
+
+
+def _launched():
+    return {name: c for name, c in _build.launch_counts().items() if c}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,n", [(0, 3), (1, 5), (64, 300), (96, 129),
+                                      (135, 7), (136, 7), (137, 2),
+                                      (245_760, 1)])
+def test_keccak_fixed_kernel_equals_plain(cuda, length, n):
+    from gethsharding_tpu_torch.ops import keccak
+
+    data = torch.as_tensor(np.random.default_rng(length).integers(
+        0, 256, (n, length), dtype=np.uint8), device=cuda)
+    _launches_from_zero()
+    got = keccak.keccak256(data)
+    assert _launched() == ({"keccak_fixed": 1} if n else {})
+    want = keccak.keccak256_fixed(data)
+    assert torch.equal(got, want)
+    assert [bytes(d) for d in got.cpu().numpy()[:2]] == \
+        [keccak256(bytes(m)) for m in data.cpu().numpy()[:2]]
+
+
+@pytest.mark.cuda
+def test_keccak_fixed_kernel_on_unaligned_rows_and_leading_dims(cuda):
+    from gethsharding_tpu_torch.ops import keccak
+
+    buf = torch.as_tensor(np.random.default_rng(8).integers(
+        0, 256, 1 + 6 * 67, dtype=np.uint8), device=cuda)
+    rows = buf[1:].reshape(2, 3, 67)        # rows off 8-byte boundaries
+    got = keccak.keccak256(rows)
+    assert got.shape == (2, 3, 32)
+    assert torch.equal(got, keccak.keccak256_fixed(rows))
+    with pytest.raises(ValueError, match="expected .N, L."):
+        keccak.keccak_fixed_kernel(rows)
+
+
+def _replay_planes(planes, device):
+    return [torch.as_tensor(p, device=device) for p in planes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,S,T,A", [(1, 4, 9, 6), (2, 3, 40, 3),
+                                        (3, 2, 5, 300), (4, 1, 0, 4),
+                                        (5, 1, 64, 4096), (6, 1024, 1, 3)])
+def test_replay_kernel_equals_plain(cuda, seed, S, T, A):
+    import torch_replay_rows
+    from gethsharding_tpu_torch.ops import replay
+
+    planes = _replay_planes(torch_replay_rows.seeded_planes(seed, S, T, A),
+                            cuda)
+    _launches_from_zero()
+    got = replay.shard_replay(*planes)
+    assert _launched() == {"replay": 1}
+    with route.plain_versions():
+        want = replay.shard_replay(*planes)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_replay_batch_on_the_card(cuda):
+    """The hostile batch end to end: one launch each of the recovery and
+    the replay, two of the keccak, and the plain versions' outputs (the
+    plain recovery takes seconds on the card)."""
+    import torch_replay_rows
+    from gethsharding_tpu_torch.core import state_processor as sp
+    from gethsharding_tpu_torch.core.types import Transaction
+    from gethsharding_tpu_torch.ops import replay
+    from gethsharding_tpu_torch.utils.hexbytes import Address20
+
+    batch = torch_replay_rows.batch(sp, Transaction, ecdsa, Address20)
+    inp = replay.build_replay_inputs(*batch, device=cuda)
+    _launches_from_zero()
+    out = replay.replay_batch(inp)
+    assert _launched() == {"ecrecover": 1, "keccak_fixed": 2, "replay": 1}
+    with route.plain_versions():
+        want = replay.replay_batch(inp)
+    for name in replay.ReplayOutputs._fields:
+        assert torch.equal(getattr(out, name), getattr(want, name)), name
+    statuses = [s + [False] * (out.statuses.shape[1] - len(s))
+                for s in torch_replay_rows.STATUSES]
+    assert out.statuses.tolist() == statuses
+
+
+@pytest.mark.cuda
+def test_replay_kernel_refuses_unaligned_addresses(cuda):
+    import torch_replay_rows
+    from gethsharding_tpu_torch.ops import replay
+
+    planes = _replay_planes(torch_replay_rows.seeded_planes(7, 2, 3, 5),
+                            cuda)
+    buf = torch.zeros(2 * 5 * 20 + 1, dtype=torch.uint8, device=cuda)
+    planes[0] = buf[1:].view(2, 5, 20)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        replay.shard_replay_kernel(*planes)
+
+
+@pytest.mark.cuda
+def test_stress_step_on_the_card(cuda):
+    from gethsharding_tpu_torch.parallel import stress
+    from gethsharding_tpu_torch.params import Config
+
+    inputs, pool, bh, size, _ = stress.build_stress_inputs(
+        5, votes_per_shard=3, txs_per_shard=2, committee_size=7,
+        device=cuda)
+    pipe = stress.StressPipeline(Config(committee_size=7, quorum_size=2))
+    _launches_from_zero()
+    out = pipe.run(inputs, pool, bh, 1, size)
+    launched = _launched()
+    assert {k: v for k, v in launched.items() if k != "norm"} == {
+        "keccak_fixed": 3, "agg_g1": 1, "agg_g2": 1, "miller": 1,
+        "finalexp": 1, "ecrecover": 1, "replay": 1}
+    with route.plain_versions():
+        want = pipe.run(inputs, pool, bh, 1, size)
+    for name in stress.StressOutputs._fields:
+        assert torch.equal(getattr(out, name), getattr(want, name)), name
+    assert bool(out.accepted.all() & out.agg_ok.all() & out.tx_status.all())
+    assert int(out.total_votes) == 15 and int(out.total_elected) == 5

@@ -40,6 +40,7 @@ inline void __syncthreads() {}
 inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+inline int atomicMin(int* p, int v) { const int old = *p; if (v < old) *p = v; return old; }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 """
 
