@@ -178,12 +178,18 @@ resident on the card) and the recompute path (without keys):
    replay, roots to `scalar_root_with_padding` and the canonical roots
    to the scalar trie; `csrc/keccak_fixed.cu` and `csrc/replay.cu` equal
    to their plain versions on the card at the path's tensors (tolerance
-   0); both kernels' ptxas registers and stack (a stack frame or a spill
-   fails the run); timed (CUDA events) beside their bounds (keccak-f
+   0); the route of each keccak launch (a thread or a warp a message)
+   and the replay's blocks a shard; both kernels' ptxas registers and
+   stack (a stack frame or a spill fails the run); timed (CUDA events)
+   beside their bounds, the larger of the rate bound (keccak-f
    permutations × 4,320 32-bit operations; the replay's bytes against
-   its word operations) and their plain versions, and config 4 end to
-   end (warm, median of 7) with its host marshal apart and its kernels
-   under the profiler;
+   its word operations) and the chain bound (the permutations or
+   transactions in turn, each the function's own dependent path at the
+   card's latencies and SM clock, measured by a probe; the design's
+   trips beyond that path on a line of their own), and their plain
+   versions: the root's µs a permutation, the replay at 4,096 accounts
+   and at config 4; config 4 end to end (warm, median of 7) with its
+   host marshal apart and its kernels under the profiler;
 13. the fused period step of config 5 as bench.py:586-605 defines it
    (`parallel/stress.py::StressPipeline`, 1,024 shards, 2 votes and 1
    transaction a shard, a pool of 135), its host build timed on its own
@@ -194,7 +200,8 @@ resident on the card) and the recompute path (without keys):
    transaction valid, 2,048 votes, 0 or 1,024 elected; equal to the
    plain versions on the card (run once, at quorum 90: the quorum moves
    only the elected flags and their total); timed warm (median of 7)
-   with its split by kernel and the idle share.
+   with its split by kernel and the idle share, `miller` and
+   `finalexp` beside their operation bounds at the 1,024 rows.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -1016,6 +1023,101 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+# Dependent latencies of one warp on the card, for the chain bounds of
+# step 12: the cycles a 32-bit LOP3, a funnel shift (SHF) and an IADD3 take
+# when each feeds the next; a shared-memory round trip as the warp route
+# of keccak_fixed.cu and the replay's chain make it (a lane stores,
+# `__syncwarp()`, another lane's load feeds the next store; two buffers
+# in turn, so one sync a trip); and the SM clock (a spin of clock64()
+# cycles against CUDA events).
+LATENCY_PROBE = r"""
+extern "C" __global__ void gs_latency_probe(unsigned* io, long long* clk,
+                                            int iters, long long spin) {
+  __shared__ volatile unsigned sm[2][32];
+  const unsigned lane = threadIdx.x & 31;
+  unsigned a = io[lane], b = io[32], c = io[33];
+  long long t[5];
+  t[0] = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      asm volatile("lop3.b32 %0, %0, %1, %2, 0x96;"
+                   : "+r"(a) : "r"(b), "r"(c));
+  t[1] = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      asm volatile("shf.l.wrap.b32 %0, %0, %1, 7;" : "+r"(a) : "r"(b));
+  t[2] = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      asm volatile("add.u32 %0, %0, %1;" : "+r"(a) : "r"(b));
+  t[3] = clock64();
+  for (int i = 0; i < iters; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sm[j & 1][lane] = a;
+      __syncwarp();
+      a = sm[j & 1][(lane + 1) & 31];
+    }
+  t[4] = clock64();
+  const long long s0 = clock64();
+  while (clock64() - s0 < spin) {
+  }
+  io[lane] = a;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 4; ++k) clk[k] = t[k + 1] - t[k];
+}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def chain_latencies() -> dict:
+    """Cycles of a dependent LOP3, SHF, IADD3 and shared-memory round
+    trip in one warp, and the SM clock in Hz, measured on the card
+    (LATENCY_PROBE, built by nvcc into _build/latency/)."""
+    import ctypes
+
+    from gethsharding_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "latency"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(LATENCY_PROBE + r"""
+extern "C" int gs_latency_run(unsigned* io, long long* clk, int iters,
+                              long long spin, void* stream) {
+  gs_latency_probe<<<1, 32, 0, (cudaStream_t)stream>>>(io, clk, iters,
+                                                       spin);
+  return (int)cudaGetLastError();
+}
+""")
+    subprocess.run([_build.nvcc_path(), *_build.ARCH_FLAGS, "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", str(out / "probe.cu"),
+                    "-o", str(out / "libprobe.so")], check=True,
+                   capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(out / "libprobe.so"))
+    lib.gs_latency_run.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_void_p]
+    io = torch.arange(34, dtype=torch.int32, device="cuda") + 3
+    clk = torch.zeros(4, dtype=torch.int64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(iters, spin):
+        if lib.gs_latency_run(io.data_ptr(), clk.data_ptr(), iters, spin,
+                              stream):
+            fail("the latency probe did not launch")
+
+    iters = 4096
+    run(iters, 0)                      # warm
+    run(iters, 0)
+    per = (clk.cpu().double() / (16 * iters)).tolist()
+    spin = 40_000_000
+    _, ms = once_ms(lambda: run(0, spin))
+    return {"lop3": per[0], "shf": per[1], "iadd3": per[2],
+            "smem_round_trip": per[3], "sm_hz": spin / (ms * 1e-3)}
+
+
 def vote_phase(card: str, seed: int) -> list:
     """Step 10: the notary's vote phase at 100 shards. Counted from 0
     around one `ecrecover_addresses` (the period's proposer signatures)
@@ -1541,6 +1643,66 @@ def replay_bound(planes, statuses) -> dict:
     return bound(ops, moved)
 
 
+# The functions' own dependent paths, whatever a design adds to them.
+# A keccak-f round: the column parities (two LOP3 levels), rot1 (a funnel
+# shift), theta's three-way XOR, rho (a funnel shift), chi and iota: 7
+# dependent LOP3-class operations. A transaction of the replay: the
+# sender row's balance update, one borrow chain over its 8 words (the
+# check is that chain's borrow out; the cost and the other rows' updates
+# overlap it): 8 dependent IADD3.
+KECCAK_ROUND_OPS = 7
+REPLAY_TX_OPS = 8
+# What the designs add to those paths (step 12 prints it apart, as
+# overhead, never in a bound): keccak_fixed.cu's warp route two
+# shared-memory round trips a round (the state into sa and the columns
+# out; the pi store into sb and chi's loads); replay.cu's chain a round
+# trip through the slot the transaction before stored and a second
+# borrow chain of 8 IADD3 (balance - cost, then - value).
+KECCAK_WARP_ROUND_TRIPS = 2
+REPLAY_TX_EXTRA = (1, 8)
+
+
+def keccak_route(length: int) -> str:
+    """The route keccak_fixed.cu's kernel takes for messages of `length`
+    bytes ("warp" or "thread"), on the threshold its source states."""
+    from gethsharding_tpu_torch.ops import _build
+
+    found = re.search(r"constexpr int KF_WARP_MIN_LEN = (\d+);",
+                      (_build.SRC_DIR / "keccak_fixed.cu").read_text())
+    if found is None:
+        fail("keccak_fixed.cu states no KF_WARP_MIN_LEN")
+    return "warp" if length >= int(found.group(1)) else "thread"
+
+
+def keccak_chain_ms(length: int, lat: dict) -> float:
+    """The least time of one message's sponge of `length` bytes: its
+    permutations in turn × 24 rounds × KECCAK_ROUND_OPS dependent LOP3s,
+    at the card's measured latency and clock."""
+    from gethsharding_tpu_torch.ops import keccak
+
+    cycles = keccak.permutations(1, length) * 24 * KECCAK_ROUND_OPS \
+        * lat["lop3"]
+    return cycles / lat["sm_hz"] * 1e3
+
+
+def replay_chain_ms(txs: int, lat: dict) -> float:
+    """The least time of one shard's `txs` transactions in turn (shards
+    run side by side): REPLAY_TX_OPS dependent IADD3s each."""
+    return txs * REPLAY_TX_OPS * lat["iadd3"] / lat["sm_hz"] * 1e3
+
+
+def with_chain(rate: dict, chain_ms: float) -> dict:
+    """A rate bound (`bound`) and a chain bound: the larger is the bound.
+    A chain is counted in dependent operations, so it bounds by
+    operations."""
+    out = dict(rate, chain_ms=chain_ms, rate_ms=rate["bound_ms"])
+    if chain_ms > rate["bound_ms"]:
+        out.update(bound_ms=chain_ms, bound_by="operations", by="chain")
+    else:
+        out.update(by=rate["bound_by"])
+    return out
+
+
 def replay_phase(card: str, seed: int) -> list:
     """Step 12: config 4 and the same collation over a state of 4,096
     accounts, and the hostile batch of tests/torch_replay_rows.py. Counted
@@ -1640,6 +1802,13 @@ def replay_phase(card: str, seed: int) -> list:
         if any(kernel_err.values()):
             fail(f"replay ({label}): a kernel disagrees with its plain "
                  f"version: {kernel_err}")
+        print(f"replay ({label}): keccak_fixed routes: the addresses "
+              f"({pub.shape[0]} × {pub.shape[1]} B) "
+              f"{keccak_route(pub.shape[1])}, the roots "
+              f"({rows.shape[0]} × {rows.shape[1]} B) "
+              f"{keccak_route(rows.shape[1])}; replay "
+              f"{replay.split_blocks(*planes[1].shape)} block(s) a shard",
+              flush=True)
         n_ok = int(out.statuses.sum())
         print(f"replay ({label}): {out.statuses.shape[0]} shards × "
               f"{out.statuses.shape[1]} transactions over {a_total} rows, "
@@ -1662,40 +1831,86 @@ def replay_phase(card: str, seed: int) -> list:
         if stack or stores or loads:
             fail(f"{kern} keeps values in local memory")
 
-    # times at the 4,096-row state: each kernel beside its bound and its
-    # plain version, per replay_batch
+    # times at the 4,096-row state: each kernel beside its bound (the
+    # larger of its rate bound and its chain) and its plain version, per
+    # replay_batch; the replay at config 4 too
+    lat = chain_latencies()
+    print(f"chain latencies (one warp, each feeding the next): LOP3 "
+          f"{lat['lop3']:.2f}, SHF {lat['shf']:.2f}, IADD3 "
+          f"{lat['iadd3']:.2f} cycles, shared-memory round trip "
+          f"{lat['smem_round_trip']:.2f} cycles; SM clock "
+          f"{lat['sm_hz'] / 1e9:.4f} GHz [{card}]", flush=True)
     (inp, out, launches, pub, planes, rows, p_replay,
      (p_pub, p_root)) = path[scenarios[1][0]]
     k_pub = cuda_ms(lambda: keccak.keccak_fixed_kernel(pub), 20)
     k_root = cuda_ms(lambda: keccak.keccak_fixed_kernel(rows), 5)
-    k_replay = cuda_ms(lambda: replay.shard_replay_kernel(*planes), 10)
+    k_replay = cuda_ms(lambda: replay.shard_replay_kernel(*planes), 20)
     perms_pub = keccak.permutations(*pub.shape)
     perms_root = keccak.permutations(*rows.shape)
-    keccak_bound = bound((perms_pub + perms_root) * das.PERMUTATION_OPS,
-                         nbytes(pub, rows) + 32 * (pub.shape[0]
-                                                   + rows.shape[0]))
-    root_bound = bound(perms_root * das.PERMUTATION_OPS, nbytes(rows) + 32)
-    rep_bound = replay_bound(planes, out.statuses)
+    pub_bound = with_chain(
+        bound(perms_pub * das.PERMUTATION_OPS,
+              nbytes(pub) + 32 * pub.shape[0]),
+        keccak_chain_ms(pub.shape[1], lat))
+    root_bound = with_chain(
+        bound(perms_root * das.PERMUTATION_OPS, nbytes(rows) + 32),
+        keccak_chain_ms(rows.shape[1], lat))
+    keccak_bound = {"bound_by": "operations", "bound_ms":
+                    pub_bound["bound_ms"] + root_bound["bound_ms"]}
+    rep_bound = with_chain(replay_bound(planes, out.statuses),
+                           replay_chain_ms(planes[6].shape[1], lat))
+    root_cycles = k_root / perms_root * 1e-3 * lat["sm_hz"]
     print(f"time keccak_fixed (config 4 over {REPLAY_ACCOUNTS} accounts, "
           f"per replay_batch: the addresses, {pub.shape[0]} × {pub.shape[1]} "
-          f"B, {perms_pub} permutations, {k_pub:.4f} ms; the root, one "
-          f"message of {rows.shape[1]} B, {perms_root} permutations in "
-          f"turn on one thread, {k_root:.4f} ms, its bound "
-          f"{root_bound['bound_ms']:.6f} ms): kernel {k_pub + k_root:.4f} "
-          f"ms, plain {p_pub + p_root:.1f} ms, bound "
-          f"{keccak_bound['bound_ms']:.6f} ms ({keccak_bound['bound_by']}: "
-          f"{perms_pub + perms_root} permutations × {das.PERMUTATION_OPS} "
-          f"32-bit operations; {keccak_bound['bytes']} B), "
-          f"{keccak_bound['bound_ms'] / (k_pub + k_root):.3%} of its bound; "
+          f"B, {perms_pub} permutations, {keccak_route(pub.shape[1])} "
+          f"route, {k_pub:.4f} ms, bound {pub_bound['bound_ms']:.6f} ms "
+          f"({pub_bound['by']}); the root, one message of {rows.shape[1]} B, "
+          f"{perms_root} permutations in turn on the "
+          f"{keccak_route(rows.shape[1])} route, {k_root:.4f} ms, its "
+          f"chain bound {root_bound['chain_ms']:.4f} ms (24 rounds × "
+          f"{KECCAK_ROUND_OPS} dependent LOP3 a permutation), "
+          f"{root_bound['bound_ms'] / k_root:.1%} of it, its rate bound "
+          f"{root_bound['rate_ms']:.6f} ms): kernel "
+          f"{k_pub + k_root:.4f} ms, plain {p_pub + p_root:.1f} ms, bound "
+          f"{keccak_bound['bound_ms']:.4f} ms (operations, the chains), "
+          f"{keccak_bound['bound_ms'] / (k_pub + k_root):.1%} of its bound; "
           f"the root's sponge {k_root / perms_root * 1e3:.3f} µs a "
-          f"permutation [{card}]", flush=True)
-    print(f"time replay (config 4 over {REPLAY_ACCOUNTS} accounts, "
-          f"{planes[6].shape[1]} transactions, one block of 256 threads): "
-          f"kernel {k_replay:.4f} ms, plain {p_replay:.1f} ms, bound "
-          f"{rep_bound['bound_ms']:.6f} ms ({rep_bound['bound_by']}: "
-          f"{rep_bound['bytes']} B, {rep_bound['multiply_adds']} word "
-          f"operations), {rep_bound['bound_ms'] / k_replay:.3%} of its "
-          f"bound [{card}]", flush=True)
+          f"permutation, {root_cycles / 24:.0f} cycles a round [{card}]",
+          flush=True)
+    c4 = path[scenarios[0][0]]
+    c4_planes, c4_out, c4_plain = c4[4], c4[1], c4[6]
+    k_c4 = cuda_ms(lambda: replay.shard_replay_kernel(*c4_planes), 20)
+    c4_bound = with_chain(replay_bound(c4_planes, c4_out.statuses),
+                          replay_chain_ms(c4_planes[6].shape[1], lat))
+    for label, ms, plain_ms, r, pl in (
+            (f"config 4 over {REPLAY_ACCOUNTS} accounts", k_replay,
+             p_replay, rep_bound, planes),
+            ("config 4", k_c4, c4_plain, c4_bound, c4_planes)):
+        S, A = pl[1].shape
+        print(f"time replay ({label}, {pl[6].shape[1]} transactions, "
+              f"{replay.split_blocks(S, A)} block(s) of 256 threads a "
+              f"shard): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['by']}: chain "
+              f"{r['chain_ms']:.6f} ms of {pl[6].shape[1]} transactions × "
+              f"{REPLAY_TX_OPS} dependent IADD3; rate {r['rate_ms']:.6f} "
+              f"ms, {r['bytes']} B), {r['bound_ms'] / ms:.1%} of its bound "
+              f"[{card}]", flush=True)
+    # the designs' trips beyond the functions' chains, apart from the
+    # bounds: cycles a round or transaction, and over this run's chain
+    k_round = KECCAK_ROUND_OPS * lat["lop3"]
+    k_extra = KECCAK_WARP_ROUND_TRIPS * lat["smem_round_trip"]
+    r_tx = REPLAY_TX_OPS * lat["iadd3"]
+    r_extra = REPLAY_TX_EXTRA[0] * lat["smem_round_trip"] \
+        + REPLAY_TX_EXTRA[1] * lat["iadd3"]
+    T = planes[6].shape[1]
+    print(f"design overhead beyond the chains (in no bound): keccak_fixed's "
+          f"warp route {KECCAK_WARP_ROUND_TRIPS} shared-memory round trips "
+          f"a round, {k_extra:.2f} cycles beside the chain's {k_round:.2f} "
+          f"({k_extra * 24 * perms_root / lat['sm_hz'] * 1e3:.4f} ms over "
+          f"the root's {perms_root} permutations); replay's chain "
+          f"{REPLAY_TX_EXTRA[0]} slot round trip and {REPLAY_TX_EXTRA[1]} "
+          f"more IADD3 a transaction, {r_extra:.2f} cycles beside the "
+          f"chain's {r_tx:.2f} ({r_extra * T / lat['sm_hz'] * 1e3:.6f} ms "
+          f"over {T} transactions) [{card}]", flush=True)
 
     # config 4 end to end: the host marshal apart from the device path
     for label, shard_txs, gens, coins in scenarios[:2]:
@@ -1817,6 +2032,43 @@ def stress_phase(card: str, seed: int) -> None:
               f"launches kept in a trace of {runs} steps: "
               f"{', '.join(f'{k} {v}' for k, v in kept.items())}), idle "
               f"share {1 - busy / step_ms:.3f} [{card}]", flush=True)
+        for name, r in stress_pairing_bounds(STRESS_SHARDS).items():
+            ms = split_ms.get(f"{name}_kernel", float("nan"))
+            print(f"bound {name} at {STRESS_SHARDS} rows (quorum {quorum}; "
+                  f"every row paired, the 112-row count a row): "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                  f"{r['multiply_adds']} multiply-adds, {r['bytes']} B); "
+                  f"its device time {ms:.3f} ms a step, "
+                  f"{r['bound_ms'] / ms:.1%} of its bound [{card}]",
+                  flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def stress_pairing_bounds(rows: int) -> dict:
+    """The operation bounds of `miller` and `finalexp` at `rows` paired
+    rows, with the 112-row bounds' counts (main): a row's int32
+    multiply-adds from a one-row run of the plain version (three
+    schoolbooks per Fp2 product), its bytes from its planes' widths."""
+    from gethsharding_tpu_torch.ops import megakernels as mk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    limbs = lambda *shape: torch.randint(
+        0, 1 << 12, (1,) + shape + (mk.KNL,), generator=gen, device=dev,
+        dtype=torch.int32)
+    sig, h = (limbs(), limbs(), limbs()), (limbs(), limbs())
+    pk = (limbs(2), limbs(2), limbs(2))
+    nd = limbs(2, 6, 2)
+    g2_pt = 2 * mk.KNL * 4
+    work = {"miller": (lambda: mk.run_miller_plain(sig, h, pk),
+                       nbytes(*sig, *h, *pk) + 6 * g2_pt,
+                       mk._MILLER_LINES.nbytes),
+            "finalexp": (lambda: mk.run_program_plain(nd), 2 * nbytes(nd),
+                         mk._PROGRAM.nbytes)}
+    return {name: bound(count_multiply_adds(mk, fn, karatsuba=True) * rows,
+                        row_bytes * rows + fixed)
+            for name, (fn, row_bytes, fixed) in work.items()}
 
 
 def exact_phase(seed: int) -> int:

@@ -54,7 +54,7 @@ SIGNATURES = {
     "gs_ecrecover": [_P] * 5 + [_I, _I] + [_P] * 4,
     "gs_das_samples": [_P] * 6 + [_I, _P, _P],
     "gs_keccak_fixed": [_P, _L, _L, _P, _P],
-    "gs_replay": [_P] * 13 + [_I] * 3 + [_P] * 6,
+    "gs_replay": [_P] * 13 + [_I] * 4 + [_P] * 7,
 }
 
 _lib = None

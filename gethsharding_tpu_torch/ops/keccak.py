@@ -16,8 +16,9 @@ SHA3). `keccak256_fixed` is the plain version of `csrc/das.cu`'s sponges
 reference and the host keccak (`crypto/keccak.py`) by the tests. It never
 launches a kernel, so it stays the yardstick the sample kernel is held
 against. `keccak256` is the route: `csrc/keccak_fixed.cu`
-(`keccak_fixed_kernel`, one launch, a thread a message) for a CUDA
-tensor, `keccak256_fixed` for a CPU tensor and inside
+(`keccak_fixed_kernel`, one launch: a thread a message below the
+kernel's `KF_WARP_MIN_LEN` bytes, a warp a message from there on) for a
+CUDA tensor, `keccak256_fixed` for a CPU tensor and inside
 `route.plain_versions()`; the replay and the vote batch hash through it.
 """
 

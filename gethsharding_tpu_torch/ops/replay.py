@@ -53,6 +53,11 @@ KERNEL = _build.Kernel("replay", "gs_replay",
 # table rows a shard (replay.cu REPLAY_MAX_ROWS): row indices, A itself
 # ("no row") and the kernel's row strides stay inside an int32
 MAX_ROWS = 1 << 30
+# the kernel's threads a block (replay.cu REPLAY_THREADS), and the blocks
+# a launch aims at where a shard's table is split: two an SM of the H100's
+# 132
+BLOCK_THREADS = 256
+SPLIT_TARGET = 264
 
 # == uint256 as 32 little-endian 8-bit limbs in int32 ======================
 
@@ -223,11 +228,19 @@ _REPLAY_PLANES = (
     ("tx_to", ("T", 20), torch.uint8), ("tx_valid", ("T",), torch.bool))
 
 
+def split_blocks(S: int, A: int) -> int:
+    """The blocks `csrc/replay.cu` spreads a shard's table copy and
+    address scan over: as many as bring the launch to SPLIT_TARGET
+    blocks, but none with fewer rows than threads."""
+    return max(1, min(-(-A // BLOCK_THREADS), SPLIT_TARGET // max(S, 1)))
+
+
 def shard_replay_kernel(*planes):
     """Launch `csrc/replay.cu` on the 13 planes of `shard_replay_plain`
     as contiguous CUDA tensors (addresses 4-byte aligned, balance, price
-    and value rows canonical 8-bit limbs); returns what it returns.
-    Raises past the kernel's limit of MAX_ROWS table rows a shard."""
+    and value rows canonical 8-bit limbs), `split_blocks` blocks a shard;
+    returns what it returns. Raises past the kernel's limit of MAX_ROWS
+    table rows a shard."""
     S, A = planes[1].shape
     T = planes[6].shape[1]
     if not 1 <= A <= MAX_ROWS:
@@ -240,16 +253,23 @@ def shard_replay_kernel(*planes):
         if dtype == torch.uint8 and t.data_ptr() % 4:
             raise ValueError(f"{name}: the kernel reads 4-byte words; the "
                              f"tensor is not 4-byte aligned")
+    G = split_blocks(S, A)
     dev = planes[0].device
     status = torch.empty((S, T), dtype=torch.bool, device=dev)
     gas_used = torch.empty((S, T), dtype=torch.int32, device=dev)
     nonces = torch.empty((S, A), dtype=torch.int32, device=dev)
     balances = torch.empty((S, A, 32), dtype=torch.int32, device=dev)
-    rows = torch.empty((S, T, 2), dtype=torch.int32, device=dev)
+    # a split shard's blocks keep their first matches in part and meet
+    # in a counter; one block a shard needs neither
+    part = counter = None
+    if G > 1:
+        part = torch.empty((S, G, T, 2), dtype=torch.int32, device=dev)
+        counter = torch.zeros(S, dtype=torch.int32, device=dev)
     if S:
-        KERNEL.launch(*map(_build.ptr, planes), S, T, A,
-                      *map(_build.ptr, (status, gas_used, nonces, balances,
-                                        rows)))
+        KERNEL.launch(*map(_build.ptr, planes), S, T, A, G,
+                      *map(_build.ptr, (status, gas_used, nonces, balances)),
+                      *(None if t is None else _build.ptr(t)
+                        for t in (part, counter)))
     return nonces, balances, status, gas_used
 
 

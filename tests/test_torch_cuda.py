@@ -778,8 +778,13 @@ def _launched():
 @pytest.mark.cuda
 @pytest.mark.parametrize("length,n", [(0, 3), (1, 5), (64, 300), (96, 129),
                                       (135, 7), (136, 7), (137, 2),
-                                      (245_760, 1)])
+                                      (245_760, 1), (271, 3), (272, 1),
+                                      (2_720, 1), (2_720, 3), (245_760, 3),
+                                      (180, 1024)])
 def test_keccak_fixed_kernel_equals_plain(cuda, length, n):
+    """One launch a call, at the block edges, the warp route's threshold
+    (135 bytes: the thread route; 136 and 137: the warp route), the
+    root's length, 1 and 3 long rows, the stress step's roots."""
     from gethsharding_tpu_torch.ops import keccak
 
     data = torch.as_tensor(np.random.default_rng(length).integers(
@@ -795,14 +800,18 @@ def test_keccak_fixed_kernel_equals_plain(cuda, length, n):
 
 @pytest.mark.cuda
 def test_keccak_fixed_kernel_on_unaligned_rows_and_leading_dims(cuda):
+    """Rows off 8-byte boundaries, of 67 bytes (the thread route) and 300
+    (the warp route)."""
     from gethsharding_tpu_torch.ops import keccak
 
-    buf = torch.as_tensor(np.random.default_rng(8).integers(
-        0, 256, 1 + 6 * 67, dtype=np.uint8), device=cuda)
-    rows = buf[1:].reshape(2, 3, 67)        # rows off 8-byte boundaries
-    got = keccak.keccak256(rows)
-    assert got.shape == (2, 3, 32)
-    assert torch.equal(got, keccak.keccak256_fixed(rows))
+    for length in (67, 300):
+        buf = torch.as_tensor(np.random.default_rng(8).integers(
+            0, 256, 1 + 6 * length, dtype=np.uint8), device=cuda)
+        rows = buf[1:].reshape(2, 3, length)
+        got = keccak.keccak256(rows)
+        assert got.shape == (2, 3, 32)
+        want = keccak.keccak256_fixed(rows)
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="expected .N, L."):
         keccak.keccak_fixed_kernel(rows)
 
@@ -817,17 +826,62 @@ def _replay_planes(planes, device):
                                         (5, 1, 64, 4096), (6, 1024, 1, 3)])
 def test_replay_kernel_equals_plain(cuda, seed, S, T, A):
     import torch_replay_rows
+
+    _check_replay(torch_replay_rows.seeded_planes(seed, S, T, A), cuda)
+
+
+def _check_replay(planes, device):
+    """One launch of the replay kernel, equal to the plain version on
+    the card."""
     from gethsharding_tpu_torch.ops import replay
 
-    planes = _replay_planes(torch_replay_rows.seeded_planes(seed, S, T, A),
-                            cuda)
+    planes = [p if isinstance(p, torch.Tensor) else
+              torch.as_tensor(p, device=device) for p in planes]
+    with route.plain_versions():
+        want = replay.shard_replay(*planes)
     _launches_from_zero()
     got = replay.shard_replay(*planes)
     assert _launched() == {"replay": 1}
-    with route.plain_versions():
-        want = replay.shard_replay(*planes)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,S,T,A,G", [
+    (1, 1, 9, 600, 3), (3, 2, 5, 300, 2), (4, 1, 0, 600, 3),
+    (5, 1, 300, 1000, 4), (7, 1, 64, 1000, 4), (8, 2, 129, 700, 3),
+    (6, 140, 3, 5, 1), (9, 1, 64, 4096, 16), (10, 133, 64, 4096, 1)])
+def test_replay_kernel_split_and_tiles(cuda, seed, S, T, A, G):
+    """A shard's table over the launcher's G blocks (every table of more
+    than 256 rows, at few shards), transactions over several tiles (64 a
+    tile), more shards than SMs, one block over 16 scan chunks."""
+    import torch_replay_rows
+    from gethsharding_tpu_torch.ops import replay
+
+    assert replay.split_blocks(S, A) == G
+    _check_replay(torch_replay_rows.seeded_planes(seed, S, T, A), cuda)
+
+
+@pytest.mark.cuda
+def test_replay_kernel_unaligned_tables(cuda):
+    """A balance table off a 16-byte boundary: the copy's 4-byte path."""
+    import torch_replay_rows
+
+    planes = torch_replay_rows.seeded_planes(1, 4, 9, 6)
+    buf = np.zeros(planes[2].size + 1, np.int32)
+    buf[1:] = planes[2].ravel()
+    planes = _replay_planes(planes, cuda)
+    planes[2] = torch.as_tensor(buf, device=cuda)[1:].view(4, 6, 32)
+    assert planes[2].data_ptr() % 16
+    _check_replay(planes, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["one row", "two rows"])
+def test_replay_kernel_same_rows(cuda, kind):
+    import torch_replay_rows
+
+    _check_replay(torch_replay_rows.same_row_planes(kind), cuda)
 
 
 @pytest.mark.cuda

@@ -20,9 +20,12 @@ package's, on the CPU:
    interpreter with both knobs set (as tests/test_torch_exact.py does);
 4. `csrc/replay.cu` and `csrc/keccak_fixed.cu` compiled for the host
    (tests/torch_host_shim.py) against `shard_replay_plain` (on the batch
-   and on seeded rows with repeated addresses and sums near 2^256) and
-   `keccak256_fixed` (lengths 0, 1, 135, 136 and 245,760, an unaligned
-   row);
+   and on seeded rows with repeated addresses and sums near 2^256; a
+   shard's rows split over blocks and scan chunks, transactions over
+   tiles, 140 shards, an unaligned balance table, rows named again and
+   again) and `keccak256_fixed` (both routes and the kernel's threshold,
+   at the block edges, the threshold ±1 and 245,760 bytes; unaligned
+   rows);
 5. the observer's fold-back (`actors/observer.py::replay_on_device`) over
    tests/test_replay.py's three collations ends at the roots of the
    reference `Observer(replay_engine="python")` each period (period 1 in
@@ -387,6 +390,10 @@ def exact_run():
 
 # == 4. the kernels' sources under the host shim ==============================
 
+# A block is one thread under the shim, so either route takes a block a
+# message: the warp route's 25 lanes run in turn in that thread. `run`
+# launches the kernel (its route on the length); `run_route` runs one
+# route's sponge on every row, whatever the length (warp: 1 or 0).
 _KECCAK_RUNNER = r"""
 extern "C" void run(const unsigned char* data, long long n, long long len,
                     unsigned char* out) {
@@ -394,8 +401,20 @@ extern "C" void run(const unsigned char* data, long long n, long long len,
     blockIdx.x = (unsigned)b;
     gs::keccak_fixed_kernel(data, n, len, out);
   }
+}
+extern "C" void run_route(const unsigned char* data, long long n,
+                          long long len, unsigned char* out, int warp) {
+  gs::u64 sa[32], sb[32];
+  for (long long r = 0; r < n; ++r) {
+    if (warp)
+      gs::sponge_warp<gs::KF_WARP_UNROLL>(data + r * len, len, out + r * 32,
+                                          sa, sb, 0);
+    else
+      gs::sponge_thread(data + r * len, len, out + r * 32);
+  }
 }"""
 
+# Blocks s·G + g in order: the last of a shard's G runs its chain.
 _REPLAY_RUNNER = r"""
 extern "C" void run(const unsigned char* addrs, const int* nonces,
                     const int* balances, const int* coinbase,
@@ -404,14 +423,15 @@ extern "C" void run(const unsigned char* addrs, const int* nonces,
                     const int* tx_gas_limit, const int* tx_intrinsic,
                     const int* tx_price, const int* tx_value,
                     const unsigned char* tx_to, const unsigned char* tx_valid,
-                    int S, int T, int A, unsigned char* status, int* gas_used,
-                    int* nonces_out, int* balances_out, int* rows) {
-  for (int s = 0; s < S; ++s) {
-    blockIdx.x = (unsigned)s;
+                    int S, int T, int A, int G, unsigned char* status,
+                    int* gas_used, int* nonces_out, int* balances_out,
+                    int* part, int* counter) {
+  for (int b = 0; b < S * G; ++b) {
+    blockIdx.x = (unsigned)b;
     gs::replay_kernel(addrs, nonces, balances, coinbase, senders, sender_ok,
                       tx_nonce, tx_gas_limit, tx_intrinsic, tx_price,
-                      tx_value, tx_to, tx_valid, T, A, status, gas_used,
-                      nonces_out, balances_out, rows);
+                      tx_value, tx_to, tx_valid, T, A, G, status, gas_used,
+                      nonces_out, balances_out, part, counter);
   }
 }"""
 
@@ -432,27 +452,47 @@ def _ptr(a: np.ndarray):
     return ctypes.c_void_p(a.ctypes.data)
 
 
-@pytest.mark.parametrize("length", [0, 1, 135, 136, 245_760])
+# the kernel (its route on the length), then each route's sponge on its own
+_ROUTES = (None, "thread", "warp")
+
+
+def _keccak_on_host(lib, data, route):
+    n, length = data.shape
+    out = np.full((n, 32), 0xAA, np.uint8)
+    if route is None:
+        lib.run(_ptr(data), n, length, _ptr(out))
+    else:
+        lib.run_route(_ptr(data), n, length, _ptr(out), route == "warp")
+    return out
+
+
+@pytest.mark.parametrize("length", [0, 1, 135, 136, 137, 271, 272, 2_720,
+                                    245_760])
 def test_keccak_fixed_source_on_host_equals_plain(host_keccak_kernel, length):
-    n = 1 if length > 1000 else 5
+    """The kernel and each route's sponge at the block edges (135-137:
+    the warp route's threshold -1/0/+1) and the root's length; 3 rows,
+    and 1 row at 272 and 2,720 bytes."""
+    n = 1 if length in (272, 2_720) else 3
     data = np.random.default_rng(length).integers(
         0, 256, (n, length), dtype=np.uint8)
-    out = np.full((n, 32), 0xAA, np.uint8)
-    host_keccak_kernel.run(_ptr(data), n, length, _ptr(out))
     want = keccak.keccak256_fixed(torch.as_tensor(data)).numpy()
-    assert (out == want).all()
-    assert [bytes(o) for o in out] == [host_keccak(bytes(m)) for m in data]
+    assert [bytes(o) for o in want] == [host_keccak(bytes(m)) for m in data]
+    for route in _ROUTES:
+        got = _keccak_on_host(host_keccak_kernel, data, route)
+        assert (got == want).all(), route
 
 
 def test_keccak_fixed_source_on_host_unaligned_rows(host_keccak_kernel):
-    """Rows of 67 bytes: every row but the first starts off an 8-byte
-    boundary, so full blocks go in byte by byte."""
-    buf = np.random.default_rng(3).integers(0, 256, 1 + 4 * 300,
-                                            dtype=np.uint8)
-    data = buf[1:].reshape(4, 300)
-    out = np.zeros((4, 32), np.uint8)
-    host_keccak_kernel.run(_ptr(data), 4, 300, _ptr(out))
-    assert [bytes(o) for o in out] == [host_keccak(bytes(m)) for m in data]
+    """Rows of 300 and 67 bytes: every row but the first starts off an
+    8-byte boundary, so full blocks go in byte by byte, on both routes."""
+    for length in (300, 67):
+        buf = np.random.default_rng(3).integers(0, 256, 1 + 4 * length,
+                                                dtype=np.uint8)
+        data = buf[1:].reshape(4, length)
+        want = [host_keccak(bytes(m)) for m in data]
+        for route in _ROUTES:
+            got = _keccak_on_host(host_keccak_kernel, data, route)
+            assert [bytes(o) for o in got] == want, (length, route)
 
 
 def test_keccak_routes_on_the_cpu():
@@ -464,29 +504,41 @@ def test_keccak_routes_on_the_cpu():
     assert keccak.permutations(1, 245_760) == 1808
 
 
-def _replay_on_host(lib, planes):
+def _replay_on_host(lib, planes, blocks=None):
     """The kernel's outputs on numpy planes (the 13 of
-    `shard_replay_plain`); every output is written."""
+    `shard_replay_plain`), `blocks` a shard (default the launcher's
+    `split_blocks`); every output is written. One block a shard gets no
+    scratch (null `part` and counter), as the launcher passes it."""
     planes = [np.ascontiguousarray(p) for p in planes]
     S, A = planes[1].shape
     T = planes[6].shape[1]
+    G = replay.split_blocks(S, A) if blocks is None else blocks
     status = np.full((S, T), 0xAA, np.uint8)
     gas = np.full((S, T), -7, np.int32)
     nonces = np.full((S, A), -7, np.int32)
     balances = np.full((S, A, 32), -7, np.int32)
-    rows = np.zeros((S, T, 2), np.int32)
-    lib.run(*map(_ptr, planes), S, T, A,
-            *map(_ptr, (status, gas, nonces, balances, rows)))
+    part = np.full((S, G, max(T, 1), 2), -7, np.int32)
+    counter = np.zeros(S, np.int32)
+    scratch = (part, counter) if G > 1 else ()
+    lib.run(*map(_ptr, planes), S, T, A, G,
+            *map(_ptr, (status, gas, nonces, balances, *scratch)),
+            *([None, None] if G == 1 else []))
     assert set(status.ravel().tolist()) <= {0, 1}
+    if G > 1 and T:
+        assert (counter == G).all()
     return nonces, balances, status.astype(bool), gas
 
 
-def _assert_replay_on_host(lib, planes):
-    got = _replay_on_host(lib, planes)
+def _assert_replay_on_host(lib, planes, blocks=(None,)):
+    """The kernel at each of `blocks` a shard against the plain version
+    (run once); returns the plain statuses."""
     want = replay.shard_replay_plain(*map(torch.as_tensor, planes))
-    for name, g, w in zip(("nonces", "balances", "statuses", "gas_used"),
-                          got, want):
-        assert (g == w.numpy()).all(), name
+    for G in blocks:
+        got = _replay_on_host(lib, planes, G)
+        for name, g, w in zip(("nonces", "balances", "statuses",
+                               "gas_used"), got, want):
+            assert (g == w.numpy()).all(), (G, name)
+    return want[2]
 
 
 def test_replay_source_on_host_equals_plain(host_replay_kernel, ref_batch,
@@ -497,7 +549,7 @@ def test_replay_source_on_host_equals_plain(host_replay_kernel, ref_batch,
               ok, inp.tx_nonce, inp.tx_gas_limit, inp.tx_intrinsic,
               inp.tx_price, inp.tx_value, inp.tx_to, inp.tx_valid]
     planes = [np.asarray(p) for p in planes]
-    _assert_replay_on_host(host_replay_kernel, planes)
+    _assert_replay_on_host(host_replay_kernel, planes, (None, 2))
     assert _replay_on_host(host_replay_kernel, planes)[2].tolist() == \
         port_run[1].statuses.tolist()
 
@@ -507,11 +559,41 @@ def test_replay_source_on_host_equals_plain(host_replay_kernel, ref_batch,
 def test_replay_source_on_host_seeded_rows(host_replay_kernel, seed, S, T,
                                            A):
     planes = torch_replay_rows.seeded_planes(seed, S, T, A)
-    _assert_replay_on_host(host_replay_kernel, planes)
+    statuses = _assert_replay_on_host(host_replay_kernel, planes)
     if T:
-        statuses = replay.shard_replay_plain(
-            *map(torch.as_tensor, planes))[2]
         assert statuses.any() and not statuses.all()
+
+
+@pytest.mark.parametrize("seed,S,T,A,blocks",
+                         torch_replay_rows.SPLIT_CASES)
+def test_replay_source_on_host_split_and_tiles(host_replay_kernel, seed, S,
+                                               T, A, blocks):
+    """A shard's table over several blocks, transactions over several
+    tiles, more shards than the card's SMs (blocks: a shard's, and the
+    launcher's `split_blocks`)."""
+    planes = torch_replay_rows.seeded_planes(seed, S, T, A)
+    _assert_replay_on_host(host_replay_kernel, planes, (blocks, None))
+
+
+def test_replay_source_on_host_unaligned_tables(host_replay_kernel):
+    """Balance tables off a 16-byte boundary: the table copy takes its
+    4-byte path."""
+    planes = torch_replay_rows.seeded_planes(1, 4, 9, 6)
+    buf = np.zeros(planes[2].size + 1, np.int32)
+    planes[2] = buf[1:].reshape(planes[2].shape)
+    planes[2][...] = torch_replay_rows.seeded_planes(1, 4, 9, 6)[2]
+    assert planes[2].ctypes.data % 16
+    _assert_replay_on_host(host_replay_kernel, planes)
+
+
+@pytest.mark.parametrize("kind", torch_replay_rows.SAME_ROW_KINDS)
+def test_replay_source_on_host_same_rows(host_replay_kernel, kind):
+    """Transactions that name the same rows again and again: one row as
+    sender, recipient and coinbase at once, and many transfers between
+    the same two rows, over two tiles, on one block and on two."""
+    planes = torch_replay_rows.same_row_planes(kind)
+    statuses = _assert_replay_on_host(host_replay_kernel, planes, (None, 2))
+    assert 1 < int(statuses.sum()) < statuses.numel()
 
 
 # == 5. the observer's fold-back ==============================================

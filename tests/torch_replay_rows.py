@@ -131,3 +131,82 @@ def seeded_planes(seed: int, S: int, T: int, A: int):
             rng.integers(20_000, 40_000, (S, T)).astype(np.int32),
             rng.integers(21_000, 30_000, (S, T)).astype(np.int32),
             price, value, pick(), rng.random((S, T)) < 0.9]
+
+
+# Seeded planes (seed, S, T, A) and the blocks a shard (None: the
+# launcher's `split_blocks`) that split a shard's table over several
+# blocks, its rows over several scan chunks of replay.cu (256 a chunk),
+# its transactions over several tiles (64 a tile), and more shards than
+# the H100's 132 SMs.
+SPLIT_CASES = [
+    (1, 4, 9, 6, 3),             # a shard's rows over 3 blocks
+    (3, 2, 5, 300, 1),           # one block, its rows in two scan chunks
+    (4, 1, 0, 4, 2),             # a split with nothing to apply
+    (5, 1, 300, 40, 5),          # three tiles of transactions, 5 blocks
+    (7, 1, 64, 1000, None),      # the launcher's split: 4 blocks
+    (8, 2, 129, 7, 7),           # a tile and one, a block a row
+    (6, 140, 3, 5, None),        # more shards than SMs
+]
+
+SAME_ROW_KINDS = ("one row", "two rows")
+
+
+def same_row_planes(kind: str):
+    """The 13 replay planes of one shard of 200 transactions (two tiles
+    of replay.cu) that name the same rows again and again, every tenth
+    with a wrong nonce (the row's nonce holds).
+
+    "one row": every transaction's sender, recipient and coinbase are
+    row 1 (the coinbase index given from the end); "two rows": transfers
+    back and forth between rows 0 and 2, the coinbase row 2 (so the
+    recipient every other time), row 2 starting 2^40 below 2^256 and
+    every seventh value 2^41 (it wraps), one value above row 0's
+    balance."""
+    T, A = 200, 4
+    rng = np.random.default_rng(11 if kind == "one row" else 12)
+    addrs = np.zeros((1, A, 20), np.uint8)
+    addrs[0, :, 0] = [3, 5, 7, 9]
+    addrs[0, :, 19] = rng.integers(0, 256, A)
+    nonces = np.zeros((1, A), np.int32)
+    balances = np.zeros((1, A, 32), np.int32)
+    price = np.zeros((1, T, 32), np.int32)
+    value = np.zeros((1, T, 32), np.int32)
+    price[0, :, 0] = rng.integers(1, 3, T)
+    value[0, :, 0] = rng.integers(0, 256, T)
+    value[0, :, 1] = rng.integers(0, 4, T)
+    if kind == "one row":
+        src = dst = np.ones(T, int)
+        cb = np.array([1 - A], np.int32)
+        balances[0, 1, 5] = 1                       # 2^40
+    else:
+        src = np.where(np.arange(T) % 2 == 0, 0, 2)
+        dst = 2 - src
+        cb = np.array([2], np.int32)
+        balances[0, 0, 25] = 1                      # 2^200
+        balances[0, 2, 5:] = 255                    # 2^256 - 2^40
+        value[0, ::7, :] = 0
+        value[0, ::7, 5] = 2                        # 2^41
+        value[0, 150, 26] = 1                       # 2^208: refused
+    # the nonces the rows will hold: the transactions in turn, in ints
+    word = lambda limbs: int.from_bytes(bytes(limbs.astype(np.uint8)),
+                                        "little")
+    bal = [word(b) for b in balances[0]]
+    row_nonce = [0] * A
+    tx_nonce = np.zeros(T, np.int32)
+    for t in range(T):
+        s_, d_, c_ = src[t], dst[t], cb[0] % A
+        tx_nonce[t] = row_nonce[s_] + (7 if t % 10 == 5 else 0)
+        fee, v = word(price[0, t]) * 21_000, word(value[0, t])
+        cost = word(price[0, t]) * 25_000
+        if (tx_nonce[t] == row_nonce[s_] and bal[s_] >= cost
+                and bal[s_] - cost >= v):
+            bal[s_] = (bal[s_] - fee - v) % (1 << 256)
+            bal[d_] = (bal[d_] + v) % (1 << 256)
+            bal[c_] = (bal[c_] + fee) % (1 << 256)
+            row_nonce[s_] += 1
+    senders = addrs[0, src][None]
+    to = addrs[0, dst][None]
+    ones = np.ones((1, T), bool)
+    return [addrs, nonces, balances, cb, senders, ones, tx_nonce[None],
+            np.full((1, T), 25_000, np.int32),
+            np.full((1, T), 21_000, np.int32), price, value, to, ones]
