@@ -8,7 +8,8 @@ calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
 (and, after it, the notary's vote phase and its `--da-proofs poly`
 phase at the same 100 shards, steps 10 and 11, and last the collation
 replay of BASELINE config 4 and the fused period step of config 5,
-steps 12 and 13):
+steps 12 and 13, and the notary service itself on its own chain, step
+14):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -201,7 +202,33 @@ resident on the card) and the recompute path (without keys):
    plain versions on the card (run once, at quorum 90: the quorum moves
    only the elected flags and their total); timed warm (median of 7)
    with its split by kernel and the idle share, `miller` and
-   `finalexp` beside their operation bounds at the 1,024 rows.
+   `finalexp` beside their operation bounds at the 1,024 rows;
+14. the notary service (`actors/notary.py::Notary` with
+   `TorchSigBackend()`) on config 5's pool: the port's
+   `SimulatedMainchain(Config())` (100 shards, committee 135), 135 seeded
+   members funded and registered with BLS pubkeys and proofs of
+   possession (the build timed on its own line, the key derivation
+   apart), the notary under test started as a service: the member the
+   SMC samples for the most shards of period 1, its own shard the first,
+   a header signed by another key on the second, a missing body on the
+   third; 100 signed headers, the other 134 voting through their own
+   `SMCClient`s where sampled; after period 1 closes one stored vote
+   signature forged. Counted from 0 around the auditing head (the
+   commit of period 2's first block): period 1 False with one mismatch
+   on the forged shard, one `agg_g1`, one `finalexp`, one
+   `keccak_fixed` (the vote-log replay on the card), tower launches, at
+   most one `agg_g2` (the new committees' tables) and one `ecrecover`
+   (the head's vote phase), normalizes as glue; a clean rerun of
+   `audit_periods([1])` True (warm: no `agg_g2`), period 0 None,
+   `verify_period_batch(1)` True with one `keccak_fixed`; the notary's
+   one vote and its rejections. At quorum 90 (nothing elects) and
+   quorum 1 (every voted shard elects, and the notary indexes its own
+   shard's canonical header); the audit and the replay again through
+   the plain versions on the card. Timed warm (median of 7): the
+   auditing head end to end, `audit_periods([1])` split into
+   `_collect_audit_rows`, the backend call and `_judge_period`,
+   `verify_period_batch` alone, and the head's kernels under the
+   profiler with the card's idle share.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -2071,6 +2098,333 @@ def stress_pairing_bounds(rows: int) -> dict:
             for name, (fn, row_bytes, fixed) in work.items()}
 
 
+# step 14: the notary service on the card, on config 5's pool (100 shards,
+# committee 135, a pool of 135 members)
+NOTARY_POOL = 135
+NOTARY_AUDIT = ("agg_g1", "finalexp", "keccak_fixed")
+
+
+def notary_chain(mods, cfg, members):
+    """The port's `SimulatedMainchain(cfg)` with `members` funded and
+    registered in pool order (BLS pubkeys and proofs of possession),
+    sealed to the last block of period 0. Returns (chain, clients)."""
+    chain = mods.SimulatedMainchain(cfg)
+    clients = []
+    for acct in members:
+        chain.fund(acct.address)
+        client = mods.SMCClient(backend=chain, accounts=mods.am,
+                                account=acct, config=cfg)
+        client.register_notary()
+        clients.append(client)
+    while chain.block_number < cfg.period_length - 1:
+        chain.commit()
+    return chain, clients
+
+
+def period_eligibility(mods, chain, cfg, period: int) -> dict:
+    """Pool index -> the shards the SMC samples it for in `period` (the
+    committee keccak over the last block of the period before)."""
+    bh = bytes(chain.blockhash(period * cfg.period_length - 1))
+    size = len(chain.smc.notary_pool)
+    out = {}
+    for i in range(size):
+        prefix = bh + i.to_bytes(32, "big")
+        out[i] = [s for s in range(cfg.shard_count)
+                  if int.from_bytes(mods.keccak256(
+                      prefix + s.to_bytes(32, "big")), "big") % size == i]
+    return out
+
+
+def propose_period(mods, chain, kv, period: int, proposer, impostor,
+                   bad_sig=(), no_body=()) -> None:
+    """A signed header on every shard of `period` (one transaction a
+    body), the bodies in the shard DB `kv`; shards in `bad_sig` are signed
+    by `impostor`, those in `no_body` keep no body."""
+    for shard in range(chain.config.shard_count):
+        tx = mods.Transaction(nonce=shard, gas_limit=21000, value=period,
+                              payload=b"collation %d/%d" % (period, shard))
+        body = mods.serialize_txs_to_blob([tx])
+        root = mods.Collation(header=mods.CollationHeader(),
+                              body=body).calculate_chunk_root()
+        header = mods.CollationHeader(shard_id=shard, chunk_root=root,
+                                      period=period,
+                                      proposer_address=proposer.address)
+        signer = impostor if shard in bad_sig else proposer
+        header.add_sig(mods.ecdsa.sign(bytes(header.hash()),
+                                       signer.priv).to_bytes65())
+        chain.add_header(proposer.address, shard, period, root,
+                         header.proposer_signature)
+        if shard not in no_body:
+            mods.Shard(shard, kv).save_body(body)
+
+
+def notary_modules():
+    from types import SimpleNamespace
+
+    from gethsharding_tpu_torch.actors.notary import Notary
+    from gethsharding_tpu_torch.core.shard import Shard
+    from gethsharding_tpu_torch.core.types import (Collation,
+                                                   CollationHeader,
+                                                   Transaction,
+                                                   serialize_txs_to_blob)
+    from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+    from gethsharding_tpu_torch.crypto.keccak import keccak256
+    from gethsharding_tpu_torch.db.kv import MemoryKV
+    from gethsharding_tpu_torch.mainchain.accounts import AccountManager
+    from gethsharding_tpu_torch.mainchain.client import SMCClient
+    from gethsharding_tpu_torch.params import Config
+    from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
+    from gethsharding_tpu_torch.smc.state_machine import vote_digest
+
+    return SimpleNamespace(
+        Notary=Notary, Shard=Shard, Collation=Collation,
+        CollationHeader=CollationHeader, Transaction=Transaction,
+        serialize_txs_to_blob=serialize_txs_to_blob, bls=bls, ecdsa=ecdsa,
+        keccak256=keccak256, MemoryKV=MemoryKV, SMCClient=SMCClient,
+        Config=Config, SimulatedMainchain=SimulatedMainchain,
+        vote_digest=vote_digest, am=AccountManager())
+
+
+def launches_of(fn):
+    """(fn's result, the kernel launches it made, counted from 0)."""
+    from gethsharding_tpu_torch.ops import _build
+
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {n: c for n, c in _build.launch_counts().items() if c}
+
+
+def notary_run(mods, quorum: int, members, proposer, impostor,
+               backend) -> dict:
+    """Step 14's script at one quorum: the chain built, the notary under
+    test started among the pool, period 1 proposed (hostile rows on the
+    notary's own candidates) and voted, closed, one stored vote signature
+    forged, period 2 proposed, and the auditing head counted. Fails on
+    any answer other than the known one. Returns what the timings use."""
+    cfg = mods.Config(quorum_size=quorum)
+    t0 = time.perf_counter()
+    chain, clients = notary_chain(mods, cfg, members)
+    build_s = time.perf_counter() - t0
+    # the notary under test: the member sampled for the most shards in
+    # period 1; its own shard is the first of them, the second gets a
+    # header signed by another key, the third loses its body
+    elig = period_eligibility(mods, chain, cfg, 1)
+    me = max(elig, key=lambda i: (len(elig[i]), -i))
+    mine = elig[me]
+    if len(mine) < 3:
+        fail(f"step 14: no member is sampled for 3 shards in period 1 "
+             f"({mine})")
+    own, bad_sig, no_body = mine[:3]
+    kv = mods.MemoryKV()
+    notary = mods.Notary(client=clients[me], shard=mods.Shard(own, kv),
+                         config=cfg, sig_backend=backend)
+    notary.start()
+    t0 = time.perf_counter()
+    propose_period(mods, chain, kv, 1, proposer, impostor, (bad_sig,),
+                   (no_body,))
+    chain.commit()          # head 5: the notary votes first
+    voted = 0
+    for i, client in enumerate(clients):
+        if i == me:
+            continue
+        for shard in elig[i]:
+            rec = chain.collation_record(shard, 1)
+            client.submit_vote(
+                shard, 1, i, rec.chunk_root,
+                bls_sig=client.bls_sign(mods.vote_digest(shard, 1,
+                                                         rec.chunk_root)))
+            voted += 1
+    while chain.block_number < 2 * cfg.period_length - 1:
+        chain.commit()      # period 1 closes at block 9
+    period_s = time.perf_counter() - t0
+    # the heads of blocks 5-8 vote in period 1 (block 9's pending block is
+    # in period 2); each rejects the header signed by another key
+    heads = cfg.period_length - 1
+    if (notary.votes_submitted, notary.signatures_rejected) != (1, heads):
+        fail(f"step 14 (quorum {quorum}): the notary voted "
+             f"{notary.votes_submitted} times and rejected "
+             f"{notary.signatures_rejected} signatures; want 1 and {heads}")
+    if not any(f"unavailable for shard {no_body} period 1" in e
+               for e in notary.errors):
+        fail(f"step 14: the notary voted on shard {no_body} without its "
+             f"body")
+    data = chain.smc.collation_records
+    voted_shards = sorted(s for (s, p), r in data.items()
+                          if p == 1 and r.vote_sigs)
+    elected = sorted(s for (s, p), r in data.items()
+                     if p == 1 and r.is_elected)
+    if elected != (voted_shards if quorum == 1 else []):
+        fail(f"step 14 (quorum {quorum}): elected shards {elected}")
+    canonical = []
+    if quorum == 1:
+        header = notary._reconstruct_header(own, 1, data[(own, 1)])
+        if (notary.canonical_set != 1
+                or notary.shard.canonical_header_hash(own, 1)
+                != header.hash()):
+            fail("step 14 (quorum 1): the notary did not set its shard's "
+                 "canonical header")
+        canonical = [own]
+    elif notary.canonical_set:
+        fail("step 14 (quorum 90): the notary set a canonical header")
+    # after the period closes: one stored vote signature forged
+    forged = voted_shards[0]
+    vote = data[(forged, 1)].vote_sigs[min(data[(forged, 1)].vote_sigs)]
+    honest_sig = vote.sig
+    vote.sig = mods.bls.g1_add(vote.sig, mods.bls.G1_GEN)
+    propose_period(mods, chain, kv, 2, proposer, impostor)
+    mismatches = notary.audit_mismatches
+    _, head = launches_of(chain.commit)      # head 10: audits period 1
+    errors = [e for e in notary.errors if e.startswith("period 1 ")]
+    n = len(data[(forged, 1)].vote_sigs)
+    want = [f"period 1 audit mismatch on shard {forged}: invalid aggregate "
+            f"signature ({n}/{n} votes signed)"]
+    if notary.audit_mismatches - mismatches != 1 or errors != want:
+        fail(f"step 14 (quorum {quorum}): the auditing head reported "
+             f"{errors}; want {want}")
+    failed = [e for e in notary.errors if e.startswith("notarize failed")]
+    if failed or notary.crashed:
+        fail(f"step 14 (quorum {quorum}): a head failed: {failed}")
+    check_audit_launches(f"the auditing head (quorum {quorum})", head,
+                         cold=True)
+    vote.sig = honest_sig
+    result, warm = launches_of(lambda: notary.audit_periods([1]))
+    if result != {1: True}:
+        fail(f"step 14 (quorum {quorum}): the clean rerun gave {result}")
+    check_audit_launches(f"audit_periods([1]) (quorum {quorum})", warm,
+                         cold=False)
+    result, none = launches_of(lambda: notary.audit_periods([0]))
+    if result != {0: None} or none:
+        fail(f"step 14: the empty period gave {result}, launches {none}")
+    replay, vlaunch = launches_of(
+        lambda: chain.verify_period_batch(1, device=backend.device))
+    if replay is not True or vlaunch != {"keccak_fixed": 1}:
+        fail(f"step 14: verify_period_batch(1) gave {replay}, launches "
+             f"{vlaunch}")
+    return {"chain": chain, "notary": notary, "head": head, "warm": warm,
+            "build_s": build_s, "period_s": period_s, "voted": voted,
+            "rows": len(voted_shards), "me": me, "mine": mine,
+            "forged": forged, "canonical": canonical}
+
+
+def check_audit_launches(what: str, launched: dict, cold: bool) -> None:
+    """One precomp audit (one `agg_g1`, tower launches, one `finalexp`;
+    the cold one also one `agg_g2` for the new tables), the replay's one
+    `keccak_fixed`, normalizes as glue, at most one `ecrecover` for a
+    head's vote phase, and no other kernel."""
+    allowed = set(NOTARY_AUDIT) | {"tower", "norm", "ecrecover"} \
+        | ({"agg_g2"} if cold else set())
+    if any(launched.get(k) != 1 for k in NOTARY_AUDIT) \
+            or not launched.get("tower") or set(launched) - allowed \
+            or launched.get("ecrecover", 0) > 1 \
+            or launched.get("agg_g2", 0) > 1:
+        fail(f"step 14: {what} ran launches {launched}")
+
+
+# the port's kernels by the profiler's label
+NOTARY_LABELS = {"agg_g1": "agg_kernel", "agg_g2": "agg_kernel",
+                 "finalexp": "finalexp_kernel", "tower": "tower_kernel",
+                 "norm": "norm_kernel", "keccak_fixed": "keccak_fixed_kernel",
+                 "ecrecover": "ecrecover_kernel"}
+
+
+def notary_phase(card: str, seed: int) -> None:
+    """Step 14: the notary service on config 5's pool, at quorum 90
+    (nothing elects) and quorum 1 (every voted shard elects, and the
+    notary sets its own shard's canonical header), checked by
+    `notary_run`; at quorum 90 the audit also through the plain versions
+    on the card, and timed warm: the auditing head end to end,
+    `audit_periods([1])` split into its row collection, backend call and
+    judge, `verify_period_batch` alone, and the head's kernels under the
+    profiler with the card's idle share."""
+    from gethsharding_tpu_torch.ops import route
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    mods = notary_modules()
+    t_step = t0 = time.perf_counter()
+    members = [mods.am.new_account(seed=b"chip-notary-%d-%d" % (seed, i))
+               for i in range(NOTARY_POOL)]
+    proposer = mods.am.new_account(seed=b"chip-notary-proposer-%d" % seed)
+    impostor = mods.am.new_account(seed=b"chip-notary-impostor-%d" % seed)
+    for acct in members:
+        acct.bls_keypair()
+    keys_s = time.perf_counter() - t0
+    runs = {}
+    for quorum in (mods.Config().quorum_size, 1):
+        run = notary_run(mods, quorum, members, proposer, impostor,
+                         TorchSigBackend())
+        runs[quorum] = run
+        print(f"notary chain build (quorum {quorum}): SimulatedMainchain("
+              f"Config(quorum_size={quorum})), {NOTARY_POOL} members funded "
+              f"and registered with BLS pubkeys and proofs of possession: "
+              f"{run['build_s']:.1f} s on the host (the members' BLS key "
+              f"derivation, once for both quorums: {keys_s:.1f} s); period "
+              f"1 proposed (100 signed headers) and voted ({run['voted']} "
+              f"votes of the other members): {run['period_s']:.1f} s",
+              flush=True)
+        print(f"notary (quorum {quorum}): member {run['me']} sampled for "
+              f"shards {run['mine']} (own shard, a header signed by another "
+              f"key, a missing body); auditing head: period 1 False (the "
+              f"forged vote on shard {run['forged']}), launches "
+              f"{run['head']}; clean rerun True, launches {run['warm']}; "
+              f"period 0 None; verify_period_batch(1) True on the card "
+              f"(one keccak_fixed); {run['rows']} audited rows; canonical "
+              f"headers set {run['canonical']}", flush=True)
+    run = runs[mods.Config().quorum_size]
+    notary, chain = run["notary"], run["chain"]
+    with route.plain_versions():
+        plain = (notary.audit_periods([1]),
+                 chain.verify_period_batch(1, device="cuda"))
+    if plain != ({1: True}, True):
+        fail(f"step 14: the plain versions on the card gave {plain}")
+    period = 2 * chain.config.period_length
+
+    def head():
+        notary._last_audited_period = 1
+        notary.notarize_collations(head=period)
+
+    _, counted = launches_of(head)
+    check_audit_launches("the warm auditing head", counted, cold=False)
+    head_ms = host_ms(head, 7)
+    per_call = collections.Counter()
+    for name, count in counted.items():
+        per_call[NOTARY_LABELS[name]] += count
+    split_ms, kept = traced_calls(head, 5, per_call)
+    busy = sum(split_ms.values())
+    rows = notary._collect_audit_rows(1)
+    call = lambda: notary.sig_backend.bls_verify_committees(
+        rows["msgs"], rows["sig_rows"], rows["pk_rows"],
+        pk_row_keys=rows["pk_keys"])
+    ok = call()
+    parts = {"_collect_audit_rows": lambda: notary._collect_audit_rows(1),
+             "bls_verify_committees": call,
+             "_judge_period": lambda: notary._judge_period(1, rows, ok)}
+    part_ms = {k: host_ms(fn, 7) for k, fn in parts.items()}
+    audit_ms = host_ms(lambda: notary.audit_periods([1]), 7)
+    verify_ms = host_ms(lambda: chain.verify_period_batch(1), 7)
+    votes = sum(len(r) for r in rows["sig_rows"])
+    print(f"time notary auditing head (quorum 90, warm, median of 7): "
+          f"{head_ms:.2f} ms end to end (the audit of period 1: "
+          f"{len(rows['msgs'])} rows, {votes} votes; the vote phase of "
+          f"period 2); launches {counted}; device time {busy:.3f} ms a "
+          f"head ({', '.join(f'{k} {v:.3f}' for k, v in split_ms.items())}"
+          f"; launches kept in a trace of 5 heads: "
+          f"{', '.join(f'{k} {v}' for k, v in kept.items())}), idle share "
+          f"{1 - busy / head_ms:.3f} [{card}]", flush=True)
+    print(f"time notary audit_periods([1]) (warm, median of 7): "
+          f"{audit_ms:.2f} ms; "
+          f"{', '.join(f'{k} {v:.2f} ms' for k, v in part_ms.items())} "
+          f"(the judge holds verify_period_batch) [{card}]", flush=True)
+    print(f"time verify_period_batch(1) (warm, median of 7, one "
+          f"keccak_fixed launch and the pull): {verify_ms:.2f} ms; audit "
+          f"results and the plain versions' on the card agree [{card}]",
+          flush=True)
+    print(f"step 14: {time.perf_counter() - t_step:.1f} s in all", flush=True)
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
     exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
@@ -3018,6 +3372,7 @@ def main() -> int:
     multiproof_phase(card, args.seed)
     kernels += replay_phase(card, args.seed)
     stress_phase(card, args.seed)
+    notary_phase(card, args.seed)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ string across: the same powers of τ as the port's `pcs.SRS`.
 `vote_attempts_from_reference` and `stress_inputs_from_reference` carry
 the replay, vote-batch and stress planes across (the reference's
 NamedTuples of arrays, read as numpy), limb planes in the port's limb
-form. `reference_tables` reads the reference's constant
+form. `smc_fields` reads a scalar SMC's state (either package's: it
+only reads attributes) into plain Python values, and `smc_from_fields`
+builds the port's `SMC` from them, so both machines can start from one
+mid-life state. `reference_tables` reads the reference's constant
 tables and kernel programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
 for byte against the port's own re-derived tables (`port_tables`).
@@ -187,3 +190,122 @@ def mismatched_tables(reference: dict, port: dict) -> list:
                   or reference[name].dtype != port[name].dtype
                   or reference[name].shape != port[name].shape
                   or reference[name].tobytes() != port[name].tobytes())
+
+
+# -- the scalar SMC's state ---------------------------------------------------
+
+# event arguments that carry an address or a root (the rest are ints)
+_EVENT_ADDRESSES = ("notary", "proposerAddress", "notaryAddress")
+_EVENT_ROOTS = ("chunkRoot",)
+
+
+def _g1_ints(pt):
+    return None if pt is None else (int(pt[0]), int(pt[1]))
+
+
+def _g2_ints(pt):
+    return None if pt is None else (int(pt[0].a), int(pt[0].b),
+                                    int(pt[1].a), int(pt[1].b))
+
+
+def smc_fields(smc) -> dict:
+    """A scalar SMC's state as plain values: addresses and roots as bytes,
+    G1 points as (x, y) and G2 points as (x.a, x.b, y.a, y.b) int tuples
+    (None at infinity), vote words as ints, events as (name, args)."""
+    plain = lambda v: bytes(v) if isinstance(v, bytes) else v
+    return {
+        "pool": [None if a is None else bytes(a) for a in smc.notary_pool],
+        "pool_length": smc.notary_pool_length,
+        "registry": {
+            bytes(addr): {
+                "deregistered_period": e.deregistered_period,
+                "pool_index": e.pool_index, "balance": e.balance,
+                "deposited": e.deposited,
+                "bls_pubkey": _g2_ints(e.bls_pubkey),
+                "bls_pop": _g1_ints(e.bls_pop)}
+            for addr, e in smc.notary_registry.items()},
+        "current_vote": dict(smc.current_vote),
+        "records": {
+            key: {"chunk_root": bytes(r.chunk_root),
+                  "proposer": bytes(r.proposer),
+                  "is_elected": r.is_elected,
+                  "signature": bytes(r.signature),
+                  "vote_sigs": {i: {"sig": _g1_ints(v.sig),
+                                    "signer": bytes(v.signer)}
+                                for i, v in r.vote_sigs.items()},
+                  "vote_count": r.vote_count}
+            for key, r in smc.collation_records.items()},
+        "last_submitted": dict(smc.last_submitted_collation),
+        "last_approved": dict(smc.last_approved_collation),
+        "empty_slots_stack": list(smc.empty_slots_stack),
+        "empty_slots_stack_top": smc.empty_slots_stack_top,
+        "current_sample_size": smc.current_period_notary_sample_size,
+        "next_sample_size": smc.next_period_notary_sample_size,
+        "sample_size_last_updated": smc.sample_size_last_updated_period,
+        "shard_count": smc.shard_count,
+        "balance": smc.balance,
+        "events": [(e.name, {k: plain(v) for k, v in e.args.items()})
+                   for e in smc.events],
+    }
+
+
+def smc_from_fields(fields: dict, config=None, blockhash_fn=None):
+    """The port's `SMC` in the state `fields` describes (the form of
+    `smc_fields`; the empty-slot stack may be any int sequence, a numpy
+    array included)."""
+    from gethsharding_tpu_torch.params import DEFAULT_CONFIG
+    from gethsharding_tpu_torch.smc import state_machine as sm
+    from gethsharding_tpu_torch.utils.hexbytes import Address20, Hash32
+
+    g1 = lambda t: None if t is None else (int(t[0]), int(t[1]))
+    g2 = lambda t: None if t is None else (bls.Fp2(int(t[0]), int(t[1])),
+                                           bls.Fp2(int(t[2]), int(t[3])))
+
+    def event_arg(key, value):
+        if key in _EVENT_ADDRESSES:
+            return Address20(value)
+        if key in _EVENT_ROOTS:
+            return Hash32(value)
+        return int(value)
+
+    smc = sm.SMC(config or DEFAULT_CONFIG, blockhash_fn=blockhash_fn)
+    smc.notary_pool = [None if a is None else Address20(a)
+                       for a in fields["pool"]]
+    smc.notary_pool_length = int(fields["pool_length"])
+    smc.notary_registry = {
+        Address20(addr): sm.Notary(
+            deregistered_period=int(e["deregistered_period"]),
+            pool_index=int(e["pool_index"]), balance=int(e["balance"]),
+            deposited=bool(e["deposited"]), bls_pubkey=g2(e["bls_pubkey"]),
+            bls_pop=g1(e["bls_pop"]))
+        for addr, e in fields["registry"].items()}
+    smc.current_vote = {int(s): int(w)
+                        for s, w in fields["current_vote"].items()}
+    smc.collation_records = {
+        (int(s), int(p)): sm.CollationRecord(
+            chunk_root=Hash32(r["chunk_root"]),
+            proposer=Address20(r["proposer"]),
+            is_elected=bool(r["is_elected"]),
+            signature=bytes(r["signature"]),
+            vote_sigs={int(i): sm.VoteSig(sig=g1(v["sig"]),
+                                          signer=Address20(v["signer"]))
+                       for i, v in r["vote_sigs"].items()},
+            vote_count=int(r["vote_count"]))
+        for (s, p), r in fields["records"].items()}
+    smc.last_submitted_collation = {
+        int(s): int(p) for s, p in fields["last_submitted"].items()}
+    smc.last_approved_collation = {
+        int(s): int(p) for s, p in fields["last_approved"].items()}
+    smc.empty_slots_stack = [int(i) for i in fields["empty_slots_stack"]]
+    smc.empty_slots_stack_top = int(fields["empty_slots_stack_top"])
+    smc.current_period_notary_sample_size = int(
+        fields["current_sample_size"])
+    smc.next_period_notary_sample_size = int(fields["next_sample_size"])
+    smc.sample_size_last_updated_period = int(
+        fields["sample_size_last_updated"])
+    smc.shard_count = int(fields["shard_count"])
+    smc.balance = int(fields["balance"])
+    smc.events = [sm.Event(name, {k: event_arg(k, v)
+                                  for k, v in args.items()})
+                  for name, args in fields["events"]]
+    return smc

@@ -1,2 +1,3 @@
-"""Shard state replay on the host: transactions, the state trie and the
-scalar state processor, the twin of the batched replay (`ops/replay.py`)."""
+"""Core consensus types on the host: transactions, collation headers and
+bodies, the per-shard store, the state trie's root and the scalar state
+processor (the twin of the batched replay, `ops/replay.py`)."""

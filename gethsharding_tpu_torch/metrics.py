@@ -1,0 +1,199 @@
+"""Metrics: counters, gauges and timers behind a registry (the port's copy
+of the core of the JAX package's `metrics.py`; its exporters wait).
+
+Parity: the go-metrics registry (`metrics.go:22-39`) scoped to what the
+notary needs: aggregate signature verifications, collation validate and
+period audit latencies, and per-actor operation counters. Timers keep a
+ring buffer of recent observations for percentile snapshots.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from typing import Dict, List, Optional
+
+
+class Counter:
+    """Monotonic event count with a rate since creation and a 1-minute
+    EWMA over 5-second ticks (go-metrics `meter.go`), advanced lazily on
+    read."""
+
+    _TICK_S = 5.0
+    _ALPHA_1M = 1.0 - math.exp(-_TICK_S / 60.0)
+
+    def __init__(self) -> None:
+        self._value = 0
+        self._t0 = time.monotonic()
+        self._lock = threading.Lock()
+        self._uncounted = 0
+        self._last_tick = self._t0
+        self._ewma: Optional[float] = None
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+            self._uncounted += n
+
+    @property
+    def value(self) -> int:
+        return self._value
+
+    def rate(self) -> float:
+        """Events/sec since creation."""
+        elapsed = time.monotonic() - self._t0
+        return self._value / elapsed if elapsed > 0 else 0.0
+
+    def rate_1m(self, now: Optional[float] = None) -> float:
+        """Events/sec, 1-minute EWMA (0.0 until the first 5 s tick)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            ticks = int((now - self._last_tick) / self._TICK_S)
+            if ticks > 0:
+                # the events since the last read are spread evenly over the
+                # elapsed ticks, so a lazy read agrees with a periodic ticker
+                instant = self._uncounted / (ticks * self._TICK_S)
+                remaining = ticks
+                if self._ewma is None:
+                    self._ewma = instant
+                    remaining -= 1
+                self._ewma = instant + (self._ewma - instant) * (
+                    (1.0 - self._ALPHA_1M) ** remaining)
+                self._uncounted = 0
+                self._last_tick += ticks * self._TICK_S
+            return self._ewma or 0.0
+
+    def snapshot(self) -> dict:
+        return {"type": "counter", "count": self._value,
+                "rate_per_s": round(self.rate(), 3),
+                "rate_1m": round(self.rate_1m(), 3)}
+
+
+class Gauge:
+    """Last-written value."""
+
+    def __init__(self) -> None:
+        self._value: float = 0.0
+
+    def set(self, value: float) -> None:
+        self._value = value
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge", "value": self._value}
+
+
+class Timer:
+    """Duration observations with percentile snapshots over a recent
+    window (a ring buffer of the last `reservoir` observations)."""
+
+    def __init__(self, reservoir: int = 1024) -> None:
+        self._samples: List[float] = []
+        self._reservoir = reservoir
+        self._count = 0
+        self._total = 0.0
+        self._next = 0
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float) -> None:
+        with self._lock:
+            self._count += 1
+            self._total += seconds
+            if len(self._samples) < self._reservoir:
+                self._samples.append(seconds)
+            else:
+                self._samples[self._next] = seconds
+                self._next = (self._next + 1) % self._reservoir
+
+    def time(self) -> "_TimerContext":
+        return _TimerContext(self)
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def percentile(self, q: float) -> float:
+        with self._lock:
+            if not self._samples:
+                return 0.0
+            ordered = sorted(self._samples)
+        idx = min(int(q * len(ordered)), len(ordered) - 1)
+        return ordered[idx]
+
+    def mean(self) -> float:
+        return self._total / self._count if self._count else 0.0
+
+    def snapshot(self) -> dict:
+        return {
+            "type": "timer", "count": self._count,
+            "mean_s": round(self.mean(), 6),
+            "p50_s": round(self.percentile(0.50), 6),
+            "p95_s": round(self.percentile(0.95), 6),
+            "p99_s": round(self.percentile(0.99), 6),
+        }
+
+
+class _TimerContext:
+    def __init__(self, timer: Timer) -> None:
+        self._timer = timer
+
+    def __enter__(self) -> "_TimerContext":
+        self._start = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._timer.observe(time.monotonic() - self._start)
+
+
+class Registry:
+    """Named metric registry (metrics.Registry parity): the first caller
+    of a name defines its instrument."""
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, object] = {}
+        self._lock = threading.Lock()
+
+    def _get_or_register(self, name: str, factory):
+        with self._lock:
+            metric = self._metrics.get(name)
+            if metric is None:
+                metric = factory()
+                self._metrics[name] = metric
+            return metric
+
+    def counter(self, name: str) -> Counter:
+        return self._get_or_register(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_register(name, Gauge)
+
+    def timer(self, name: str) -> Timer:
+        return self._get_or_register(name, Timer)
+
+    def get(self, name: str) -> Optional[object]:
+        return self._metrics.get(name)
+
+    def snapshot(self) -> Dict[str, dict]:
+        with self._lock:
+            items = list(self._metrics.items())
+        return {name: metric.snapshot() for name, metric in sorted(items)}
+
+
+# the port's default registry (metrics.DefaultRegistry parity)
+DEFAULT_REGISTRY = Registry()
+
+
+def counter(name: str) -> Counter:
+    return DEFAULT_REGISTRY.counter(name)
+
+
+def gauge(name: str) -> Gauge:
+    return DEFAULT_REGISTRY.gauge(name)
+
+
+def timer(name: str) -> Timer:
+    return DEFAULT_REGISTRY.timer(name)

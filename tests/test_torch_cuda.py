@@ -943,3 +943,34 @@ def test_stress_step_on_the_card(cuda):
         assert torch.equal(getattr(out, name), getattr(want, name)), name
     assert bool(out.accepted.all() & out.agg_ok.all() & out.tx_status.all())
     assert int(out.total_votes) == 15 and int(out.total_elected) == 5
+
+
+@pytest.mark.cuda
+def test_notary_on_the_card(cuda):
+    """The port's notary over the small scripted chain of
+    `tests/torch_notary_script.py` on the card, launches counted around
+    each head: period 1's head recovers the signed candidates (one
+    `ecrecover`), period 2's audits period 1 (one committee sum of the
+    signatures, one final exponentiation, no Miller product: the precomp
+    path) and replays its vote log (one `keccak_fixed`). Audit results,
+    counters, vote words and the replay's answers equal the same script's
+    on device="cpu"."""
+    import torch_notary_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    card = script.run(m, TorchSigBackend(), {}, counts=_build.launch_counts)
+    cpu = script.run(m, TorchSigBackend(device="cpu"), {"device": "cpu"})
+    got, want = card["summary"], cpu["summary"]
+    for key in ("heads", "audit_periods", "replay", "head_counters",
+                "counters", "errors", "words", "shard_db"):
+        assert got[key] == want[key], key
+    assert got["heads"] == script.HEAD_AUDITS
+    assert got["replay"] == script.REPLAY
+    launches = got["head_launches"]
+    assert launches[1] == {"ecrecover": 1}
+    audit = launches[2]
+    assert (audit["agg_g1"], audit["finalexp"], audit["keccak_fixed"]) \
+        == (1, 1, 1)
+    assert "miller" not in audit and "ecrecover" not in audit
+    assert set(audit) <= {"agg_g1", "agg_g2", "tower", "norm", "finalexp",
+                          "keccak_fixed"}
