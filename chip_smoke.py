@@ -8,8 +8,8 @@ calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
 (and, after it, the notary's vote phase and its `--da-proofs poly`
 phase at the same 100 shards, steps 10 and 11, and last the collation
 replay of BASELINE config 4 and the fused period step of config 5,
-steps 12 and 13, and the notary service itself on its own chain, step
-14):
+steps 12 and 13, the notary service itself on its own chain, step
+14, and the sharding node with its CLI, step 15):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -228,7 +228,32 @@ resident on the card) and the recompute path (without keys):
    auditing head end to end, `audit_periods([1])` split into
    `_collect_audit_rows`, the backend call and `_judge_period`,
    `verify_period_batch` alone, and the head's kernels under the
-   profiler with the card's idle share.
+   profiler with the card's idle share;
+15. the port's sharding node (`node/backend.py::ShardNode`) as
+   `tests/torch_node_script.py` runs a devnet, at config 5's pool with
+   step 14's member keys: one `SimulatedMainchain(Config(quorum_size=1,
+   windback_depth=1))` and one shardp2p `Hub` shared by a notary node
+   (`ShardNode(actor="notary", deposit=True)`, its pool index picked so
+   that the SMC samples it in every period), 134 members voting from the
+   script where sampled, proposer nodes on 4 shards whose txpools are fed
+   33 signed transactions a period (32 applied, 1 rejected), an observer
+   node on one of them, and the other 96 shards' headers proposed by the
+   script; three periods sealed as the CLI's loop seals them, waiting on
+   the services' counters. Counted from 0 around the run, by block: every
+   kernel of the path launched (`agg_g1`, `tower`, `norm`, `finalexp`,
+   `keccak_fixed`, `ecrecover`, `replay`); each auditing head one
+   `agg_g1` and one `finalexp` with towers, normalizes, `keccak_fixed`
+   and `ecrecover`; each replaying block one `replay`. The notary's
+   bodies came over the hub (windback checks, bodies stored, each body
+   it voted on in its shard DB), every canonical header in a node's DB
+   is the SMC's approved record, the observer's roots equal the scalar
+   replay's on the host, the journal and the mirror hold each period's
+   votes and records, and no node recorded an error. Timed: the heads,
+   the replays, the notary's spans, every block, the last auditing head's
+   kernels under the profiler with the idle share. Then the CLI in a
+   process of its own (`python -m gethsharding_tpu_torch.cli sharding
+   --actor notary --deposit --runtime 8 --blocktime 0.2`): exit 0, a
+   sealed period, no service error.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -2331,7 +2356,7 @@ NOTARY_LABELS = {"agg_g1": "agg_kernel", "agg_g2": "agg_kernel",
                  "ecrecover": "ecrecover_kernel"}
 
 
-def notary_phase(card: str, seed: int) -> None:
+def notary_phase(card: str, seed: int):
     """Step 14: the notary service on config 5's pool, at quorum 90
     (nothing elects) and quorum 1 (every voted shard elects, and the
     notary sets its own shard's canonical header), checked by
@@ -2339,7 +2364,8 @@ def notary_phase(card: str, seed: int) -> None:
     on the card, and timed warm: the auditing head end to end,
     `audit_periods([1])` split into its row collection, backend call and
     judge, `verify_period_batch` alone, and the head's kernels under the
-    profiler with the card's idle share."""
+    profiler with the card's idle share. Returns (the account manager, the
+    members), whose keys step 15 reuses."""
     from gethsharding_tpu_torch.ops import route
     from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
@@ -2423,6 +2449,273 @@ def notary_phase(card: str, seed: int) -> None:
           f"results and the plain versions' on the card agree [{card}]",
           flush=True)
     print(f"step 14: {time.perf_counter() - t_step:.1f} s in all", flush=True)
+    return mods.am, members
+
+
+# step 15: the port's sharding node (node/backend.py::ShardNode) on the
+# card, at config 5's pool, and its CLI
+NODE_PERIODS = 3
+NODE_TXS = 33          # a collation: 32 applied transactions, 1 rejected
+# what the notary's auditing head and the observer's replaying block launch
+NODE_AUDIT = ("agg_g1", "tower", "norm", "finalexp", "keccak_fixed",
+              "ecrecover")
+NODE_REPLAY = ("replay", "ecrecover", "keccak_fixed")
+NODE_KERNELS = ("agg_g1", "tower", "norm", "finalexp", "keccak_fixed",
+                "ecrecover", "replay")
+
+
+def node_devnet(card: str, members) -> None:
+    """Step 15a: `tests/torch_node_script.py`'s devnet on the card at
+    config 5's pool (100 shards, committee 135, a pool of 135: the notary
+    node and 134 members), quorum 1 (each member is sampled for a shard
+    with probability 1/135, so at quorum 90 nothing elects and the
+    observer would have no canonical collation), windback depth 1, three
+    periods of 33-transaction collations on the proposer nodes' shards;
+    the members are step 14's (`members`: its account manager and
+    accounts, their BLS keys derived there).
+    Counted from 0 around the whole run, by block. Fails unless every
+    kernel of the path launched, each auditing head ran the audit's
+    kernels and each replaying block the replay's, the notary fetched the
+    proposers' bodies over the hub (windback checks, bodies stored, no
+    error), the notary's canonical headers are the SMC's approved
+    records, the
+    observer's roots equal the scalar replay's on the host, the journal
+    and the mirror hold each period's votes and records, and no node
+    recorded an error."""
+    from gethsharding_tpu_torch import tracing
+    from gethsharding_tpu_torch.ops import _build
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_node_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    cfg = m.Config(quorum_size=1, windback_depth=1)
+    profiled = {}
+
+    def seal_with(number, commit):
+        # the last auditing head (period NODE_PERIODS's audit) under the
+        # profiler, for its device time and the card's idle share
+        if number != (NODE_PERIODS + 1) * cfg.period_length:
+            return commit()
+        box = []
+        by_name, wall_ms = device_times(lambda: box.append(commit()))
+        profiled.update(split=kernel_split(by_name), wall_ms=wall_ms)
+        return box[0]
+
+    # the services' own spans (notary phases, proposer, txpool) say where
+    # a head's host time goes
+    tracer = tracing.enable(ring_spans=1 << 16)
+    tracer.clear()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = script.run(m, cfg, NOTARY_POOL, NODE_PERIODS,
+                         {"sig_backend": "torch"},
+                         txs_per_collation=NODE_TXS, min_proposers=4,
+                         counts=_build.launch_counts, seal_with=seal_with,
+                         members=members)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    run_s = time.perf_counter() - t0
+    spans = tracer.recent_spans()
+    total = {n: c for n, c in _build.launch_counts().items() if c}
+    missing = [k for k in NODE_KERNELS if not total.get(k)]
+    if missing:
+        fail(f"step 15: the node's run launched no {missing} ({total})")
+    layout, chain, nodes = out["layout"], out["chain"], out["nodes"]
+    plen = cfg.period_length
+    summaries, launches = out["summaries"], out["launches"]
+    observer = nodes["observer"].service(m.Observer)
+    # the observer's own timer, read before the host twin below adds to it
+    replay_timer = (observer.m_replay_latency.count,
+                    observer.m_replay_latency.mean() * 1e3)
+    by_period = {}
+    for period in range(1, NODE_PERIODS + 2):
+        blocks = launches.get(period, {}) | launches.get(period - 1, {})
+        head = blocks.get(period * plen, {})
+        want = NODE_AUDIT if period > 1 else ("ecrecover",)
+        if period > NODE_PERIODS:
+            want = tuple(k for k in NODE_AUDIT if k != "ecrecover")
+        if any(not head.get(k) for k in want) \
+                or (period > 1 and (head["agg_g1"], head["finalexp"])
+                    != (1, 1)):
+            fail(f"step 15: the head of block {period * plen} launched "
+                 f"{head}; want {want}")
+        if period <= NODE_PERIODS:
+            replay = blocks.get(period * plen + 1, {})
+            if any(not replay.get(k) for k in NODE_REPLAY) \
+                    or replay["replay"] != 1:
+                fail(f"step 15: block {period * plen + 1} (the observer's "
+                     f"replay) launched {replay}")
+        by_period[period] = collections.Counter()
+        for number, got in blocks.items():
+            if period * plen <= number < (period + 1) * plen:
+                by_period[period].update(got)
+    last = summaries[NODE_PERIODS + 1]
+    errors = {k: v for k, v in last["errors"].items() if v}
+    if errors:
+        fail(f"step 15: the nodes recorded errors {errors}")
+    mine = layout["eligibility"]
+    voted = sum(len(mine[p][layout["notary"]])
+                for p in range(1, NODE_PERIODS + 1))
+    n = last["notary"]
+    if (n["votes_submitted"], n["audits_run"], n["audit_mismatches"]) \
+            != (voted, NODE_PERIODS, 0) or not last["windback_checks"]:
+        fail(f"step 15: the notary's counters {n}, windback checks "
+             f"{last['windback_checks']}; want {voted} votes and "
+             f"{NODE_PERIODS} clean audits")
+    fetched = nodes["notary"].service(m.Syncer).bodies_stored
+    notary_kv = nodes["notary"].services[0].db
+    for p in range(1, NODE_PERIODS + 1):
+        for s in mine[p][layout["notary"]]:
+            if not notary_kv.get(bytes(chain.collation_record(s, p)
+                                       .chunk_root)):
+                fail(f"step 15: the notary holds no body of shard {s} "
+                     f"period {p}")
+        snap = summaries[p]["mirror"]
+        records = {int(k): v for k, v in snap["records"].items()}
+        if snap["period"] != p or any(
+                records.get(s, {}).get("chunk_root")
+                != bytes(chain.collation_record(s, p).chunk_root).hex()
+                for s in layout["proposers"]):
+            fail(f"step 15: the mirror's snapshot of period {p} lacks "
+                 f"its records")
+        journaled = {tuple(v) for v in summaries[p]["journal"]["votes"]}
+        if any((s, p) not in journaled
+               for s in mine[p][layout["notary"]]):
+            fail(f"step 15: the journal lacks period {p}'s votes "
+                 f"({journaled})")
+    if last["journal"]["audit_high_water"] != NODE_PERIODS:
+        fail(f"step 15: the journal's audit mark {last['journal']}")
+    # the canonical headers a node service wrote: the notary's, for each
+    # period it voted its own shard into approval (the observer's header
+    # and its body request are the script's, from the SMC's record: no
+    # node writes them, in the reference's node neither)
+    own = layout["notary_shard"]
+    voted_own = [p for p in range(1, NODE_PERIODS + 1)
+                 if own in mine[p][layout["notary"]]]
+    if not voted_own or n["canonical_set"] != len(voted_own):
+        fail(f"step 15: the notary set {n['canonical_set']} canonical "
+             f"headers; it voted its own shard {own} in periods "
+             f"{voted_own}")
+    for p in voted_own:
+        rec = chain.collation_record(own, p)
+        want = m.CollationHeader(shard_id=own, chunk_root=rec.chunk_root,
+                                 period=p, proposer_address=rec.proposer,
+                                 proposer_signature=rec.signature)
+        if not rec.is_elected or nodes["notary"].shard.canonical_header_hash(
+                own, p) != want.hash():
+            fail(f"step 15: the notary's canonical header of shard {own} "
+                 f"period {p} is not the SMC's")
+    canonical = len(voted_own)
+    # the observer's roots against the scalar replay on the host
+    twin = m.Observer(client=m.SMCClient(backend=m.SimulatedMainchain()),
+                      shard=nodes["observer"].shard, replay_engine="python")
+    cols = [nodes["observer"].shard.canonical_collation(layout["observer"],
+                                                        p)
+            for p in range(1, NODE_PERIODS + 1)]
+    for p, col in enumerate(cols, start=1):
+        if len(col.transactions) < NODE_TXS - 1:
+            fail(f"step 15: the observer's collation of period {p} holds "
+                 f"{len(col.transactions)} transactions")
+        twin.replay_collation(p, col)
+    if (twin.state_roots, twin.canonical_roots) != (
+            observer.state_roots, observer.canonical_roots):
+        fail("step 15: the observer's roots differ from the scalar "
+             "replay's")
+    # the auditing heads: blocks 2·plen … NODE_PERIODS·plen bare, the
+    # last one's (period NODE_PERIODS's audit) under the profiler
+    heads = {p * plen: out["block_s"][p * plen] * 1e3
+             for p in range(2, NODE_PERIODS + 1)}
+    last_head = (NODE_PERIODS + 1) * plen
+    replays = [out["block_s"][p * plen + 1] * 1e3
+               for p in range(1, NODE_PERIODS + 1)]
+    split = profiled.get("split", {})
+    busy = sum(split.values())
+    txs = sum(len(c.transactions) for c in cols)
+    print(f"node devnet (step 15a): config 5's pool (100 shards, committee "
+          f"135, 135 members, quorum 1, windback 1), notary at pool index "
+          f"{layout['notary']} (own shard {layout['notary_shard']}), "
+          f"proposer nodes on shards {layout['proposers']}, observer on "
+          f"shard {layout['observer']}; {NODE_PERIODS} periods in "
+          f"{run_s:.1f} s; the notary voted {n['votes_submitted']} times, "
+          f"audited {n['audits_run']} periods "
+          f"({n['aggregate_sigs_verified']} votes verified), "
+          f"{last['windback_checks']} windback checks, {fetched} bodies "
+          f"fetched over the hub; {canonical} canonical headers written "
+          f"by the notary (own shard, periods {voted_own}), the SMC's own; "
+          f"the observer's canonical headers and body requests written by "
+          f"the script from the SMC's records (no node writes them)",
+          flush=True)
+    print(f"time node auditing head (the notary's audit of the previous "
+          f"period and its votes, every node's head on the commit): blocks "
+          f"{', '.join(f'{b} {v:.1f} ms' for b, v in heads.items())}; "
+          f"block {last_head} under the profiler: "
+          f"{out['block_s'][last_head] * 1e3:.1f} ms with the profiler's "
+          f"start and stop, device "
+          f"{busy:.2f} ms of {profiled.get('wall_ms', 0):.1f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in sorted(split.items()))}),"
+          f" idle share {1 - busy / profiled.get('wall_ms', 1):.3f} "
+          f"[{card}]", flush=True)
+    print(f"time node observer replay (the block after each period's "
+          f"votes): median {statistics.median(replays):.1f} ms a "
+          f"collation, {txs} transactions replayed on the card "
+          f"({observer.txs_replayed} applied, {observer.txs_rejected} "
+          f"rejected), roots equal to the scalar replay's [{card}]",
+          flush=True)
+    for period, got in sorted(by_period.items()):
+        print(f"node launches, period {period}'s blocks: "
+              f"{dict(sorted(got.items()))}", flush=True)
+    print(f"time node blocks (commit with every node's heads, ms): "
+          f"{ {b: round(v * 1e3, 1) for b, v in out['block_s'].items()} } "
+          f"[{card}]", flush=True)
+    # the notary's phases on the auditing heads' thread, by span name
+    notary_ms = collections.defaultdict(list)
+    for rec in spans:
+        if rec["name"].startswith("notary/"):
+            notary_ms[rec["name"]].append(rec["dur_us"] / 1e3)
+    print("time node notary spans (count, sum ms, max ms): " + ", ".join(
+        f"{k} {len(v)} {sum(v):.1f} {max(v):.1f}"
+        for k, v in sorted(notary_ms.items())) + f" [{card}]", flush=True)
+    print(f"time node observer replay_collation (its own timer, mean of "
+          f"{replay_timer[0]}): {replay_timer[1]:.1f} ms a collation of "
+          f"{NODE_TXS} transactions (the replay's account table recovers "
+          f"the senders on the host, twice) [{card}]", flush=True)
+
+
+def node_cli(card: str) -> None:
+    """Step 15b: the port's CLI as a user starts it, in a process of its
+    own: `python -m gethsharding_tpu_torch.cli sharding --actor notary
+    --deposit --runtime 8 --blocktime 0.2`. Fails unless it exits 0,
+    logs a sealed period and reports no service error."""
+    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", "sharding",
+           "--actor", "notary", "--deposit", "--runtime", "8",
+           "--blocktime", "0.2"]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired:
+        fail("step 15b: the CLI did not exit within 180 s")
+    wall_s = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    sealed = re.findall(r"period \d+ sealed", log)
+    if out.returncode != 0 or not sealed or "service error" in log:
+        fail(f"step 15b: the CLI exited {out.returncode}, {len(sealed)} "
+             f"periods sealed:\n{log[-3000:]}")
+    print(f"node CLI (step 15b): {' '.join(cmd[1:])}: exit 0, "
+          f"{len(sealed)} periods sealed, no service error, {wall_s:.1f} s "
+          f"with its start [{card}]", flush=True)
+
+
+def node_phase(card: str, members) -> None:
+    t0 = time.perf_counter()
+    node_devnet(card, members)
+    node_cli(card)
+    print(f"step 15: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
 def exact_phase(seed: int) -> int:
@@ -3372,7 +3665,8 @@ def main() -> int:
     multiproof_phase(card, args.seed)
     kernels += replay_phase(card, args.seed)
     stress_phase(card, args.seed)
-    notary_phase(card, args.seed)
+    members = notary_phase(card, args.seed)
+    node_phase(card, members)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

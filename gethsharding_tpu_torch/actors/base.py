@@ -1,22 +1,21 @@
-"""Service base: lifecycle and the error funnel (the port's copy of the
-JAX package's `actors/base.py`; its background loops, `spawn`, come with
-the first port service that runs one).
+"""Service base: lifecycle, background loops and the error funnel (the
+port's copy of the JAX package's `actors/base.py`).
 
 Parity with the `sharding.Service` contract (`sharding/interfaces.go:30`)
 and `utils.HandleServiceErrors` (`sharding/utils/service.go:11`): services
-report failures to an error list (logged, never fatal), and stop via a
-shared shutdown event.
+start loops on threads, report failures to an error list (logged, never
+fatal), and stop via a shared shutdown event.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import List
+from typing import Callable, List, Optional
 
 
 class Service:
-    """Base lifecycle: start() runs on_start, stop() runs on_stop."""
+    """Base lifecycle: start() spawns registered loops, stop() joins them."""
 
     name = "service"
     # a supervisor may restart a leaf actor as a fresh instance; services
@@ -24,6 +23,7 @@ class Service:
     supervisable = False
 
     def __init__(self):
+        self._threads: List[threading.Thread] = []
         self._shutdown = threading.Event()
         self.errors: List[str] = []
         self.log = logging.getLogger(f"sharding.{self.name}")
@@ -46,6 +46,9 @@ class Service:
         self.log.info("Stopping %s service", self.name)
         self._shutdown.set()
         self.on_stop()
+        for thread in self._threads:
+            thread.join(timeout=5.0)
+        self._threads.clear()
         self._started = False
 
     def on_start(self) -> None:  # override
@@ -58,10 +61,32 @@ class Service:
     def running(self) -> bool:
         return self._started
 
+    # -- helpers -----------------------------------------------------------
+
+    def spawn(self, target: Callable[[], None],
+              name: Optional[str] = None) -> None:
+        thread = threading.Thread(
+            target=self._guard(target), name=name or f"{self.name}-loop",
+            daemon=True,
+        )
+        self._threads.append(thread)
+        thread.start()
+
+    def _guard(self, target: Callable[[], None]) -> Callable[[], None]:
+        def runner():
+            try:
+                target()
+            except Exception as exc:  # funnel, never crash the node
+                self.record_error(f"{self.name} loop crashed: {exc!r}")
+                self._crashed = True
+
+        return runner
+
     @property
     def crashed(self) -> bool:
-        """True when a run of callback failures reached
-        FAILURE_THRESHOLD."""
+        """True when a background loop died on an exception, or a run of
+        callback failures reached FAILURE_THRESHOLD (the signal a
+        supervisor restarts on); cleared only by a fresh instance."""
         return self._crashed
 
     # -- callback-driven failure detection ---------------------------------

@@ -12,16 +12,21 @@ joinNotaryPool :267, leaveNotaryPool :318, releaseNotary :365, submitVote
   vote log replayed through `ops/smc.py` (`verify_period_batch`) ->
   per shard: sampled for the committee? -> a collation record this
   period? -> the proposers' signatures recovered in one
-  `ecrecover_addresses` call -> availability in the local shard DB ->
-  submitVote at our pool index -> on quorum, the header set canonical.
+  `ecrecover_addresses` call -> availability in the local shard DB, the
+  body requested over shardp2p when it is not local -> submitVote at our
+  pool index -> on quorum, the header set canonical.
 
 `sig_backend=None` is `TorchSigBackend()` on the card, which raises where
 there is none. The head launches the audit before the vote phases and
 judges it after them, so the card verifies the previous period while the
-host votes; `audit_period(s)` is the synchronous form. The shardp2p body
-fetch, the DAS sampled and polynomial availability, the state mirror and
-the vote journal are not ported yet (ROADMAP.md, queue A item 8): their
-parameters must be None.
+host votes; `audit_period(s)` is the synchronous form.
+
+`p2p` (a `P2PServer`) fetches bodies that are not local; `mirror` (a
+`StateMirror`) serves each head's reads and the windback's prior records
+from one snapshot; `journal` (a `VoteJournal`) keeps the submitted votes
+and the audit high-water mark across restarts. The DAS sampled and
+polynomial availability are not ported yet (ROADMAP.md, queue A item 8):
+`das` must be None.
 """
 
 from __future__ import annotations
@@ -35,15 +40,24 @@ from gethsharding_tpu_torch.core.shard import Shard, ShardError
 from gethsharding_tpu_torch.core.types import CollationHeader
 from gethsharding_tpu_torch.crypto.keccak import keccak256
 from gethsharding_tpu_torch.mainchain.client import SMCClient
+from gethsharding_tpu_torch.mainchain.mirror import (
+    decode_committee_context, decode_record)
+from gethsharding_tpu_torch.p2p.messages import CollationBodyRequest
+from gethsharding_tpu_torch.p2p.service import P2PServer
 from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
+from gethsharding_tpu_torch.resilience.errors import (FetchAborted,
+                                                      TransientError)
+from gethsharding_tpu_torch.resilience.policy import (POLL_MISS,
+                                                      RetryExecutor,
+                                                      RetryPolicy,
+                                                      poll_probe)
 from gethsharding_tpu_torch.sigbackend import SigBackend
 from gethsharding_tpu_torch.smc.state_machine import SMCRevert, vote_digest
 from gethsharding_tpu_torch.utils.hexbytes import Hash32
 
-# the seams whose modules the port does not have yet, by parameter
-_UNPORTED_SEAMS = {"p2p": "p2p/", "das": "das/service.py",
-                   "mirror": "mainchain/mirror.py::StateMirror",
-                   "journal": "resilience/journal.py::VoteJournal"}
+
+class _BodyUnavailable(TransientError):
+    """A collation body did not arrive within one fetch attempt."""
 
 
 class Notary(Service):
@@ -51,7 +65,7 @@ class Notary(Service):
     supervisable = True
 
     def __init__(self, client: SMCClient, shard: Shard,
-                 p2p=None,
+                 p2p: Optional[P2PServer] = None,
                  config: Config = DEFAULT_CONFIG,
                  deposit_flag: bool = False,
                  all_shards: bool = True,
@@ -59,16 +73,23 @@ class Notary(Service):
                  mirror=None,
                  journal=None,
                  das=None):
-        for seam, value in (("p2p", p2p), ("das", das), ("mirror", mirror),
-                            ("journal", journal)):
-            if value is not None:
-                raise ValueError(
-                    f"Notary({seam}=...): the port has no "
-                    f"{_UNPORTED_SEAMS[seam]} yet (ROADMAP.md, queue A "
-                    f"item 8); pass {seam}=None")
+        if das is not None:
+            raise ValueError(
+                "Notary(das=...): the port has no das/service.py yet "
+                "(ROADMAP.md, queue A item 8); pass das=None")
         super().__init__()
         self.client = client
         self.shard = shard
+        self.p2p = p2p
+        # crash-safe vote journal: a restarted notary recovers its
+        # submitted (shard, period) votes and the audit high-water mark on
+        # on_start, so it neither double-votes nor re-audits finished
+        # periods. None = process memory only.
+        self.journal = journal
+        # the state mirror: the per-head scan reads records, watermarks and
+        # the committee context from one snapshot instead of one client
+        # call a shard
+        self.mirror = mirror
         self.config = config
         self.deposit_flag = deposit_flag
         # notaries watch every shard (the reference scans 0..shardCount)
@@ -96,10 +117,43 @@ class Notary(Service):
         self.m_votes = metrics.counter("notary/votes_submitted")
         self.m_audit_mismatch = metrics.counter("notary/audit_mismatches")
         self.m_windback_checks = metrics.counter("notary/windback_checks")
+        # body-fetch retry seam: each attempt re-broadcasts the shardp2p
+        # request and polls briefly, so a lost request frame costs one
+        # backoff, not the availability verdict
+        self._body_retry = RetryExecutor(
+            "collation_body",
+            RetryPolicy(attempts=3, base_s=0.05, cap_s=0.2,
+                        retryable=(_BodyUnavailable,)))
 
     # -- lifecycle ---------------------------------------------------------
 
     def on_start(self) -> None:
+        if self.journal is not None:
+            # a journal AHEAD of the chain belongs to a previous chain
+            # lifetime (a fresh simulated chain under an old datadir):
+            # replaying it would mute the notary until the new chain
+            # catches up. An unreachable chain keeps the journal.
+            try:
+                current = self.client.current_period()
+            except Exception:  # noqa: BLE001 - chain down at boot
+                current = None
+            if current is not None \
+                    and self.journal.invalidate_if_reset(current):
+                self.log.warning(
+                    "vote journal was ahead of the chain (period %d): "
+                    "chain reset assumed, journal cleared", current)
+            # recovery replay: the journal records the audited period
+            # itself (None = never audited); `_last_audited_period = N`
+            # means "period N-1 audited", hence the +1
+            high_water = self.journal.audit_high_water()
+            if high_water is not None \
+                    and high_water + 1 > self._last_audited_period:
+                self._last_audited_period = high_water + 1
+            recovered = sum(1 for _ in self.journal.votes())
+            if recovered or high_water is not None:
+                self.log.info(
+                    "vote journal recovered: %d submitted votes, audit "
+                    "high-water period %s", recovered, high_water)
         if self.deposit_flag:
             try:
                 self.join_notary_pool()
@@ -152,21 +206,43 @@ class Notary(Service):
             self.record_failure(
                 f"notarize failed at head {block.number}: {exc}")
 
+    def _head_snapshot(self, head: Optional[int]):
+        """The mirror snapshot for this head, refreshed if the mirror has
+        not caught up yet (one bulk pull); None = read via the client."""
+        if self.mirror is None:
+            return None
+        if head is None:
+            head = self.client.block_number
+        try:
+            snap = self.mirror.snapshot()
+            if snap is None or (snap["block_number"] or 0) < head:
+                snap = self.mirror.refresh()
+        except Exception:
+            return None  # degraded mirror: fall back to direct reads
+        if snap is None or (snap["block_number"] or 0) < head:
+            return None
+        return snap
+
     def notarize_collations(self, head: Optional[int] = None) -> None:
-        """One head's work. `head` (the head's block number) is the
-        reference's seam for its state mirror, which the port does not
-        have yet: the port reads the chain's current head."""
+        """One head's work. `head` is the head's block number: the
+        mirror's snapshot must have reached it to be read."""
         # the per-head trace root: the audit, fetch, recover and vote
         # phases below parent under it
         with tracing.span("notary/notarize"):
-            self._notarize_collations()
+            self._notarize_collations(head)
 
-    def _notarize_collations(self) -> None:
+    def _notarize_collations(self, head: Optional[int]) -> None:
         if not self.is_account_in_notary_pool():
             return
-        period = self.client.current_period()
-        block_number = self.client.block_number
-        shard_count = self.client.shard_count()
+        snap = self._head_snapshot(head)
+        if snap is not None:
+            period = snap["period"]
+            block_number = snap["block_number"]
+            shard_count = snap["shard_count"]
+        else:
+            period = self.client.current_period()
+            block_number = self.client.block_number
+            shard_count = self.client.shard_count()
         # audit the previous period once, in one backend call, launched
         # here and its verdicts pulled after the vote phases: the card
         # verifies period N-1 while this thread fetches candidates,
@@ -177,7 +253,7 @@ class Notary(Service):
             finish_audit = self._begin_period_audit(period - 1)
             self._last_audited_period = period
         try:
-            self._vote_phases(period, block_number, shard_count)
+            self._vote_phases(snap, period, block_number, shard_count)
         except Exception:
             # the vote-phase failure wins; the audit's verdicts are still
             # collected (its device work is done)
@@ -198,7 +274,7 @@ class Notary(Service):
                 self._last_audited_period = prev_audited  # retry next head
                 raise
 
-    def _vote_phases(self, period: int, block_number: int,
+    def _vote_phases(self, snap, period: int, block_number: int,
                      shard_count: int) -> None:
         # a vote submitted now executes in the pending block; if that block
         # already belongs to the next period the SMC would revert with
@@ -209,14 +285,21 @@ class Notary(Service):
         shard_ids = (range(shard_count)
                      if self.all_shards else [self.shard.shard_id])
 
-        # phase 1: every eligible (shard, record) pair of this period
+        # phase 1: every eligible (shard, record) pair of this period, from
+        # the snapshot when mirrored
         candidates: List[Tuple[int, int, object]] = []
         with tracing.span("notary/fetch"):
-            for shard_id in self._eligible_shards(shard_ids):
-                record = self.client.collation_record(shard_id, period)
-                if (record is not None and self.client
-                        .last_submitted_collation(shard_id) != period):
-                    record = None
+            for shard_id in self._eligible_shards(shard_ids, snap):
+                if snap is not None:
+                    if snap["last_submitted"].get(shard_id) != period:
+                        continue
+                    rec = snap["records"].get(shard_id)
+                    record = None if rec is None else decode_record(rec)
+                else:
+                    record = self.client.collation_record(shard_id, period)
+                    if (record is not None and self.client
+                            .last_submitted_collation(shard_id) != period):
+                        record = None
                 if record is None:
                     continue
                 candidates.append((shard_id, period, record))
@@ -246,12 +329,16 @@ class Notary(Service):
                     self.submit_vote(shard_id, p, record,
                                      proposer_sig_checked=True)
 
-    def _eligible_shards(self, shard_ids) -> List[int]:
+    def _eligible_shards(self, shard_ids, snap=None) -> List[int]:
         """Committee eligibility for every shard from one sampling-context
-        view: the keccak sampling of `notary.go:62` runs locally over the
-        fetched context, in place of one call a shard. Falls back to
-        per-shard calls when the backend lacks the view."""
-        ctx = self.client.committee_context()
+        view (the mirror snapshot's when one is current): the keccak
+        sampling of `notary.go:62` runs locally over the fetched context,
+        in place of one call a shard. Falls back to per-shard calls when
+        the backend lacks the view."""
+        if snap is not None:
+            ctx = decode_committee_context(snap["committee_context"])
+        else:
+            ctx = self.client.committee_context()
         me = self.client.account()
         if ctx is None:
             return [s for s in shard_ids
@@ -287,7 +374,17 @@ class Notary(Service):
                 f"size {self.config.committee_size}"
             )
             return False
+        # the journal gate first: it answers "did this process lineage
+        # already submit (shard, period)?" locally, so a restarted notary
+        # cannot double-vote while its view of the chain catches up
+        if self.journal is not None and self.journal.has_vote(shard_id,
+                                                              period):
+            return False
         if self.client.has_voted(shard_id, registry.pool_index):
+            if self.journal is not None:
+                # the chain knows but the journal missed it (the vote
+                # landed in the crash window): sync it
+                self.journal.record_vote(shard_id, period)
             return False
 
         # the period flow checks every candidate's proposer signature in one
@@ -303,8 +400,8 @@ class Notary(Service):
                     f"period {period}")
                 return False
 
-        # data availability: the local shard DB's verdict (the shardp2p
-        # body fetch is not ported yet)
+        # data availability: the local shard DB's verdict, the body fetched
+        # over shardp2p when it is not local
         with tracing.span("notary/verify", shard=shard_id):
             if not self._check_availability(shard_id, period, record):
                 self.record_error(
@@ -327,6 +424,10 @@ class Notary(Service):
         except SMCRevert as exc:
             self.record_error(f"vote reverted: {exc}")
             return False
+        if self.journal is not None:
+            # journal after the chain accepted: the journal answers
+            # "already submitted?", the chain stays authoritative
+            self.journal.record_vote(shard_id, period)
         self.votes_submitted += 1
         self.m_votes.inc()
 
@@ -546,6 +647,13 @@ class Notary(Service):
             self.record_error(
                 f"period {period} batch-replay mismatch: "
                 f"submit_votes_batch disagrees with the scalar SMC")
+        if self.journal is not None:
+            # this period's audit is done (mismatches are reported, not
+            # retried): persist the watermark so a restart skips it, and
+            # prune the votes of closed periods (a vote can only target
+            # the current period)
+            self.journal.set_audit_high_water(period)
+            self.journal.prune_votes(before_period=period)
         return consistent
 
     def verify_proposer_signatures(self, records) -> list:
@@ -586,13 +694,25 @@ class Notary(Service):
 
     def _check_windback(self, shard_id: int, period: int) -> bool:
         """Enforced windback: the last `config.windback_depth` periods'
-        collations on this shard chain must be available in the shard DB,
-        or the notary refuses to vote."""
+        collations on this shard chain must be available (bodies fetched
+        over shardp2p when missing), or the notary refuses to vote.
+
+        Prior-period records come from the mirror snapshot's
+        `prior_records` (closed periods are immutable); only periods
+        outside the snapshot's depth fall back to `collation_record`."""
         depth = self.config.windback_depth
         if depth <= 0:
             return True
+        snap = self.mirror.snapshot() if self.mirror is not None else None
+        prior_records = (snap or {}).get("prior_records") or {}
+        if snap is not None and (snap.get("period") or 0) != period:
+            prior_records = {}  # stale snapshot: its window may not align
         for prior in range(max(1, period - depth), period):
-            record = self.client.collation_record(shard_id, prior)
+            if prior in prior_records:
+                rec = prior_records[prior].get(shard_id)
+                record = None if rec is None else decode_record(rec)
+            else:
+                record = self.client.collation_record(shard_id, prior)
             if record is None:
                 continue  # no collation that period: nothing to hold
             self.m_windback_checks.inc()
@@ -603,13 +723,52 @@ class Notary(Service):
                 return False
         return True
 
-    def _check_availability(self, shard_id: int, period: int, record) -> bool:
-        """The shard DB's local verdict; a body that is not local is
-        unavailable (the shardp2p fetch is not ported yet)."""
+    def _availability_probe(self, shard_id: int, period: int, record):
+        """(header, verdict): the shard DB's local answer. True/False is
+        authoritative; None means the body is not local (ShardError), and
+        the body request has been broadcast over shardp2p — fire and
+        forget, never blocks."""
         header = self._reconstruct_header(shard_id, period, record)
         try:
-            return self.shard.check_availability(header)
+            return header, self.shard.check_availability(header)
         except ShardError:
+            pass
+        if self.p2p is not None:
+            self.p2p.broadcast(
+                CollationBodyRequest(
+                    chunk_root=record.chunk_root,
+                    shard_id=shard_id,
+                    period=period,
+                    proposer=record.proposer,
+                )
+            )
+        return header, None
+
+    def _check_availability(self, shard_id: int, period: int, record) -> bool:
+        header, verdict = self._availability_probe(shard_id, period, record)
+        if verdict is not None:
+            return verdict
+        if self.p2p is None:
+            return False
+
+        # body not local: poll briefly for the responding syncer's store,
+        # under the body-fetch retry policy; every retry re-broadcasts the
+        # request (via the probe)
+        def attempt() -> bool:
+            got = poll_probe(
+                lambda: self.shard.check_availability(header), self.wait,
+                interval_s=0.05, polls=7, not_ready=(ShardError,))
+            if got is not POLL_MISS:
+                return got
+            _, late = self._availability_probe(shard_id, period, record)
+            if late is not None:
+                return late
+            raise _BodyUnavailable(
+                f"shard {shard_id} period {period} body not delivered")
+
+        try:
+            return self._body_retry.call(attempt)
+        except (_BodyUnavailable, FetchAborted):
             return False
 
     def _reconstruct_header(self, shard_id: int, period: int,

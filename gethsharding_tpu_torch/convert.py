@@ -13,7 +13,12 @@ NamedTuples of arrays, read as numpy), limb planes in the port's limb
 form. `smc_fields` reads a scalar SMC's state (either package's: it
 only reads attributes) into plain Python values, and `smc_from_fields`
 builds the port's `SMC` from them, so both machines can start from one
-mid-life state. `reference_tables` reads the reference's constant
+mid-life state. The node's state carries across as plain values too:
+`kv_items` / `kv_from_items` (the shard DB byte for byte),
+`mirror_snapshot_fields` / `mirror_snapshot_from_fields` (the state
+mirror's snapshot in its persisted JSON), `journal_records` /
+`journal_from_records` (the vote journal) and `txpool_pending` /
+`txpool_from_pending` (a txpool's transactions). `reference_tables` reads the reference's constant
 tables and kernel programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
 for byte against the port's own re-derived tables (`port_tables`).
@@ -309,3 +314,84 @@ def smc_from_fields(fields: dict, config=None, blockhash_fn=None):
                                   for k, v in args.items()})
                   for name, args in fields["events"]]
     return smc
+
+
+# -- the node's state ----------------------------------------------------
+
+
+def kv_items(kv) -> list:
+    """A key-value store's items (either package's `KVStore`: the shard
+    DB, whose keys hold the headers, bodies, availability bits, canonical
+    index, vote journal and mirror snapshot) as sorted (key, value) bytes
+    pairs."""
+    return sorted((bytes(k), bytes(v)) for k, v in kv.items())
+
+
+def kv_from_items(items, kv=None):
+    """`items` ((key, value) bytes pairs) written into `kv` (a new port
+    `MemoryKV` where None); returns the store."""
+    from gethsharding_tpu_torch.db.kv import MemoryKV
+
+    kv = MemoryKV() if kv is None else kv
+    for key, value in items:
+        kv.put(bytes(key), bytes(value))
+    return kv
+
+
+def mirror_snapshot_fields(snapshot: dict) -> bytes:
+    """A state mirror's snapshot (either package's) in its persisted
+    encoding: the JSON bytes both packages keep under `smc-mirror:latest`."""
+    from gethsharding_tpu_torch.mainchain import mirror
+
+    return mirror._encode(snapshot)
+
+
+def mirror_snapshot_from_fields(encoded: bytes) -> dict:
+    """The snapshot `mirror_snapshot_fields` encoded, decoded as the port's
+    `StateMirror` holds it (int shard and period keys)."""
+    from gethsharding_tpu_torch.mainchain import mirror
+
+    return mirror._decode(encoded)
+
+
+def journal_records(journal) -> dict:
+    """A vote journal's records (either package's `VoteJournal`): the
+    journaled (shard, period) votes and the audit high-water mark."""
+    return {"votes": sorted(journal.votes()),
+            "audit_high_water": journal.audit_high_water()}
+
+
+def journal_from_records(records: dict, kv=None):
+    """The port's `VoteJournal` over `kv` (a new `MemoryKV` where None)
+    holding `records` (the form of `journal_records`)."""
+    from gethsharding_tpu_torch.db.kv import MemoryKV
+    from gethsharding_tpu_torch.resilience.journal import VoteJournal
+
+    journal = VoteJournal(MemoryKV() if kv is None else kv)
+    for shard_id, period in records["votes"]:
+        journal.record_vote(int(shard_id), int(period))
+    if records["audit_high_water"] is not None:
+        journal.set_audit_high_water(int(records["audit_high_water"]))
+    return journal
+
+
+def txpool_pending(txpool) -> list:
+    """Every transaction a txpool holds (either package's `TXPool`,
+    executable or parked behind a nonce gap), RLP-encoded, by sender and
+    nonce."""
+    return [bytes(slot[nonce].encode_rlp())
+            for sender, slot in sorted(txpool._by_sender.items(),
+                                       key=lambda kv: bytes(kv[0]))
+            for nonce in sorted(slot)]
+
+
+def txpool_from_pending(encoded, **kwargs):
+    """The port's `TXPool(**kwargs)` holding the RLP-encoded transactions
+    `encoded` (the form of `txpool_pending`), admitted in order."""
+    from gethsharding_tpu_torch.actors.txpool import TXPool
+    from gethsharding_tpu_torch.core.types import Transaction
+
+    pool = TXPool(**{"simulate_interval": None, **kwargs})
+    for blob in encoded:
+        pool.submit(Transaction.decode_rlp(bytes(blob)))
+    return pool

@@ -188,6 +188,19 @@ class SMCClient:
         return (self._read(fn, period, device=device) if fn is not None
                 else None)
 
+    def mirror_snapshot(self) -> dict:
+        """One consistent snapshot of the hot-loop SMC read surface,
+        assembled from the client's own (stop-gated) reads."""
+        from gethsharding_tpu_torch.mainchain.mirror import assemble_snapshot
+
+        return assemble_snapshot(self)
+
+    @property
+    def reorg_generation(self) -> int:
+        """Proxied so locally-assembled mirror snapshots carry the
+        chain's rollback generation."""
+        return getattr(self.backend, "reorg_generation", 0)
+
     def audit_data(self, period: int) -> dict:
         """Bulk period-audit data (records + vote sigs + voter pubkeys) —
         one round trip against backends that serve it in bulk; the

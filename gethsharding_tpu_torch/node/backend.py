@@ -1,0 +1,330 @@
+"""ShardNode: the service container for one sharding actor (the port's copy
+of the JAX package's `node/backend.py`).
+
+Parity: `sharding/node/backend.go` (New :55, Start :98, registerService/
+fetchService :151-174, registerActorService :245) — services register in
+dependency order (shardDB -> p2p -> mainchain client -> state mirror ->
+txpool -> actor -> simulator -> syncer), start in registration order, stop
+in reverse. The registry is keyed by service type with typed fetch.
+
+The node runs on `device` (None: the CUDA card, which raises where there
+is none; "cpu" runs the kernels' plain versions): the notary's
+`TorchSigBackend` and the observer's replay both take it. What the port
+has not ported yet is refused by a `ValueError` that names the missing
+module (`UNPORTED`).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional, Type, TypeVar
+
+from gethsharding_tpu_torch.actors.base import Service
+from gethsharding_tpu_torch.actors.notary import Notary
+from gethsharding_tpu_torch.actors.observer import Observer
+from gethsharding_tpu_torch.actors.proposer import Proposer
+from gethsharding_tpu_torch.actors.simulator import Simulator
+from gethsharding_tpu_torch.actors.syncer import Syncer
+from gethsharding_tpu_torch.actors.txpool import TXPool
+from gethsharding_tpu_torch.core.shard import Shard
+from gethsharding_tpu_torch.db.shard_db import ShardDB
+from gethsharding_tpu_torch.device import resolve_device
+from gethsharding_tpu_torch.mainchain.client import SMCClient
+from gethsharding_tpu_torch.mainchain.mirror import StateMirror
+from gethsharding_tpu_torch.p2p.service import Hub, P2PServer
+from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
+from gethsharding_tpu_torch.resilience.journal import VoteJournal
+from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
+
+S = TypeVar("S")
+
+# the reference's node options the port does not have yet, with the
+# module each waits for (ROADMAP.md, queue A item 8)
+UNPORTED = {
+    "actor='light'": "actors/light.py",
+    "password": "mainchain/keystore.py",
+    "serving": "serving/",
+    "chaos": "resilience/chaos.py",
+    "soundness_rate": "resilience/soundness.py",
+    "fleet_frontend": "fleet/",
+    "da_mode='sampled'": "das/service.py",
+    "http_port": "node/http_status.py",
+    "sig_backend='failover-*'": "resilience/breaker.py",
+}
+
+
+def refuse(option: str) -> ValueError:
+    return ValueError(
+        f"{option}: the port has no {UNPORTED[option]} yet (ROADMAP.md, "
+        f"queue A item 8)")
+
+
+class ShardNode:
+    """One sharding node: an actor plus its support services."""
+
+    ACTORS = ("notary", "proposer", "observer", "light")
+
+    def __init__(self, actor: str = "observer", shard_id: int = 0,
+                 config: Config = DEFAULT_CONFIG,
+                 backend: Optional[SimulatedMainchain] = None,
+                 hub: Optional[Hub] = None,
+                 data_dir: str = "", in_memory_db: bool = True,
+                 deposit: bool = False,
+                 txpool_interval: Optional[float] = 5.0,
+                 simulator_interval: float = 15.0,
+                 sig_backend: str = "torch",
+                 device=None,
+                 password: Optional[str] = None,
+                 supervise: bool = False,
+                 supervise_interval: float = 1.0,
+                 http_port: Optional[int] = None,
+                 serving: bool = False,
+                 chaos=None,
+                 soundness_rate: Optional[float] = None,
+                 da_mode: str = "full",
+                 fleet_frontend: Optional[str] = None):
+        if actor not in self.ACTORS:
+            raise ValueError(f"unknown actor {actor!r}; pick from {self.ACTORS}")
+        if da_mode not in ("full", "sampled"):
+            raise ValueError(f"unknown da_mode {da_mode!r}; "
+                             "pick 'full' or 'sampled'")
+        for option, given in (
+                ("actor='light'", actor == "light"),
+                ("password", password is not None),
+                ("serving", serving or sig_backend.startswith("serving-")),
+                ("chaos", chaos is not None),
+                ("soundness_rate", bool(soundness_rate)),
+                ("fleet_frontend", fleet_frontend is not None),
+                ("da_mode='sampled'", da_mode == "sampled"),
+                ("http_port", http_port is not None),
+                ("sig_backend='failover-*'",
+                 sig_backend.startswith("failover-"))):
+            if given:
+                raise refuse(option)
+        if sig_backend != "torch":
+            raise ValueError(f"unknown sigbackend {sig_backend!r}; the "
+                             f"port has 'torch'")
+        self.actor = actor
+        self.shard_id = shard_id
+        self.config = config
+        # no fallback: a node without a card raises here unless the caller
+        # asked for the CPU
+        self.device = resolve_device(device)
+        self._services: Dict[Type, object] = {}
+        self._order: List[object] = []
+        self._factories: Dict[Type, object] = {}
+        self.restarts: Dict[str, int] = {}
+        self._restart_times: Dict[str, List[float]] = {}
+        self._given_up: set = set()
+        self.supervisor: Optional[Supervisor] = (
+            Supervisor(self, interval=supervise_interval)
+            if supervise else None)
+
+        # registration order mirrors backend.go:55-96
+        shard_db = ShardDB(data_dir=data_dir, in_memory=in_memory_db)
+        self._register(shard_db)
+
+        p2p = P2PServer(hub=hub)
+        self._register(p2p)
+
+        client = SMCClient(backend=backend, config=config,
+                           deposit_flag=deposit)
+        self._register(client)
+
+        shard = Shard(shard_id=shard_id, shard_db=shard_db.db)
+        self.shard = shard
+
+        # the downloader/fetcher analog: a per-head SMC state mirror giving
+        # local reads between heads and warm restart snapshots, registered
+        # before the actors so the notary's hot loop can consume it
+        self._register_factory(
+            lambda: StateMirror(client=client, shard_db=shard_db.db))
+
+        if actor == "proposer":
+            # sender recovery on the host, as the reference's plain node
+            txpool = TXPool(simulate_interval=txpool_interval,
+                            sig_backend=None)
+            self._register(txpool)
+            self._register_factory(
+                lambda: Proposer(client=client, txpool=txpool,
+                                 shard=shard, config=config))
+        elif actor == "notary":
+            # crash-safe vote journal through the node's own shard KV (a
+            # datadir node gets SQLite durability); the knob turns it off
+            journal = None
+            if os.environ.get("GETHSHARDING_TORCH_VOTE_JOURNAL", "1") != "0":
+                journal = VoteJournal(shard_db.db)
+            # one backend node-wide: a restarted notary keeps its tables
+            sig = TorchSigBackend(device=self.device)
+            self._register_factory(
+                lambda: Notary(client=client, shard=shard, p2p=p2p,
+                               config=config, deposit_flag=deposit,
+                               sig_backend=sig,
+                               mirror=self.service(StateMirror),
+                               journal=journal))
+        else:
+            # the backend is the card's: the observer replays there too
+            self._register_factory(
+                lambda: Observer(client=client, shard=shard,
+                                 replay_engine="torch", device=self.device))
+
+        if actor != "notary":
+            # non-notary nodes run the simulator (backend.go:303)
+            self._register_factory(
+                lambda: Simulator(client=client, p2p=p2p,
+                                  shard_id=shard_id,
+                                  tick_interval=simulator_interval))
+
+        self._register_factory(
+            lambda: Syncer(client=client, shard=shard, p2p=p2p))
+
+    # -- registry (backend.go:151-174) ------------------------------------
+
+    def _register(self, service: object) -> None:
+        kind = type(service)
+        if kind in self._services:
+            raise ValueError(f"service {kind.__name__} already registered")
+        self._services[kind] = service
+        self._order.append(service)
+
+    def _register_factory(self, factory) -> None:
+        """Register a service built by `factory`; the factory is kept so a
+        supervisor can replace a crashed instance with a fresh one
+        (restart-as-fresh-instance, node/service.go:78-83)."""
+        service = factory()
+        self._register(service)
+        self._factories[type(service)] = factory
+
+    def service(self, kind: Type[S]) -> S:
+        """Typed fetch (fetchService parity)."""
+        if kind not in self._services:
+            raise KeyError(f"unknown service {kind.__name__}")
+        return self._services[kind]  # type: ignore[return-value]
+
+    @property
+    def services(self) -> List[object]:
+        return list(self._order)
+
+    # -- lifecycle (backend.go:98-133) ------------------------------------
+
+    def start(self) -> None:
+        for service in self._order:
+            service.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
+
+    def stop(self) -> None:
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        for service in reversed(self._order):
+            try:
+                service.stop()
+            except Exception:
+                pass
+
+    # -- supervision (failure detection / elastic recovery) ----------------
+
+    MAX_RESTARTS = 3          # ... within RESTART_WINDOW seconds
+    RESTART_WINDOW = 300.0    # transient crashes outside the window decay
+
+    def heal(self) -> List[str]:
+        """Replace every crashed supervisable service with a fresh
+        instance built by its registered factory. Returns the names of
+        services restarted in this pass. More than MAX_RESTARTS
+        replacements within RESTART_WINDOW seconds means the crash is
+        systemic: the instance is then stopped and left down for good."""
+        restarted: List[str] = []
+        now = time.monotonic()
+        for i, service in enumerate(list(self._order)):
+            if not isinstance(service, Service) or not service.crashed:
+                continue
+            if not service.supervisable:
+                continue
+            kind = type(service)
+            factory = self._factories.get(kind)
+            if factory is None:
+                continue
+            if service.name in self._given_up:
+                continue
+            window = [t for t in self._restart_times.get(service.name, [])
+                      if now - t < self.RESTART_WINDOW]
+            if len(window) >= self.MAX_RESTARTS:
+                self._restart_times.pop(service.name, None)
+                self._given_up.add(service.name)
+                if service.running:  # budget exhausted: leave it down
+                    service.record_error(
+                        f"giving up on {service.name}: {len(window)} "
+                        f"restarts within {self.RESTART_WINDOW:.0f}s — "
+                        f"crash is systemic, leaving the service down")
+                    try:
+                        service.stop()
+                    except Exception:
+                        pass
+                continue
+            window.append(now)
+            self._restart_times[service.name] = window
+            self.restarts[service.name] = self.restarts.get(
+                service.name, 0) + 1
+            try:
+                service.stop()
+            except Exception:
+                pass
+            try:
+                fresh = factory()
+                # carry the crash history forward for observability
+                fresh.errors.extend(service.errors)
+                fresh.start()
+            except Exception as exc:
+                # a failed rebuild must not kill the supervisor loop; the
+                # attempt still burned restart budget
+                service.record_error(
+                    f"restart of {service.name} failed: {exc!r}")
+                continue
+            self._services[kind] = fresh
+            self._order[i] = fresh
+            restarted.append(fresh.name)
+        return restarted
+
+    # -- conveniences ------------------------------------------------------
+
+    @property
+    def client(self) -> SMCClient:
+        return self.service(SMCClient)
+
+    @property
+    def p2p(self) -> P2PServer:
+        return self.service(P2PServer)
+
+    def errors(self) -> List[str]:
+        out: List[str] = []
+        for service in self._order:
+            if isinstance(service, Service):
+                out.extend(service.errors)
+        return out
+
+
+class Supervisor(Service):
+    """Failure detector and elastic recovery for one ShardNode: every
+    `interval` it scans the node's services for crashed background loops
+    and replaces them through `ShardNode.heal` (bounded by
+    ShardNode.MAX_RESTARTS)."""
+
+    name = "supervisor"
+
+    def __init__(self, node: ShardNode, interval: float = 1.0):
+        super().__init__()
+        self.node = node
+        self.interval = interval
+        self.restarts_performed = 0
+
+    def on_start(self) -> None:
+        self.spawn(self._watch)
+
+    def _watch(self) -> None:
+        while not self.wait(self.interval):
+            for name in self.node.heal():
+                self.restarts_performed += 1
+                self.log.warning("restarted crashed service %s "
+                                 "(fresh instance)", name)

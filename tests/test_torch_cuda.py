@@ -974,3 +974,70 @@ def test_notary_on_the_card(cuda):
     assert "miller" not in audit and "ecrecover" not in audit
     assert set(audit) <= {"agg_g1", "agg_g2", "tower", "norm", "finalexp",
                           "keccak_fixed"}
+
+
+@pytest.mark.cuda
+def test_library_first_use_builds_once(cuda, monkeypatch):
+    """Eight threads asking for the kernel library at once (a node's
+    services on their first launch) build and load it once, and all get
+    the same library."""
+    import threading
+    import time
+
+    _build.library()                       # built and loaded
+    calls = []
+    real_build = _build.build
+
+    def slow_build():
+        calls.append(threading.get_ident())
+        time.sleep(0.2)                    # widen the window
+        return real_build()
+
+    monkeypatch.setattr(_build, "build", slow_build)
+    monkeypatch.setattr(_build, "_lib", None)
+    got, start = [], threading.Barrier(8)
+
+    def first_use():
+        start.wait()
+        got.append(_build.library())
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+
+
+@pytest.mark.cuda
+def test_node_devnet_on_the_card(cuda):
+    """The port's sharding node over `tests/torch_node_script.py`'s small
+    devnet (4 shards, a pool of 8, quorum 1, windback 1) on the card:
+    every node's shard DB, the votes, the notary's journal and mirror
+    snapshot and the observer's roots equal the same devnet's on
+    device="cpu" after every period; each auditing head launches the
+    audit's kernels and each replaying block the replay's."""
+    import torch_node_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    cfg = script.cpu_config(m)
+    card = script.run(m, cfg, script.CPU_POOL, 3, {"sig_backend": "torch"},
+                      counts=_build.launch_counts)
+    cpu = script.run(m, cfg, script.CPU_POOL, 3,
+                     {"sig_backend": "torch", "device": "cpu"})
+    assert script.jsonable(card["summaries"]) == script.jsonable(
+        cpu["summaries"])
+    plen = cfg.period_length
+    launches = card["launches"]
+    for period in (2, 3):
+        head = launches[period][period * plen]
+        assert (head["agg_g1"], head["finalexp"]) == (1, 1), head
+        assert head["keccak_fixed"] >= 1 and head["tower"] and head["norm"]
+        assert head["ecrecover"] == 1, head
+    for period in (1, 2, 3):
+        replay = launches[period][period * plen + 1]
+        assert replay["replay"] == 1 and replay["ecrecover"] >= 1, replay
+        assert replay["keccak_fixed"] >= 2, replay
+    errors = card["summaries"][4]["errors"]
+    assert all(not e for e in errors.values()), errors

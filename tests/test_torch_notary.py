@@ -15,7 +15,8 @@ held against the JAX package's, on the CPU:
    counters, errors, vote words, the shard DB's canonical headers, and
    `verify_period_batch` (the port on the CPU, the reference in JAX on the
    CPU), tampered logs included;
-3. the refusals: seams not ported yet, a stopped client, no card;
+3. the refusals: the DAS seam (not ported yet), a stopped client, no
+   card;
 4. the same script in a subprocess where `jax` and `gethsharding_tpu`
    cannot be imported, started with the module so it runs beside the
    rest: the known answers, and results equal to the in-process run's.
@@ -617,7 +618,7 @@ def _client(cfg=Config(shard_count=2)):
     return SMCClient(backend=SimulatedMainchain(cfg), config=cfg)
 
 
-@pytest.mark.parametrize("seam", ["p2p", "das", "mirror", "journal"])
+@pytest.mark.parametrize("seam", ["das"])
 def test_unported_seams_refuse(seam):
     with pytest.raises(ValueError, match="ROADMAP.md, queue A item 8"):
         Notary(client=_client(), shard=Shard(0, MemoryKV()),
