@@ -6,10 +6,11 @@ Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
 calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
 (and, after it, the notary's vote phase and its `--da-proofs poly`
-phase at the same 100 shards, steps 10 and 11, and last the collation
+phase at 100 and at 50 of the 100 shards, steps 10 and 11, and last the collation
 replay of BASELINE config 4 and the fused period step of config 5,
 steps 12 and 13, the notary service itself on its own chain, step
-14, and the sharding node with its CLI, step 15):
+14, the sharding node with its CLI, step 15, and that node sampled,
+`--da-mode sampled`, step 16):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -148,8 +149,9 @@ resident on the card) and the recompute path (without keys):
    call for the recovery), and both calls end to end (warm, median of 7,
    with their host marshal and bytes shipped; the samples' call split
    into marshal, upload with the kernel, and readback);
-11. the notary's `--da-proofs poly` phase at 100 shards on the dev SRS
-   (built first, timed): one row per shard, 16 indices without repeats
+11. the notary's `--da-proofs poly` phase on the dev SRS (built first,
+   timed), cut to 50 of the 100 shards (so that step 16 fits the
+   smoke's time): one row per shard, 16 indices without repeats
    over n = 255 chunk values (seeded 4096-byte chunks), committed and
    opened with the port's own `pcs.commit` / `open_multi`, and 12 more
    rows: a tampered eval, proof and commitment, an off-curve commitment,
@@ -159,7 +161,7 @@ resident on the card) and the recompute path (without keys):
    path (a constant polynomial; a set opening every index of a 16-value
    domain). The port's scalar `verify_multiproofs` must give the known
    answers on those rows and two honest ones; then, counted from 0
-   around one `TorchSigBackend().das_verify_multiproofs` over all 112
+   around one `TorchSigBackend().das_verify_multiproofs` over all 62
    rows: one `miller` and one `finalexp` launch (normalizes as glue) and
    no other kernel, the known verdicts, equal to the same planes through
    the plain versions on the card. Timed: the call, its host marshal
@@ -253,7 +255,29 @@ resident on the card) and the recompute path (without keys):
    kernels under the profiler with the idle share. Then the CLI in a
    process of its own (`python -m gethsharding_tpu_torch.cli sharding
    --actor notary --deposit --runtime 8 --blocktime 0.2`): exit 0, a
-   sealed period, no service error.
+   sealed period, no service error;
+16. the DAS plane on that node: step 15's devnet with every node
+   `da_mode="sampled"` (16 samples, parity 0.5), 2 periods, once with
+   `--da-proofs merkle` and once with `poly`, and hostile shards with
+   known answers on the notary's path, proposed and published by the
+   script (44,416 B bodies, k = 11 of n = 17 chunks): every sample
+   withheld, garbage chunks under the real commitment, a commitment
+   signed by another key, and in poly one published merkle-only
+   (`tests/torch_node_script.py::plan` places them on the shards of the
+   member sampled for the most). The notary's votes are the SMC's records
+   and its journal's, on its honest shards only; no body request leaves
+   it; its verdict cache, `das/*` counters and errors are the known
+   answers; counted from 0 around the run, by block, each head launches
+   the batched DAS calls the layout gives (`sampled_expected`: one call
+   for its fresh candidates, one for each uncached windback period; one
+   `das_samples`, or one `miller` and one `finalexp`, a call), and every
+   launch inside those calls equals its plain version on the card on the
+   tensors it was given. Timed: the heads (whole and without the hostile
+   candidates' fetch waits), the DAS spans and calls, the kernels on a
+   head's tensors, a head's idle share under the profiler. Then the CLI,
+   `sharding --actor notary --deposit --da-mode sampled --da-proofs poly
+   --runtime 4 --blocktime 0.2`: exit 0, a sealed period, no service
+   error.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -266,6 +290,7 @@ from __future__ import annotations
 import argparse
 import collections
 import functools
+import hashlib
 import json
 import math
 import os
@@ -1398,8 +1423,9 @@ def vote_phase(card: str, seed: int) -> list:
 
 # the multiproof phase: one row per shard, VOTE_SAMPLES indices sampled
 # without repeats from a domain of TREE_LEAVES (MAX_TOTAL_CHUNKS) chunk
-# values, each a 4096-byte chunk's keccak mod N
-POLY_ROWS = SHARDS
+# values, each a 4096-byte chunk's keccak mod N; half the shards, so that
+# step 16 fits the smoke's time (a row's host MSMs take ~0.5 s)
+POLY_ROWS = SHARDS // 2
 POLY_CHUNK = 4096
 
 
@@ -1572,7 +1598,7 @@ def multiproof_phase(card: str, seed: int) -> None:
     rows = honest + hostile
     want = [True] * POLY_ROWS + hostile_want
     print(f"multiproof period: {len(rows)} rows ({POLY_ROWS} shards of "
-          f"{SHARDS}, not cut: {VOTE_SAMPLES} indices over n = "
+          f"{SHARDS}, cut: {VOTE_SAMPLES} indices over n = "
           f"{TREE_LEAVES} each; {len(hostile)} hostile and infinity rows), "
           f"made in {time.perf_counter() - t0:.1f} s on the host",
           flush=True)
@@ -2718,6 +2744,361 @@ def node_phase(card: str, members) -> None:
     print(f"step 15: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
+# step 16: the DAS plane on the port's node (`--da-mode sampled`): step
+# 15's devnet with every node sampled, once a proof scheme, with hostile
+# shards of known answer on the notary's path, and the CLI
+DAS_PERIODS = 2
+DAS_HOSTILE = {"merkle": ("withhold", "garbage", "foreign"),
+               "poly": ("withhold", "garbage", "foreign", "merkle_only")}
+# a hostile shard's transaction payload: a body of 44,416 B, k = 11 data
+# chunks and n = 17 extended, so that 16 samples are 16 distinct chunks
+DAS_PAYLOAD = 43_000
+DAS_SAMPLES = 16
+# the kernels the sampled notary's batched call launches, by scheme
+DAS_KERNELS = {"merkle": ("das_samples",), "poly": ("miller", "finalexp")}
+
+
+def _clone(value):
+    if isinstance(value, torch.Tensor):
+        return value.clone()
+    if isinstance(value, tuple):
+        return tuple(_clone(v) for v in value)
+    return value
+
+
+class DasCapture:
+    """Records, while installed, the sampled notary's DAS calls (the
+    backend's `das_verify_samples` / `das_verify_multiproofs`: rows and
+    host ms) and the inputs of every kernel launch inside them (the
+    sample verifier's planes; the Miller and final-exponentiation
+    inputs), cloned, so that each launch can be held against its plain
+    version on the same tensors after the run. Launches outside those
+    calls (the audit's) are not recorded."""
+
+    def __init__(self):
+        from gethsharding_tpu_torch.das import proofs
+        from gethsharding_tpu_torch.ops import megakernels as mk
+        from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+        self.inside = False
+        self.calls, self.launches = [], []
+        self._patches = [(proofs, "verify_planes_kernel", "das_samples"),
+                         (mk, "miller_kernel", "miller"),
+                         (mk, "finalexp_kernel", "finalexp"),
+                         (TorchSigBackend, "das_verify_samples", None),
+                         (TorchSigBackend, "das_verify_multiproofs", None)]
+        self._saved = [getattr(owner, attr)
+                       for owner, attr, _ in self._patches]
+
+    def _kernel(self, name, fn):
+        def launch(*args):
+            if self.inside:
+                self.launches.append((name, _clone(args)))
+            return fn(*args)
+        return launch
+
+    def _call(self, name, fn):
+        def call(backend, *args):
+            self.inside = True
+            t0 = time.perf_counter()
+            try:
+                return fn(backend, *args)
+            finally:
+                self.inside = False
+                self.calls.append((name, len(args[0]),
+                                   (time.perf_counter() - t0) * 1e3))
+        return call
+
+    def __enter__(self):
+        for (owner, attr, name), fn in zip(self._patches, self._saved):
+            setattr(owner, attr, self._kernel(name, fn) if name
+                    else self._call(attr, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, attr, _), fn in zip(self._patches, self._saved):
+            setattr(owner, attr, fn)
+
+
+def das_devnet(card: str, members, proofs: str) -> dict:
+    """Step 16a in one proof scheme: `tests/torch_node_script.py`'s
+    devnet at config 5's pool (as step 15: 100 shards, committee 135,
+    135 members, quorum 1, windback 1, proposer nodes making
+    33-transaction collations), every node `da_mode="sampled"` with
+    `da_proofs=proofs`, 16 samples and parity 0.5, `DAS_PERIODS` periods,
+    and the hostile shards of `DAS_HOSTILE[proofs]` on the notary's path,
+    proposed and published by the script. Counted from 0 around the run,
+    by block, with the DAS calls captured. Fails unless the notary voted
+    on its honest shards only (the SMC's records and its journal), sent
+    no body request, scored the known verdicts into the `das/*` counters,
+    recorded exactly the hostile errors (no other node an error), and
+    each block's head launched the batched kernels the layout gives
+    (`sampled_expected`), each launch equal to its plain version on the card
+    on the tensors it was given."""
+    from gethsharding_tpu_torch import metrics, tracing
+    from gethsharding_tpu_torch.das import proofs as das_proofs
+    from gethsharding_tpu_torch.ops import _build
+    from gethsharding_tpu_torch.ops import megakernels as mk
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_node_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    cfg = m.Config(quorum_size=1, windback_depth=1)
+    plen = cfg.period_length
+    profiled = {}
+    profile_block = DAS_PERIODS * plen   # the last period's first head
+
+    def seal_with(number, commit):
+        if number != profile_block:
+            return commit()
+        box = []
+        by_name, wall_ms = device_times(lambda: box.append(commit()))
+        profiled.update(split=kernel_split(by_name), wall_ms=wall_ms)
+        return box[0]
+
+    rejected = {k: metrics.counter(f"das/{k}").value for k in (
+        "samples_rejected", "commitments_rejected", "multiproofs_rejected")}
+    tracer = tracing.enable(ring_spans=1 << 16)
+    tracer.clear()
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with DasCapture() as cap:
+            out = script.run(m, cfg, NOTARY_POOL, DAS_PERIODS,
+                             {"sig_backend": "torch"},
+                             txs_per_collation=NODE_TXS, min_proposers=4,
+                             counts=_build.launch_counts,
+                             seal_with=seal_with, members=members,
+                             da_proofs=proofs, hostile=DAS_HOSTILE[proofs],
+                             hostile_payload=DAS_PAYLOAD)
+        torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    run_s = time.perf_counter() - t0
+    rejected = {k: metrics.counter(f"das/{k}").value - v
+                for k, v in rejected.items()}
+    spans = tracer.recent_spans()
+    layout, chain, nodes = out["layout"], out["chain"], out["nodes"]
+    what = f"step 16 ({proofs})"
+    want = script.sampled_expected(layout, plen, DAS_PERIODS)
+    bad = layout["hostile"]
+    if sorted(bad.values()) != sorted(DAS_HOSTILE[proofs]):
+        fail(f"{what}: the hostile shards were placed as {bad}")
+    me = layout["notary"]
+    last = out["summaries"][DAS_PERIODS + 1]
+    # the votes: the SMC's records and the notary's journal
+    for p in range(1, DAS_PERIODS + 1):
+        for s in layout["eligibility"][p][me]:
+            voted = me in chain.collation_record(s, p).vote_sigs
+            if voted != ((s, p) in want["honest"]):
+                fail(f"{what}: the notary's vote on shard {s} period {p} "
+                     f"is {voted} in the SMC's record")
+    # each period's votes, journaled until the next period's audit
+    journaled = sorted(
+        (s, p) for p in range(1, DAS_PERIODS + 1)
+        for s, q in map(tuple, out["summaries"][p]["journal"]["votes"])
+        if q == p)
+    n = last["notary"]
+    if (n["votes_submitted"], n["canonical_set"], n["audits_run"],
+            n["audit_mismatches"]) != (len(want["honest"]), 0, DAS_PERIODS,
+                                       0) \
+            or journaled != sorted(want["honest"]):
+        fail(f"{what}: the notary's counters {n}, journal {journaled}; "
+             f"want votes on {want['honest']}, no canonical header (a "
+             f"sampled notary holds no body), {DAS_PERIODS} clean audits")
+    das = last["das"]
+    if das["notary_body_requests"] != 0:
+        fail(f"{what}: the sampled notary sent "
+             f"{das['notary_body_requests']} body requests")
+    if [tuple(v) for v in das["verdicts"]] != want["held"]:
+        fail(f"{what}: the verdict cache {das['verdicts']}; want "
+             f"{want['held']}")
+    # the das/* counters: each honest check fetched and verified its
+    # samples (a multiproof each in poly), each hostile check failed
+    commitments = {}
+    for node in nodes.values():
+        if node.das_service is not None:
+            commitments.update(node.das_service._commitments)
+    width = lambda key: (1 if proofs == "poly"
+                         else min(DAS_SAMPLES, commitments[key].n))
+    ok_rows = sum(width(key) for key in want["held"])
+    bad_rows = sum(width(key) for key in want["hostile"]
+                   if bad[key[0]] != "foreign")
+    counters = das["counters"]
+    fetched = "multiproofs_fetched" if proofs == "poly" else "samples_fetched"
+    if (counters[fetched], counters["samples_verified"],
+            counters["sample_failures"]) != (ok_rows, ok_rows, bad_rows):
+        fail(f"{what}: das counters {counters}; want {ok_rows} fetched and "
+             f"verified, {bad_rows} failed")
+    garbage_rejected = (rejected["multiproofs_rejected"] if proofs == "poly"
+                        else rejected["samples_rejected"])
+    if garbage_rejected < sum(1 for key in want["hostile"]
+                              if bad[key[0]] == "garbage") \
+            or rejected["commitments_rejected"] < sum(
+                1 for key in want["hostile"] if bad[key[0]] == "foreign"):
+        fail(f"{what}: rejections at admission {rejected}")
+    # the errors: the hostile shards' and nothing else
+    errors = {k: v for k, v in last["errors"].items() if v}
+    expect = {f"collation body unavailable for shard {s} period {p}"
+              for s, p in want["hostile"]}
+    expect |= {f"rejected DAS commitment for shard {s} period {p}: "
+               f"binding/signature check failed"
+               for s, p in want["hostile"] if bad[s] == "foreign"}
+    if set(errors) != {"notary"} or set(errors["notary"]) != expect:
+        fail(f"{what}: the nodes recorded errors {errors}; want {expect}")
+    # the launches: each block's batched DAS calls, one launch of each of
+    # the scheme's kernels a call (and finalexp's one a poly-mode audit)
+    launches = {}
+    for blocks in out["launches"].values():
+        launches.update(blocks)
+    audits = {p * plen for p in range(2, DAS_PERIODS + 2)}
+    kernels = DAS_KERNELS[proofs]
+    for block in sorted(set(launches) | set(want["calls"])):
+        got = launches.get(block, {})
+        calls = want["calls"].get(block, 0)
+        for k in kernels:
+            extra = int(k == "finalexp" and block in audits)
+            if got.get(k, 0) != calls + extra:
+                fail(f"{what}: block {block} launched {got}; want {calls} "
+                     f"batched DAS calls")
+    if len(cap.calls) != sum(want["calls"].values()):
+        fail(f"{what}: {len(cap.calls)} DAS calls; want {want['calls']}")
+    # each launch against its plain version on its own tensors (launches
+    # on equal tensors, the hostile rows of a period's later heads, are
+    # held once)
+    plain = {"das_samples": (das_proofs.verify_planes_kernel,
+                             das_proofs.verify_planes_plain),
+             "miller": (mk.miller_kernel, mk.run_miller_plain),
+             "finalexp": (mk.finalexp_kernel, mk.run_program_plain)}
+    held, seen, errs = collections.Counter(), set(), {}
+    for name, args in cap.launches:
+        flat = [a for a in args if isinstance(a, torch.Tensor)] + [
+            t for a in args if isinstance(a, tuple) for t in a]
+        key = (name, tuple(hashlib.sha256(t.contiguous().cpu().numpy()
+                                          .tobytes()).digest()
+                           for t in flat))
+        held[name] += 1
+        if key in seen:
+            continue
+        seen.add(key)
+        kern, ref = plain[name]
+        err = max_abs_err(kern(*args), ref(*args))
+        errs[name] = max(errs.get(name, 0), err)
+        if err:
+            fail(f"{what}: {name} differs from its plain version on the "
+                 f"card by {err} on a head's tensors")
+    if sorted(held) != sorted(kernels):
+        fail(f"{what}: the DAS calls launched {dict(held)}")
+    first = {}
+    for name, args in cap.launches:
+        first.setdefault(name, args)
+    kernel_ms = {name: cuda_ms(lambda: plain[name][0](*args), 20)
+                 for name, args in first.items()}
+    # the report
+    heads = {b: out["block_s"][b] * 1e3 for b in sorted(want["calls"])
+             if b != profile_block}
+    split = profiled.get("split", {})
+    busy = sum(split.values())
+    span_ms = collections.defaultdict(list)
+    for rec in spans:
+        if rec["name"].split("/")[0] in ("das", "notary"):
+            span_ms[rec["name"]].append(rec["dur_us"] / 1e3)
+    # the heads with candidates, whole and without the hostile shards'
+    # fetches (each waits out the fetch deadline), and the fetches by kind
+    collect = "das/collect_poly" if proofs == "poly" else "das/collect"
+    waits, fetch_ms = collections.Counter(), collections.defaultdict(list)
+    fetching = set()
+    for rec in spans:
+        if rec["name"] == collect:
+            kind = bad.get(rec["tags"].get("shard"), "honest")
+            fetch_ms[kind].append(rec["dur_us"] / 1e3)
+            fetching.add(rec["trace"])
+            if kind != "honest":
+                waits[rec["trace"]] += rec["dur_us"] / 1e3
+    voting = [(rec["dur_us"] / 1e3, waits[rec["trace"]]) for rec in spans
+              if rec["name"] == "notary/notarize"
+              and rec["trace"] in fetching]
+    rows = [r for _, r, _ in cap.calls]
+    print(f"node devnet sampled, {proofs} (step 16a): config 5's pool "
+          f"(100 shards, committee 135, 135 members, quorum 1, windback "
+          f"1, {DAS_SAMPLES} samples, parity 0.5), notary at pool index "
+          f"{me} sampled for {dict((p, layout['eligibility'][p][me]) for p in range(1, DAS_PERIODS + 1))}, "
+          f"hostile {bad}, proposer nodes {layout['proposers']}; "
+          f"{DAS_PERIODS} periods in {run_s:.1f} s; {len(want['honest'])} "
+          f"votes (the SMC's records), 0 body requests, verdicts "
+          f"{want['held']}, das counters {counters}, rejected at admission "
+          f"{rejected}; {len(cap.calls)} batched DAS calls ({rows} rows), "
+          f"launches {dict(held)}, {len(seen)} distinct inputs each equal "
+          f"to its plain version on the card (max |kernel - plain| "
+          f"{errs})", flush=True)
+    print(f"time node sampled head ({proofs}; every node's head on the "
+          f"commit): blocks {', '.join(f'{b} {v:.1f} ms' for b, v in heads.items())}; "
+          f"block {profile_block} (candidates, the audit of period "
+          f"{DAS_PERIODS - 1}) under the profiler "
+          f"{out['block_s'][profile_block] * 1e3:.1f} ms with the "
+          f"profiler's start and stop, device {busy:.2f} ms of "
+          f"{profiled.get('wall_ms', 0):.1f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in sorted(split.items()))}), "
+          f"idle share {1 - busy / profiled.get('wall_ms', 1):.4f} "
+          f"[{card}]", flush=True)
+    print(f"time node sampled heads with candidates ({proofs}; "
+          f"notary/notarize ms, and without the hostile candidates' "
+          f"fetches): "
+          + ", ".join(f"{whole:.1f} / {whole - wait:.1f}"
+                      for whole, wait in voting)
+          + "; fetches by kind (count, median ms): "
+          + ", ".join(f"{k} {len(v)} {statistics.median(v):.1f}"
+                      for k, v in sorted(fetch_ms.items()))
+          + f" [{card}]", flush=True)
+    print(f"time node sampled spans ({proofs}; count, sum ms, max ms): "
+          + ", ".join(f"{k} {len(v)} {sum(v):.1f} {max(v):.1f}"
+                      for k, v in sorted(span_ms.items())) + f" [{card}]",
+          flush=True)
+    print(f"time node sampled DAS calls ({proofs}; rows, host ms): "
+          + ", ".join(f"{r} {ms:.1f}" for _, r, ms in cap.calls)
+          + f"; kernel ms on a head's tensors (CUDA events, 20 launches): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in kernel_ms.items())
+          + f" [{card}]", flush=True)
+    return {"run_s": run_s, "launches": dict(held), "kernel_ms": kernel_ms}
+
+
+def das_cli(card: str) -> None:
+    """Step 16b: `python -m gethsharding_tpu_torch.cli sharding --actor
+    notary --deposit --da-mode sampled --da-proofs poly --runtime 4
+    --blocktime 0.2` in a process of its own: exit 0, a sealed period, no
+    service error."""
+    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", "sharding",
+           "--actor", "notary", "--deposit", "--da-mode", "sampled",
+           "--da-proofs", "poly", "--runtime", "4", "--blocktime", "0.2"]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+            __file__)), capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired:
+        fail("step 16b: the CLI did not exit within 180 s")
+    wall_s = time.perf_counter() - t0
+    log = out.stdout + out.stderr
+    sealed = re.findall(r"period \d+ sealed", log)
+    if out.returncode != 0 or not sealed or "service error" in log \
+            or "da=sampled/poly" not in log:
+        fail(f"step 16b: the CLI exited {out.returncode}, {len(sealed)} "
+             f"periods sealed:\n{log[-3000:]}")
+    print(f"node CLI sampled (step 16b): {' '.join(cmd[1:])}: exit 0, "
+          f"{len(sealed)} periods sealed, no service error, {wall_s:.1f} s "
+          f"with its start [{card}]", flush=True)
+
+
+def das_phase(card: str, members) -> None:
+    t0 = time.perf_counter()
+    for proofs in ("merkle", "poly"):
+        das_devnet(card, members, proofs)
+    das_cli(card)
+    print(f"step 16: {time.perf_counter() - t0:.1f} s in all", flush=True)
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
     exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
@@ -3118,6 +3499,7 @@ def main() -> int:
         return exact_phase(args.seed)
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    t_smoke = time.perf_counter()
 
     from gethsharding_tpu_torch.crypto import bn256 as bls
     from gethsharding_tpu_torch.crypto import keccak
@@ -3667,6 +4049,9 @@ def main() -> int:
     stress_phase(card, args.seed)
     members = notary_phase(card, args.seed)
     node_phase(card, members)
+    das_phase(card, members)
+    print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the build "
+          f"included", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

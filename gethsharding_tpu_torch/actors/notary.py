@@ -16,6 +16,14 @@ joinNotaryPool :267, leaveNotaryPool :318, releaseNotary :365, submitVote
   body requested over shardp2p when it is not local -> submitVote at our
   pool index -> on quorum, the header set canonical.
 
+In sampled mode (`da_mode="sampled"` with a `DASService` as `das`) the
+availability verdicts of every candidate come first, from one batched
+call: k sampled chunks with their merkle proofs a shard through one
+`das_verify_samples` (one `das_samples` launch), or with `--da-proofs
+poly` one multiproof a shard through one `das_verify_multiproofs` (one
+`miller` and one `finalexp` launch). A sampled notary never requests a
+body; the windback is held by sampling too.
+
 `sig_backend=None` is `TorchSigBackend()` on the card, which raises where
 there is none. The head launches the audit before the vote phases and
 judges it after them, so the card verifies the previous period while the
@@ -24,9 +32,8 @@ host votes; `audit_period(s)` is the synchronous form.
 `p2p` (a `P2PServer`) fetches bodies that are not local; `mirror` (a
 `StateMirror`) serves each head's reads and the windback's prior records
 from one snapshot; `journal` (a `VoteJournal`) keeps the submitted votes
-and the audit high-water mark across restarts. The DAS sampled and
-polynomial availability are not ported yet (ROADMAP.md, queue A item 8):
-`das` must be None.
+and the audit high-water mark across restarts; `das` (a `DASService`)
+fetches the sampled chunks or multiproofs in sampled mode.
 """
 
 from __future__ import annotations
@@ -72,15 +79,23 @@ class Notary(Service):
                  sig_backend: Optional[SigBackend] = None,
                  mirror=None,
                  journal=None,
-                 das=None):
-        if das is not None:
-            raise ValueError(
-                "Notary(das=...): the port has no das/service.py yet "
-                "(ROADMAP.md, queue A item 8); pass das=None")
+                 das=None,
+                 da_mode: str = "full"):
         super().__init__()
         self.client = client
         self.shard = shard
         self.p2p = p2p
+        # data-availability sampling (da_mode "sampled" with a DASService):
+        # availability from sampled proofs checked in one batched call
+        # across the candidate shards; no body is fetched
+        self.das = das
+        self.da_mode = da_mode
+        # positive sampled verdicts by (shard, period): a collation's
+        # chunks are immutable, so a head or windback walk that meets the
+        # pair again does not fetch its samples again. Negative verdicts
+        # are never cached (late samples may still flip them). Pruned to
+        # _DA_CACHE_MAX, oldest periods first.
+        self._da_verdicts: dict = {}
         # crash-safe vote journal: a restarted notary recovers its
         # submitted (shard, period) votes and the audit high-water mark on
         # on_start, so it neither double-votes nor re-audits finished
@@ -316,7 +331,11 @@ class Notary(Service):
                 for (shard_id, _, _), good in zip(signed, results):
                     sig_ok[shard_id] = good
 
-        # phase 3: availability checks and signed vote submission per shard
+        # phase 3: availability checks and signed vote submission per
+        # shard. In sampled mode every candidate's check runs first, in one
+        # batched backend call, and submit_vote reads its verdict.
+        sampled_ok = (self._sampled_verdicts(candidates)
+                      if self._sampled() else None)
         with tracing.span("notary/vote", candidates=len(candidates)):
             for shard_id, p, record in candidates:
                 if record.signature and not sig_ok.get(shard_id, False):
@@ -326,8 +345,11 @@ class Notary(Service):
                         f"period {p}")
                     continue
                 with self.m_validate_latency.time():
-                    self.submit_vote(shard_id, p, record,
-                                     proposer_sig_checked=True)
+                    self.submit_vote(
+                        shard_id, p, record, proposer_sig_checked=True,
+                        availability=(None if sampled_ok is None
+                                      else sampled_ok.get(shard_id,
+                                                          False)))
 
     def _eligible_shards(self, shard_ids, snap=None) -> List[int]:
         """Committee eligibility for every shard from one sampling-context
@@ -363,7 +385,8 @@ class Notary(Service):
     # -- voting (notary.go:413 submitVote) ---------------------------------
 
     def submit_vote(self, shard_id: int, period: int, record,
-                    proposer_sig_checked: bool = False) -> bool:
+                    proposer_sig_checked: bool = False,
+                    availability: Optional[bool] = None) -> bool:
         registry = self.client.notary_registry()
         if registry is None or not registry.deposited:
             self.record_error("cannot vote: not a deposited notary")
@@ -400,10 +423,19 @@ class Notary(Service):
                     f"period {period}")
                 return False
 
-        # data availability: the local shard DB's verdict, the body fetched
-        # over shardp2p when it is not local
+        # data availability: full mode takes the local shard DB's verdict,
+        # the body fetched over shardp2p when it is not local; sampled mode
+        # checks k sampled proofs (or one multiproof) against the
+        # proposer's signed commitment. The period flow passes its batched
+        # verdict as `availability`; direct callers compute their own.
         with tracing.span("notary/verify", shard=shard_id):
-            if not self._check_availability(shard_id, period, record):
+            if availability is None:
+                availability = (
+                    self._check_sampled(shard_id, period, record)
+                    if self._sampled()
+                    else self._check_availability(shard_id, period,
+                                                  record))
+            if not availability:
                 self.record_error(
                     f"collation body unavailable for shard {shard_id} "
                     f"period {period}"
@@ -690,6 +722,131 @@ class Notary(Service):
             for got, rec in zip(recovered, records)
         ]
 
+    # -- data-availability sampling (da_mode "sampled") --------------------
+
+    # one verdict per (shard, period): 100 shards x a 40-period horizon
+    # fits with room; entries are a bool each
+    _DA_CACHE_MAX = 4096
+
+    def _sampled(self) -> bool:
+        return self.da_mode == "sampled" and self.das is not None
+
+    def _sampled_verdicts(self, candidates) -> dict:
+        """Availability verdicts {shard: bool} for [(shard, period,
+        record)] rows from ONE batched backend call.
+
+        Per candidate: the proposer's commitment and the notary's k
+        deterministic sampled (chunk, proof) rows over shardp2p
+        (`DASService.collect_rows`), then every candidate's samples in
+        one `das_verify_samples` call (one `das_samples` launch on the
+        card). A shard is available iff its commitment resolved and every
+        one of its samples verified; a missing sample was synthesized as
+        an empty row, so it fails rather than shrink k. In poly mode
+        `_poly_verdicts` does the same with one multiproof a shard."""
+        verdicts = {}
+        fresh = []
+        account = bytes(self.client.account())
+        for shard_id, period, record in candidates:
+            if self._da_verdicts.get((shard_id, period)):
+                verdicts[shard_id] = True  # immutable content: cached
+                continue
+            fresh.append((shard_id, period, record))
+        # every candidate's commitment request goes out up front, so the
+        # per-shard collect below mostly finds parked responses
+        if fresh:
+            self.das.prefetch_commitments(
+                [(shard_id, period) for shard_id, period, _ in fresh])
+        if self.das.proof_mode == "poly":
+            return self._poly_verdicts(fresh, account, verdicts)
+        collected = [(shard_id, period,
+                      self.das.collect_rows(shard_id, period, record,
+                                            account))
+                     for shard_id, period, record in fresh]
+        chunks, indices, proofs, roots = [], [], [], []
+        spans = {}
+        for shard_id, _, rows in collected:
+            if rows is None:
+                continue
+            start = len(chunks)
+            chunks.extend(rows["chunks"])
+            indices.extend(rows["indices"])
+            proofs.extend(rows["proofs"])
+            roots.extend(rows["roots"])
+            spans[shard_id] = (start, len(chunks))
+        ok: list = []
+        if chunks:
+            with tracing.span("notary/das_verify", rows=len(chunks),
+                              shards=len(spans)):
+                ok = self.sig_backend.das_verify_samples(
+                    chunks, indices, proofs, roots)
+        for shard_id, period, rows in collected:
+            if rows is None:
+                verdicts[shard_id] = False  # no commitment: unavailable
+                continue
+            start, end = spans[shard_id]
+            row_ok = ok[start:end]
+            self.das.note_verdicts(row_ok)
+            verdicts[shard_id] = self._remember(
+                shard_id, period, bool(row_ok) and all(row_ok))
+        self._prune_da_verdicts()
+        return verdicts
+
+    def _poly_verdicts(self, fresh, account: bytes, verdicts: dict) -> dict:
+        """The `--da-proofs poly` form of `_sampled_verdicts`: one
+        `das_verify_multiproofs` row a candidate shard (one constant-size
+        proof a collation), the whole batch in one call (one `miller` and
+        one `finalexp` launch on the card). No commitment is unavailable;
+        a failed or merkle-only fetch was synthesized by
+        `collect_poly_row` as a row with an empty proof, which scores
+        False."""
+        collected = [(shard_id, period,
+                      self.das.collect_poly_row(shard_id, period, record,
+                                                account))
+                     for shard_id, period, record in fresh]
+        batched = [(shard_id, row) for shard_id, _, row in collected
+                   if row is not None]
+        ok: list = []
+        if batched:
+            with tracing.span("notary/das_poly_verify",
+                              rows=len(batched)):
+                ok = self.sig_backend.das_verify_multiproofs(
+                    [row["poly_commitment"] for _, row in batched],
+                    [row["indices"] for _, row in batched],
+                    [row["evals"] for _, row in batched],
+                    [row["proof"] for _, row in batched],
+                    [row["n"] for _, row in batched])
+        row_verdicts = {shard_id: good
+                        for (shard_id, _), good in zip(batched, ok)}
+        for shard_id, period, row in collected:
+            if row is None:
+                verdicts[shard_id] = False  # no commitment: unavailable
+                continue
+            good = bool(row_verdicts[shard_id])
+            self.das.note_verdicts([good])
+            verdicts[shard_id] = self._remember(shard_id, period, good)
+        self._prune_da_verdicts()
+        return verdicts
+
+    def _remember(self, shard_id: int, period: int, good: bool) -> bool:
+        if good:
+            self._da_verdicts[(shard_id, period)] = True
+        return good
+
+    def _prune_da_verdicts(self) -> None:
+        """Drop the oldest periods' verdicts beyond _DA_CACHE_MAX: closed
+        periods stop being checked once the head loop moves on."""
+        excess = len(self._da_verdicts) - self._DA_CACHE_MAX
+        if excess > 0:
+            for key in sorted(self._da_verdicts,
+                              key=lambda sp: sp[1])[:excess]:
+                del self._da_verdicts[key]
+
+    def _check_sampled(self, shard_id: int, period: int, record) -> bool:
+        """The single-shard sampled check (direct submit_vote callers and
+        the windback; the period flow batches across shards instead)."""
+        return self._sampled_verdicts(
+            [(shard_id, period, record)]).get(shard_id, False)
+
     # -- availability ------------------------------------------------------
 
     def _check_windback(self, shard_id: int, period: int) -> bool:
@@ -716,7 +873,12 @@ class Notary(Service):
             if record is None:
                 continue  # no collation that period: nothing to hold
             self.m_windback_checks.inc()
-            if not self._check_availability(shard_id, prior, record):
+            # sampled mode holds the windback by proof too: prior periods
+            # are sampled, never body-fetched
+            held = (self._check_sampled(shard_id, prior, record)
+                    if self._sampled()
+                    else self._check_availability(shard_id, prior, record))
+            if not held:
                 self.record_error(
                     f"windback: collation body unavailable for shard "
                     f"{shard_id} period {prior}; refusing to vote")
@@ -782,6 +944,11 @@ class Notary(Service):
         )
 
     def _set_canonical(self, shard_id: int, period: int, record) -> None:
+        if self._sampled():
+            # a sampled notary verified availability by proof and holds no
+            # body, which the shard DB's canonical index requires; the
+            # body-holding nodes index canonical headers
+            return
         header = self._reconstruct_header(shard_id, period, record)
         try:
             if self.shard.shard_id == shard_id:

@@ -1,13 +1,14 @@
 """Proposer actor: packages transactions into collations, registers headers
-(the port's copy of the JAX package's `actors/proposer.py`; the DAS
-publication waits for the port's `das/service.py`).
+(the port's copy of the JAX package's `actors/proposer.py`).
 
 Parity: `sharding/proposer/service.go` (proposeCollations :72,
 createCollation :93) and `proposer.go` (createCollation pure :55, AddHeader
 :20, checkHeaderAdded :98): subscribe to the txpool feed, build a collation
 per tx batch (serialize -> chunkRoot -> sign with the node account), save
 it to the shardDB, and submit `addHeader` to the SMC when the period has no
-submission yet.
+submission yet. With a `DASService` (`das=`, `--da-mode sampled`) every
+collation is erasure-extended and its chunks and signed commitment
+published before the header goes on-chain.
 """
 
 from __future__ import annotations
@@ -61,17 +62,18 @@ class Proposer(Service):
                  config: Config = DEFAULT_CONFIG,
                  poll_interval: float = 0.05,
                  das=None):
-        if das is not None:
-            raise ValueError(
-                "Proposer(das=...): the port has no das/service.py yet "
-                "(ROADMAP.md, queue A item 8); pass das=None")
         super().__init__()
         self.client = client
         self.txpool = txpool
         self.shard = shard
         self.config = config
         self.poll_interval = poll_interval
+        # data-availability sampling: with a DASService every created
+        # collation is erasure-extended and its chunks and signed
+        # commitment published, so sampled notaries vote without the body
+        self.das = das
         self.collations_proposed = 0
+        self.das_published = 0
         self._sub = None
 
     def on_start(self) -> None:
@@ -117,6 +119,19 @@ class Proposer(Service):
                 # persist locally regardless; only one header per
                 # (shard, period) can go on-chain (service.go:93)
                 self.shard.save_collation(collation)
+            if self.das is not None:
+                # extend and publish before addHeader: by the time the
+                # header is on-chain, sampled notaries can pull the
+                # commitment and chunks. A failed publish must not lose
+                # the collation itself (full-fetch peers still serve it):
+                # it is recorded as this service's error.
+                try:
+                    self.das.publish(collation.header.shard_id, period,
+                                     collation.header.chunk_root,
+                                     collation.body)
+                    self.das_published += 1
+                except Exception as exc:  # noqa: BLE001 - recorded
+                    self.record_error(f"das publish failed: {exc}")
             self.collations_proposed += 1
             self.log.info(
                 "Saved collation with header hash %s",

@@ -17,9 +17,12 @@ mid-life state. The node's state carries across as plain values too:
 `kv_items` / `kv_from_items` (the shard DB byte for byte),
 `mirror_snapshot_fields` / `mirror_snapshot_from_fields` (the state
 mirror's snapshot in its persisted JSON), `journal_records` /
-`journal_from_records` (the vote journal) and `txpool_pending` /
-`txpool_from_pending` (a txpool's transactions). `reference_tables` reads the reference's constant
-tables and kernel programs from its modules, which the caller passes in
+`journal_from_records` (the vote journal), `txpool_pending` /
+`txpool_from_pending` (a txpool's transactions) and
+`das_commitment_fields` / `das_commitment_from_fields` (a DAS
+commitment, so digests and signatures compare across packages).
+`reference_tables` reads the reference's constant tables and kernel
+programs from its modules, which the caller passes in
 (nothing of the JAX package is imported here), so they can be held byte
 for byte against the port's own re-derived tables (`port_tables`).
 """
@@ -395,3 +398,24 @@ def txpool_from_pending(encoded, **kwargs):
     for blob in encoded:
         pool.submit(Transaction.decode_rlp(bytes(blob)))
     return pool
+
+
+DAS_COMMITMENT_FIELDS = ("shard_id", "period", "chunk_root", "das_root", "k",
+                         "n", "body_len", "poly_commitment", "signature")
+
+
+def das_commitment_fields(commitment) -> dict:
+    """A DAS commitment (either package's `DASCommitment`) as plain bytes
+    and ints, by field name."""
+    fields = {name: getattr(commitment, name)
+              for name in DAS_COMMITMENT_FIELDS}
+    return {name: bytes(value) if isinstance(value, bytes) else int(value)
+            for name, value in fields.items()}
+
+
+def das_commitment_from_fields(fields: dict):
+    """The port's `DASCommitment` from `das_commitment_fields`' form."""
+    from gethsharding_tpu_torch.das.service import DASCommitment
+
+    return DASCommitment(**{name: fields[name]
+                            for name in DAS_COMMITMENT_FIELDS})

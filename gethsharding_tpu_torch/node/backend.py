@@ -4,8 +4,9 @@ of the JAX package's `node/backend.py`).
 Parity: `sharding/node/backend.go` (New :55, Start :98, registerService/
 fetchService :151-174, registerActorService :245) — services register in
 dependency order (shardDB -> p2p -> mainchain client -> state mirror ->
-txpool -> actor -> simulator -> syncer), start in registration order, stop
-in reverse. The registry is keyed by service type with typed fetch.
+netstore and DAS service (`da_mode="sampled"`) -> txpool -> actor ->
+simulator -> syncer), start in registration order, stop in reverse. The
+registry is keyed by service type with typed fetch.
 
 The node runs on `device` (None: the CUDA card, which raises where there
 is none; "cpu" runs the kernels' plain versions): the notary's
@@ -28,6 +29,7 @@ from gethsharding_tpu_torch.actors.simulator import Simulator
 from gethsharding_tpu_torch.actors.syncer import Syncer
 from gethsharding_tpu_torch.actors.txpool import TXPool
 from gethsharding_tpu_torch.core.shard import Shard
+from gethsharding_tpu_torch.das.service import PROOF_MODES, DASService
 from gethsharding_tpu_torch.db.shard_db import ShardDB
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.mainchain.client import SMCClient
@@ -37,6 +39,7 @@ from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
 from gethsharding_tpu_torch.resilience.journal import VoteJournal
 from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
+from gethsharding_tpu_torch.storage.netstore import NetStore
 
 S = TypeVar("S")
 
@@ -49,7 +52,6 @@ UNPORTED = {
     "chaos": "resilience/chaos.py",
     "soundness_rate": "resilience/soundness.py",
     "fleet_frontend": "fleet/",
-    "da_mode='sampled'": "das/service.py",
     "http_port": "node/http_status.py",
     "sig_backend='failover-*'": "resilience/breaker.py",
 }
@@ -84,12 +86,18 @@ class ShardNode:
                  chaos=None,
                  soundness_rate: Optional[float] = None,
                  da_mode: str = "full",
+                 da_samples: int = 16,
+                 da_parity: float = 0.5,
+                 da_proofs: str = "merkle",
                  fleet_frontend: Optional[str] = None):
         if actor not in self.ACTORS:
             raise ValueError(f"unknown actor {actor!r}; pick from {self.ACTORS}")
         if da_mode not in ("full", "sampled"):
             raise ValueError(f"unknown da_mode {da_mode!r}; "
                              "pick 'full' or 'sampled'")
+        if da_proofs not in PROOF_MODES:
+            raise ValueError(f"unknown da_proofs {da_proofs!r}; "
+                             "pick 'merkle' or 'poly'")
         for option, given in (
                 ("actor='light'", actor == "light"),
                 ("password", password is not None),
@@ -97,7 +105,6 @@ class ShardNode:
                 ("chaos", chaos is not None),
                 ("soundness_rate", bool(soundness_rate)),
                 ("fleet_frontend", fleet_frontend is not None),
-                ("da_mode='sampled'", da_mode == "sampled"),
                 ("http_port", http_port is not None),
                 ("sig_backend='failover-*'",
                  sig_backend.startswith("failover-"))):
@@ -142,6 +149,24 @@ class ShardNode:
         self._register_factory(
             lambda: StateMirror(client=client, shard_db=shard_db.db))
 
+        # the data-availability sampling plane (da_mode "sampled"): a
+        # NetStore, whose store the extended chunks are filed into (parity
+        # chunks are ordinary content-addressed chunks peers can pull),
+        # and the one DASService the actor shares: proposers publish
+        # through it, sampled notaries fetch k chunks with their proofs.
+        # Registered before the actors so their factories close over it.
+        self.da_mode = da_mode
+        self.das_service: Optional[DASService] = None
+        if da_mode == "sampled":
+            netstore = NetStore(p2p=p2p)
+            self._register(netstore)
+            self.das_service = DASService(
+                client=client, p2p=p2p, store=netstore.store,
+                parity_ratio=da_parity, samples=da_samples,
+                proof_mode=da_proofs)
+            self._register(self.das_service)
+        das = self.das_service
+
         if actor == "proposer":
             # sender recovery on the host, as the reference's plain node
             txpool = TXPool(simulate_interval=txpool_interval,
@@ -149,7 +174,7 @@ class ShardNode:
             self._register(txpool)
             self._register_factory(
                 lambda: Proposer(client=client, txpool=txpool,
-                                 shard=shard, config=config))
+                                 shard=shard, config=config, das=das))
         elif actor == "notary":
             # crash-safe vote journal through the node's own shard KV (a
             # datadir node gets SQLite durability); the knob turns it off
@@ -163,7 +188,8 @@ class ShardNode:
                                config=config, deposit_flag=deposit,
                                sig_backend=sig,
                                mirror=self.service(StateMirror),
-                               journal=journal))
+                               journal=journal, das=das,
+                               da_mode=da_mode))
         else:
             # the backend is the card's: the observer replays there too
             self._register_factory(

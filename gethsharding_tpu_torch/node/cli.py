@@ -4,7 +4,9 @@ point (the port's copy of the `sharding` subcommand of the JAX package's
 
 Parity: `cmd/geth/shardingcmd.go` (+ flags `cmd/utils/flags.go:536-549`):
 `sharding --actor {notary,proposer,observer} --shardid N --deposit
---datadir PATH`, plus the dev-mode flags that run an in-process simulated
+--datadir PATH`, the data-availability flags (`--da-mode sampled
+--da-proofs merkle|poly --da-samples K --da-parity R`), plus the dev-mode
+flags that run an in-process simulated
 mainchain with automatic block production. The flags are the reference's
 of the features the port has, with the same names and defaults; the node
 runs on the CUDA card and exits non-zero where there is none. The options
@@ -65,6 +67,30 @@ def build_parser() -> argparse.ArgumentParser:
                           help="watch actor services and restart crashed "
                                "ones as fresh instances (bounded; "
                                "node/service.go:78-83 restart semantics)")
+    sharding.add_argument("--da-mode", default="full",
+                          choices=("full", "sampled"),
+                          help="data-availability mode: 'full' fetches "
+                               "whole collation bodies before voting; "
+                               "'sampled' erasure-extends bodies "
+                               "(proposer) and votes on k sampled chunk "
+                               "proofs checked in one batched call on the "
+                               "card (notary): zero body bytes")
+    sharding.add_argument("--da-proofs", default="merkle",
+                          choices=("merkle", "poly"),
+                          help="sampled DA proof scheme: 'merkle' ships a "
+                               "sibling path per sampled chunk; 'poly' "
+                               "ships one constant-size polynomial "
+                               "multiproof per sampled collation, checked "
+                               "on the pairing kernels (das/pcs.py; dev "
+                               "SRS pinned by GETHSHARDING_DAS_SRS_SEED)")
+    sharding.add_argument("--da-samples", type=int, default=16,
+                          help="sampled DA: chunks sampled per "
+                               "(shard, period) availability check")
+    sharding.add_argument("--da-parity", type=float, default=0.5,
+                          help="sampled DA: parity chunks as a ratio of "
+                               "data chunks in the Reed-Solomon extension "
+                               "(0.5 = body recoverable from any 2/3 of "
+                               "the extended chunks)")
     sharding.add_argument("--verbosity", default="info",
                           choices=("debug", "info", "warning", "error"))
     return parser
@@ -104,6 +130,10 @@ def run_sharding_node(args, device=None) -> int:
             sig_backend=args.sigbackend,
             device=device,
             supervise=args.supervise,
+            da_mode=args.da_mode,
+            da_samples=args.da_samples,
+            da_parity=args.da_parity,
+            da_proofs=args.da_proofs,
         )
     except (ValueError, RuntimeError) as exc:
         print(f"sharding: {exc}", file=sys.stderr)
@@ -112,8 +142,10 @@ def run_sharding_node(args, device=None) -> int:
     backend.fund(node.client.account(), 2000 * ETHER)
 
     log.info("Starting sharding node: actor=%s shard=%d account=%s "
-             "device=%s", args.actor, args.shardid,
-             node.client.account().hex_str, node.device)
+             "device=%s da=%s", args.actor, args.shardid,
+             node.client.account().hex_str, node.device,
+             args.da_mode if args.da_mode == "full"
+             else f"sampled/{args.da_proofs}")
     node.start()
 
     deadline = time.monotonic() + args.runtime if args.runtime else None

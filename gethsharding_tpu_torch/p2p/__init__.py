@@ -9,6 +9,12 @@ from gethsharding_tpu_torch.p2p.messages import (  # noqa: F401
     ChunkProofResponse,
     CollationBodyRequest,
     CollationBodyResponse,
+    DASCommitmentRequest,
+    DASCommitmentResponse,
+    DASMultiproofRequest,
+    DASMultiproofResponse,
+    DASampleRequest,
+    DASampleResponse,
 )
 from gethsharding_tpu_torch.p2p.service import (  # noqa: F401
     Hub,

@@ -1,14 +1,15 @@
-"""Capped exponential backoff (the port's copy of the part of the JAX
-package's `resilience/policy.py` that the notary's shardp2p body fetch
-uses).
+"""Capped exponential backoff under an optional overall deadline (the
+port's copy of the part of the JAX package's `resilience/policy.py` that
+the notary's shardp2p body fetch, the DAS fetchers and the netstore's
+chunk fetch use).
 
 A seam owns a `RetryExecutor`, which pre-resolves its per-seam counters
 once:
 
 - ``resilience/retry/<seam>/retries``  — transient failures absorbed
   (the seam recovered without the caller noticing);
-- ``resilience/retry/<seam>/giveups``  — attempts exhausted, the last
-  error re-raised to the caller.
+- ``resilience/retry/<seam>/giveups``  — attempts or the deadline
+  exhausted, the last error re-raised to the caller.
 
 Only the policy's *retryable* error classes are retried; everything
 else propagates on the first throw.
@@ -18,32 +19,44 @@ from __future__ import annotations
 
 import random
 import time
-from typing import Callable, Tuple, Type
+from typing import Callable, Optional, Tuple, Type
 
 from gethsharding_tpu_torch import metrics
-from gethsharding_tpu_torch.resilience.errors import FetchAborted
+from gethsharding_tpu_torch.resilience.errors import (FetchAborted,
+                                                      TransientError)
+
+# the transient classes the DAS fetchers retry: network-ish failures and
+# the layer's own explicit retry signal
+DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
+    ConnectionError, TimeoutError, OSError, TransientError)
 
 
 class RetryPolicy:
-    """Capped exponential backoff with jitter.
+    """Capped exponential backoff with jitter under an overall deadline.
 
     - ``attempts``: total tries (1 = no retry);
     - ``base_s`` / ``cap_s``: the backoff ladder — try k sleeps
       ``min(cap_s, base_s * 2**k)``, scaled down into ``[0.5, 1]`` of
       itself by the jitter draw;
-    - ``retryable``: exception classes worth retrying.
+    - ``retryable``: exception classes worth retrying;
+    - ``deadline_s``: optional wall-clock budget across all attempts; a
+      retry never starts past it (the sleep is also clipped to the
+      remaining budget).
     """
 
-    __slots__ = ("attempts", "base_s", "cap_s", "retryable", "_rng")
+    __slots__ = ("attempts", "base_s", "cap_s", "retryable", "deadline_s",
+                 "_rng")
 
     def __init__(self, attempts: int, base_s: float, cap_s: float,
-                 retryable: Tuple[Type[BaseException], ...]):
+                 retryable: Tuple[Type[BaseException], ...],
+                 deadline_s: Optional[float] = None):
         if attempts < 1:
             raise ValueError(f"attempts must be >= 1, got {attempts}")
         self.attempts = attempts
         self.base_s = base_s
         self.cap_s = cap_s
         self.retryable = tuple(retryable)
+        self.deadline_s = deadline_s
         self._rng = random.Random()
 
     def backoff_s(self, attempt: int) -> float:
@@ -63,8 +76,10 @@ class RetryExecutor:
 
     def call(self, fn: Callable, *args, **kwargs):
         """Run `fn` under the policy; re-raise the last retryable error
-        once the attempts are exhausted."""
+        once the attempts (or the deadline) are exhausted."""
         policy = self.policy
+        deadline = (time.monotonic() + policy.deadline_s
+                    if policy.deadline_s is not None else None)
         for attempt in range(policy.attempts):
             try:
                 return fn(*args, **kwargs)
@@ -72,8 +87,15 @@ class RetryExecutor:
                 if attempt == policy.attempts - 1:
                     self._m_giveups.inc()
                     raise
+                delay = policy.backoff_s(attempt)
+                if deadline is not None:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        self._m_giveups.inc()
+                        raise
+                    delay = min(delay, remaining)
                 self._m_retries.inc()
-                time.sleep(policy.backoff_s(attempt))
+                time.sleep(delay)
         raise AssertionError("unreachable")  # pragma: no cover
 
 

@@ -1041,3 +1041,50 @@ def test_node_devnet_on_the_card(cuda):
         assert replay["keccak_fixed"] >= 2, replay
     errors = card["summaries"][4]["errors"]
     assert all(not e for e in errors.values()), errors
+
+
+# the hostile kinds the small devnet's layout has room for, by scheme
+_SAMPLED_HOSTILE = {"merkle": ("withhold", "garbage"),
+                    "poly": ("withhold", "merkle_only")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("proofs", ["merkle", "poly"])
+def test_node_sampled_devnet_on_the_card(cuda, proofs):
+    """The small devnet with every node sampled (`da_mode="sampled"`), two
+    hostile shards on the notary's path, on the card: the summaries (the
+    notary's votes, verdict cache, das counters and errors, every shard
+    DB) equal the same devnet's on device="cpu", whose batched calls run
+    the plain versions; each block's head launches the batched DAS
+    kernels the layout gives, one `das_samples` (merkle) or one `miller`
+    and one `finalexp` (poly) a call, beside the audit's `finalexp`."""
+    import torch_node_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    cfg = script.cpu_config(m)
+    kw = dict(da_proofs=proofs, hostile=_SAMPLED_HOSTILE[proofs])
+    card = script.run(m, cfg, script.CPU_POOL, 2, {"sig_backend": "torch"},
+                      counts=_build.launch_counts, **kw)
+    cpu = script.run(m, cfg, script.CPU_POOL, 2,
+                     {"sig_backend": "torch", "device": "cpu"}, **kw)
+    assert script.jsonable(card["summaries"]) == script.jsonable(
+        cpu["summaries"])
+    plen = cfg.period_length
+    want = script.sampled_expected(card["layout"], plen, 2)
+    assert want["honest"] and want["hostile"]
+    launches = {}
+    for blocks in card["launches"].values():
+        launches.update(blocks)
+    audits = {p * plen for p in (2, 3)}
+    kernels = ("das_samples",) if proofs == "merkle" else ("miller",
+                                                           "finalexp")
+    for block in sorted(set(launches) | set(want["calls"])):
+        got = launches.get(block, {})
+        for k in kernels:
+            extra = int(k == "finalexp" and block in audits)
+            assert got.get(k, 0) == want["calls"].get(block, 0) + extra, \
+                (block, got)
+    last = card["summaries"][3]
+    assert last["notary"]["votes_submitted"] == len(want["honest"])
+    assert last["das"]["notary_body_requests"] == 0
+    assert [tuple(v) for v in last["das"]["verdicts"]] == want["held"]

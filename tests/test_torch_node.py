@@ -177,7 +177,6 @@ _REFUSED = {
     "chaos": {"chaos": object()},
     "soundness_rate": {"soundness_rate": 0.1},
     "fleet_frontend": {"fleet_frontend": "127.0.0.1:1"},
-    "da_mode='sampled'": {"da_mode": "sampled"},
     "http_port": {"http_port": 8545},
     "sig_backend='failover-*'": {"sig_backend": "failover-torch"},
 }
@@ -959,7 +958,8 @@ def test_jax_free_devnet_run(jax_free_run, port_devnet):
 # the reference's sharding flags whose features the port has
 PORTED_FLAGS = ("actor", "shardid", "deposit", "datadir", "periodlength",
                 "windback", "blocktime", "runtime", "txinterval",
-                "sigbackend", "supervise", "verbosity")
+                "sigbackend", "supervise", "verbosity", "da_mode",
+                "da_proofs", "da_samples", "da_parity")
 
 
 def _sharding_actions(parser):

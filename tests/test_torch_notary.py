@@ -15,7 +15,7 @@ held against the JAX package's, on the CPU:
    counters, errors, vote words, the shard DB's canonical headers, and
    `verify_period_batch` (the port on the CPU, the reference in JAX on the
    CPU), tampered logs included;
-3. the refusals: the DAS seam (not ported yet), a stopped client, no
+3. the refusals: a stopped client, a remote wire form, no
    card;
 4. the same script in a subprocess where `jax` and `gethsharding_tpu`
    cannot be imported, started with the module so it runs beside the
@@ -616,14 +616,6 @@ def test_audit_periods_overlapped(port_run):
 
 def _client(cfg=Config(shard_count=2)):
     return SMCClient(backend=SimulatedMainchain(cfg), config=cfg)
-
-
-@pytest.mark.parametrize("seam", ["das"])
-def test_unported_seams_refuse(seam):
-    with pytest.raises(ValueError, match="ROADMAP.md, queue A item 8"):
-        Notary(client=_client(), shard=Shard(0, MemoryKV()),
-               sig_backend=TorchSigBackend(device="cpu"),
-               **{seam: object()})
 
 
 def test_default_backend_is_the_card():

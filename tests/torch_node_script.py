@@ -21,6 +21,16 @@ chain: one `SimulatedMainchain` and one shardp2p `Hub` shared by
 - an observer node on `Plan.observer`, a proposer shard some member votes
   on in every period.
 
+With `da_proofs` ("merkle" or "poly") every node runs with `da_mode=
+"sampled"`: the proposers publish each collation through their node's
+`DASService`, and the notary votes on sampled proofs, fetching no body.
+`hostile` then names kinds of hostile shards (`HOSTILE_KINDS`), placed on
+shards the notary is sampled for and proposed by the script, which
+publishes them through DAS services of its own on the hub: every sample
+withheld, garbage chunks served under a commitment signed over the real
+blob, a commitment signed by another key, a commitment without the
+polynomial part (poly mode).
+
 The other shards' headers are proposed by the script. The script seals
 blocks as the CLI's loop does and, after each, waits on the services' own
 counters (never a fixed sleep): a period's proposals land, its first block
@@ -38,6 +48,7 @@ mirror snapshot, the observer's roots, each node's errors and, where
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import time
@@ -59,6 +70,7 @@ def modules(root: str) -> SimpleNamespace:
         AccountManager=mod("mainchain.accounts").AccountManager,
         ShardNode=mod("node.backend").ShardNode,
         Hub=mod("p2p.service").Hub,
+        P2PServer=mod("p2p.service").P2PServer,
         Notary=mod("actors.notary").Notary,
         Observer=mod("actors.observer").Observer,
         Proposer=mod("actors.proposer").Proposer,
@@ -66,6 +78,8 @@ def modules(root: str) -> SimpleNamespace:
         Syncer=mod("actors.syncer").Syncer,
         StateMirror=mod("mainchain.mirror").StateMirror,
         request_collation_body=mod("actors.syncer").request_collation_body,
+        DASService=mod("das.service").DASService,
+        CollationBodyRequest=mod("p2p.messages").CollationBodyRequest,
         Collation=types.Collation,
         CollationHeader=types.CollationHeader,
         Transaction=types.Transaction,
@@ -79,6 +93,10 @@ def modules(root: str) -> SimpleNamespace:
 
 # the CPU tests' pool: the committee's 8 slots filled
 CPU_POOL = 8
+
+# the hostile shards a sampled devnet can hold, in the order `plan` places
+# them on the shards the notary is sampled for
+HOSTILE_KINDS = ("withhold", "garbage", "foreign", "merkle_only")
 
 
 def cpu_config(m):
@@ -107,18 +125,26 @@ def eligibility(m, cfg, pool: int, periods: int) -> dict:
     return out
 
 
-def plan(m, cfg, pool: int, periods: int, min_proposers: int) -> dict:
+def plan(m, cfg, pool: int, periods: int, min_proposers: int,
+         hostile=()) -> dict:
     """Who sits where: the notary's pool index (sampled in the most
     periods from period 2 on, then in the most periods, then for the
-    fewest distinct shards, so the fewest proposer nodes), its own shard
-    (its first sampled shard), the proposer shards (every shard the
-    notary is sampled for, the observer's, then the lowest others up to
-    `min_proposers`) and the observer's shard (a shard some member is
-    sampled for in every period, a notary one if there is one)."""
+    fewest distinct shards, so the fewest proposer nodes; with `hostile`
+    kinds, sampled for the most distinct shards, then in the most
+    periods), its own shard (its first sampled shard), the observer's
+    shard (a shard some member is sampled for in every period, a notary
+    one if there is one), the hostile shards (the notary's shards in the
+    order it is first sampled for them, the observer's skipped, one a
+    kind), the proposer shards (the notary's other shards, the
+    observer's, then the lowest others up to `min_proposers`)."""
     elig = eligibility(m, cfg, pool, periods)
-    score = lambda i: (sum(1 for p in range(2, periods + 1) if elig[p][i]),
-                       sum(1 for p in elig if elig[p][i]),
-                       -len({s for p in elig for s in elig[p][i]}), -i)
+    distinct = lambda i: len({s for p in elig for s in elig[p][i]})
+    active = lambda i: sum(1 for p in elig if elig[p][i])
+    if hostile:
+        score = lambda i: (distinct(i), active(i), -i)
+    else:
+        score = lambda i: (sum(1 for p in range(2, periods + 1)
+                               if elig[p][i]), active(i), -distinct(i), -i)
     notary = max(range(pool), key=score)
     mine = sorted({s for p in elig for s in elig[p][notary]})
     if not mine:
@@ -128,16 +154,55 @@ def plan(m, cfg, pool: int, periods: int, min_proposers: int) -> dict:
     if not steady:
         raise AssertionError("no shard is voted in every period")
     observer = next((s for s in steady if s in mine), steady[0])
-    proposers = sorted(set(mine) | {observer})
+    first_seen = sorted(mine, key=lambda s: (min(
+        p for p in elig if s in elig[p][notary]), s))
+    targets = [s for s in first_seen if s != observer]
+    if len(targets) < len(hostile) or len(mine) == len(hostile):
+        raise AssertionError(f"the notary is sampled for {mine}: too few "
+                             f"shards for {len(hostile)} hostile ones and "
+                             f"an honest one")
+    bad = dict(zip(targets, hostile))
+    proposers = sorted((set(mine) | {observer}) - set(bad))
     for s in range(cfg.shard_count):
         if len(proposers) >= min_proposers:
             break
-        if s not in proposers:
+        if s not in proposers and s not in bad:
             proposers.append(s)
     return {"notary": notary, "notary_shard": elig[min(
         p for p in elig if elig[p][notary])][notary][0],
             "proposers": sorted(proposers), "observer": observer,
-            "eligibility": elig}
+            "hostile": bad, "eligibility": elig}
+
+
+def sampled_expected(layout, plen: int, periods: int) -> dict:
+    """The sampled notary's known answers from the layout: its votes (the
+    honest shards it is sampled for), its checks, and the batched DAS
+    calls each block's head makes, at windback depth 1. A period's voting
+    heads are its first plen - 1 blocks; the first checks every candidate
+    in one call, votes on the honest ones and checks each vote's windback
+    period in a call of its own unless that verdict is cached; every later
+    head checks the hostile candidates again (a negative verdict is not
+    cached). A candidate whose commitment is rejected ("foreign") gives
+    no row."""
+    elig, me, bad = layout["eligibility"], layout["notary"], layout["hostile"]
+    honest, hostile, calls = [], [], {}
+    rowless = {"foreign"}
+    for p in range(1, periods + 1):
+        mine = elig[p][me]
+        good = [s for s in mine if s not in bad]
+        honest += [(s, p) for s in good]
+        for k in range(plen - 1):
+            block = p * plen + k
+            fresh = mine if k == 0 else [s for s in mine if s in bad]
+            hostile += [(s, p) for s in fresh if s in bad]
+            phase3 = any(bad.get(s) not in rowless for s in fresh)
+            windback = (sum(1 for s in good if p > 1
+                            and s not in elig[p - 1][me]) if k == 0 else 0)
+            if phase3 or windback:
+                calls[block] = int(phase3) + windback
+    held = set(honest) | {(s, p - 1) for s, p in honest if p > 1}
+    return {"honest": honest, "hostile": hostile, "held": sorted(held),
+            "calls": calls}
 
 
 def wait_for(cond, what: str) -> None:
@@ -196,9 +261,23 @@ def _kv_items(kv) -> list:
     return sorted((k.hex(), v.hex()) for k, v in kv.items())
 
 
+# the notary's DAS counters a sampled devnet's summary holds: those whose
+# count does not depend on how many fetch attempts a deadline allows
+DAS_COUNTERS = ("samples_fetched", "samples_verified", "sample_failures",
+                "multiproofs_fetched")
+
+
+def _hostile_payload(m, period: int, shard: int, size: int) -> bytes:
+    """`size` seeded bytes of a hostile shard's transaction payload."""
+    seed = b"devnet hostile %d/%d" % (period, shard)
+    return b"".join(m.keccak256(seed + i.to_bytes(4, "big"))
+                    for i in range(-(-size // 32)))[:size]
+
+
 def run(m, cfg, pool: int, periods: int, node_kw: dict,
         txs_per_collation: int = 1, min_proposers: int = 0,
-        counts=None, seal_with=None, members=None) -> dict:
+        counts=None, seal_with=None, members=None, da_proofs=None,
+        hostile=(), hostile_payload: int = 0) -> dict:
     """The devnet. `node_kw` goes to every `ShardNode` (the port's
     `sig_backend` and `device`, or the reference's `sig_backend`);
     `counts`, where given, returns kernel launch counts by name, read
@@ -206,11 +285,19 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
     given, seals each block by calling `commit` (a profiler's hook) and
     returns its result; `members`, where given, is (an `AccountManager`,
     at least `pool` of its accounts) to register, keys already derived
-    (else seeded ones are made). Returns the chain, the nodes, the layout,
-    the summaries by period (the last one after the final audit), the
-    launches by period and block, and each sealed block's seconds."""
-    layout = plan(m, cfg, pool, periods, min_proposers or cfg.shard_count)
+    (else seeded ones are made); `da_proofs` ("merkle" or "poly"), where
+    given, runs every node sampled with that proof scheme, with the
+    `hostile` kinds of `HOSTILE_KINDS` placed by `plan`, their bodies a
+    transaction of `hostile_payload` seeded bytes (where non-zero).
+    Returns the chain, the nodes, the layout, the summaries by period
+    (the last one after the final audit), the launches by period and
+    block, and each sealed block's seconds."""
+    layout = plan(m, cfg, pool, periods, min_proposers or cfg.shard_count,
+                  hostile)
     elig = layout["eligibility"]
+    bad = layout["hostile"]
+    if da_proofs is not None:
+        node_kw = {**node_kw, "da_mode": "sampled", "da_proofs": da_proofs}
     if members is None:
         am = m.AccountManager()
         members = [am.new_account(seed=b"devnet-member-%d" % i)
@@ -253,6 +340,27 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
     script_proposer = am.new_account(seed=b"devnet-script-proposer")
     nodes = {"notary": notary_node, "observer": observer_node,
              **{f"proposer-{s}": n for s, n in proposer_nodes.items()}}
+    # sampled: the script's own DAS services for the hostile shards it
+    # proposes (a merkle-only one besides for that kind), and a watch on
+    # the body requests every node sends
+    script_das = {}
+    watch = body_requests = das0 = None
+    if da_proofs is not None:
+        script_client = m.SMCClient(backend=chain, accounts=am,
+                                    account=script_proposer, config=cfg)
+        modes = {da_proofs} | ({"merkle"} if "merkle_only" in bad.values()
+                               else set())
+        for mode in sorted(modes):
+            script_das[mode] = m.DASService(
+                client=script_client, p2p=m.P2PServer(hub), proof_mode=mode)
+            script_das[mode].start()
+        foreign = am.new_account(seed=b"devnet-foreign-key")
+        watch = m.P2PServer(hub)
+        watch.start()
+        body_requests = watch.subscribe(m.CollationBodyRequest)
+        das0 = {k: getattr(notary_node.das_service, f"m_{k}").value
+                for k in DAS_COUNTERS}
+    notary_requests = []
 
     if notary_node.client.notary_registry().pool_index != layout["notary"]:
         raise AssertionError("the notary node took another pool index")
@@ -298,8 +406,11 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
         for s in range(cfg.shard_count):
             if s in proposer_nodes:
                 continue
+            payload = b"script %d/%d" % (period, s)
+            if s in bad and hostile_payload:
+                payload = _hostile_payload(m, period, s, hostile_payload)
             tx = m.Transaction(nonce=s, gas_limit=21000, value=period,
-                               payload=b"script %d/%d" % (period, s))
+                               payload=payload)
             body = m.serialize_txs_to_blob([tx])
             root = m.Collation(header=m.CollationHeader(),
                                body=body).calculate_chunk_root()
@@ -308,8 +419,31 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
                 proposer_address=script_proposer.address)
             header.add_sig(m.secp256k1.sign(
                 bytes(header.hash()), script_proposer.priv).to_bytes65())
+            if s in bad:
+                publish_hostile(bad[s], s, period, root, body)
             chain.add_header(script_proposer.address, s, period, root,
                              header.proposer_signature)
+
+    def publish_hostile(kind, s, period, root, body):
+        """Publish shard `s`'s collation through the script's DAS service,
+        then make it `kind`: the commitment served but no sample; garbage
+        chunks under the real commitment; the commitment signed by another
+        key; or published merkle-only."""
+        das = script_das["merkle" if kind == "merkle_only" else da_proofs]
+        commitment = das.publish(s, period, root, body)
+        key = bytes(commitment.das_root)
+        if kind == "withhold":
+            del das._blobs[key]
+            das._poly.pop(key, None)
+        elif kind == "garbage":
+            xb, levels = das._blobs[key]
+            junk = tuple(m.keccak256(b"garbage %d" % i) * 128
+                         for i in range(xb.n))
+            das._blobs[key] = (dataclasses.replace(xb, chunks=junk), levels)
+        elif kind == "foreign":
+            das._commitments[(s, period)] = dataclasses.replace(
+                commitment, signature=m.secp256k1.sign(
+                    commitment.digest(), foreign.priv).to_bytes65())
 
     def members_vote(period):
         ctx = chain.committee_context()
@@ -377,7 +511,30 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
             "observer": {"txs_replayed": observer.txs_replayed,
                          "txs_rejected": observer.txs_rejected},
             "errors": {name: node.errors() for name, node in nodes.items()},
+            **(das_summary() if da_proofs is not None else {}),
         }
+
+    def das_summary():
+        """The sampled notary's verdicts, DAS counters and fetched bytes,
+        the proposers' publications, and the body requests the notary
+        sent (the script's own, for the observer, come from another
+        peer)."""
+        das = notary_node.das_service
+        me = notary_node.p2p.self_peer
+        while True:
+            msg = body_requests.try_get()
+            if msg is None:
+                break
+            if msg.peer == me:
+                notary_requests.append(msg.data)
+        return {"das": {
+            "verdicts": sorted(notary._da_verdicts),
+            "counters": {k: getattr(das, f"m_{k}").value - das0[k]
+                         for k in DAS_COUNTERS},
+            "bytes_fetched": das.bytes_fetched,
+            "published": {s: node.service(m.Proposer).das_published
+                          for s, node in proposer_nodes.items()},
+            "notary_body_requests": len(notary_requests)}}
 
     try:
         for period in range(1, periods + 1):
@@ -397,6 +554,10 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
     finally:
         for node in nodes.values():
             node.stop()
+        for das in script_das.values():
+            das.stop()
+        if watch is not None:
+            watch.stop()
     return {"chain": chain, "nodes": nodes, "layout": layout,
             "summaries": summaries, "launches": launches,
             "block_s": block_s}
