@@ -9,8 +9,9 @@ calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
 phase at 100 and at 50 of the 100 shards, steps 10 and 11, and last the collation
 replay of BASELINE config 4 and the fused period step of config 5,
 steps 12 and 13, the notary service itself on its own chain, step
-14, the sharding node with its CLI, step 15, and that node sampled,
-`--da-mode sampled`, step 16):
+14, the sharding node with its CLI, step 15, that node sampled,
+`--da-mode sampled`, step 16, and the serving and resilience plane,
+`--serving --soundness-rate --sigbackend failover-torch`, step 17):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -277,7 +278,39 @@ resident on the card) and the recompute path (without keys):
    head's tensors, a head's idle share under the profiler. Then the CLI,
    `sharding --actor notary --deposit --da-mode sampled --da-proofs poly
    --runtime 4 --blocktime 0.2`: exit 0, a sealed period, no service
-   error.
+   error;
+17. the serving and resilience plane (`serving_phase`), five phases:
+   (1) coalescing: 8 threads split step 3's period (keyed, hostile rows
+   included), 32 threads recover one of step 10's signatures each, 32
+   threads split its samples, each group through
+   `ServingSigBackend(TorchSigBackend())` at the default `ServingConfig`:
+   every request's result is the direct call's in its row order, fewer
+   dispatches than requests, counted from 0 each committee dispatch one
+   `agg_g1` and one `finalexp` (towers, normalizes), each recovery
+   dispatch one `ecrecover`, each sample dispatch one `das_samples`, all
+   on the dispatch thread on the default stream; requests, dispatches,
+   rows a dispatch, per-request latency (median, p99) beside the direct
+   call's, the coalesced committees' idle share under the profiler;
+   (2) `SpotCheckSigBackend` over the tier at rate 1 (2 rows a check) on
+   every op, a clean card: checks, no mismatch, no invariant violation,
+   the host ms of a checked row; (3) `failover-serving-torch` with the
+   spot-checker under `backend.bls_verify_committees:mode=corrupt` for 3
+   dispatches of 2 rows: the breaker trips within `dispatches_to_detect`'s
+   budget, the open call is served by the host, the half-open probe
+   recomputes on the card and re-closes, the timeline printed, trips,
+   faults and fallbacks exactly the schedule's; (4) a 4 s chaos hang of
+   the dispatch thread under a 1.5 s watchdog: `DeadlineExceeded`, the
+   next batches served on the card by a fresh thread, the stale thread's
+   late call equal too; (5) step 15's devnet cut to 2 periods with every
+   node `failover-torch` over the spot-checker (rate 1, one row) over
+   `serving=True`: the notary's votes the SMC's records, the audit's,
+   recovery's and the proposers' txpool kernels launched on the dispatch
+   threads, primary calls equal to the serving requests and the
+   launches to their dispatches, breakers closed, 0 fallbacks, 0
+   mismatches, no node error; then `sharding --actor notary --deposit
+   --serving --soundness-rate 0.05 --sigbackend failover-torch --runtime 8
+   --blocktime 0.2`: exit 0, a sealed period, no service error. Timed,
+   phase by phase.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -1002,6 +1035,7 @@ def _no_curve_point(P: int) -> int:
     return x
 
 
+@functools.lru_cache(maxsize=None)
 def vote_period(ecdsa, das, keccak256, seed: int):
     """One period's vote-phase inputs with known answers. Recovery: a
     proposer signature per shard from seeded keys (the port's own
@@ -2756,6 +2790,10 @@ DAS_PAYLOAD = 43_000
 DAS_SAMPLES = 16
 # the kernels the sampled notary's batched call launches, by scheme
 DAS_KERNELS = {"merkle": ("das_samples",), "poly": ("miller", "finalexp")}
+# the nodes' DAS fetch deadline in step 16 (the service's default is 3 s):
+# each hostile candidate waits it out at each voting head, while an honest
+# fetch lands in 0.06-0.51 s (medians, merkle and poly)
+DAS_FETCH_S = 2.0
 
 
 def _clone(value):
@@ -2825,7 +2863,8 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     devnet at config 5's pool (as step 15: 100 shards, committee 135,
     135 members, quorum 1, windback 1, proposer nodes making
     33-transaction collations), every node `da_mode="sampled"` with
-    `da_proofs=proofs`, 16 samples and parity 0.5, `DAS_PERIODS` periods,
+    `da_proofs=proofs`, 16 samples and parity 0.5, a fetch deadline of
+    `DAS_FETCH_S`, `DAS_PERIODS` periods,
     and the hostile shards of `DAS_HOSTILE[proofs]` on the notary's path,
     proposed and published by the script. Counted from 0 around the run,
     by block, with the DAS calls captured. Fails unless the notary voted
@@ -2864,6 +2903,11 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     tracer.clear()
     for k in _build.KERNELS.values():
         k.launches = 0
+    from gethsharding_tpu_torch.das.service import DASService
+
+    init = DASService.__init__
+    DASService.__init__ = functools.partialmethod(init,
+                                                  fetch_timeout=DAS_FETCH_S)
     t0 = time.perf_counter()
     try:
         with DasCapture() as cap:
@@ -2877,6 +2921,7 @@ def das_devnet(card: str, members, proofs: str) -> dict:
         torch.cuda.synchronize()
     finally:
         tracing.disable()
+        DASService.__init__ = init
     run_s = time.perf_counter() - t0
     rejected = {k: metrics.counter(f"das/{k}").value - v
                 for k, v in rejected.items()}
@@ -3024,7 +3069,8 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     rows = [r for _, r, _ in cap.calls]
     print(f"node devnet sampled, {proofs} (step 16a): config 5's pool "
           f"(100 shards, committee 135, 135 members, quorum 1, windback "
-          f"1, {DAS_SAMPLES} samples, parity 0.5), notary at pool index "
+          f"1, {DAS_SAMPLES} samples, parity 0.5, fetch deadline "
+          f"{DAS_FETCH_S} s), notary at pool index "
           f"{me} sampled for {dict((p, layout['eligibility'][p][me]) for p in range(1, DAS_PERIODS + 1))}, "
           f"hostile {bad}, proposer nodes {layout['proposers']}; "
           f"{DAS_PERIODS} periods in {run_s:.1f} s; {len(want['honest'])} "
@@ -3097,6 +3143,721 @@ def das_phase(card: str, members) -> None:
         das_devnet(card, members, proofs)
     das_cli(card)
     print(f"step 16: {time.perf_counter() - t0:.1f} s in all", flush=True)
+
+
+# step 17: the serving and resilience plane on the card: the coalescing
+# tier, the soundness spot-checker, chaos with the breaker's failover, the
+# dispatch watchdog, and the node composed with them (and its CLI)
+SERVE_COMMITTEE_THREADS = 8
+SERVE_RECOVERY_THREADS = 32
+SERVE_SAMPLE_THREADS = 32
+SPOT_ROWS = 2              # rows re-verified a checked dispatch (phase 2)
+CHAOS_ROWS = (2, 3)        # the chaos phase's batch: a True and a False row
+CHAOS_VOTES = 8            # ... cut to their first 8 votes (row 3's forged
+                           # vote is its 8th), so that the host's checks
+                           # and fallbacks cost a pairing a row, not 135 sums
+CHAOS_CORRUPT = 3          # dispatches corrupted, then healed
+CHAOS_THRESHOLD = 3        # the breaker's consecutive faults to trip
+CHAOS_RESET_S = 5.0        # the breaker's open cooldown, on its own clock
+WATCHDOG_S = 1.5           # the watchdog's deadline
+WATCHDOG_HANG_S = 4.0      # the chaos hang of the watchdog phase
+SERVE_PERIODS = 2          # the node devnet of step 17, cut from step 15's 3
+
+
+class LaunchThreads:
+    """While open, counts each kernel launch by (kernel, thread name) and
+    notes a launch off PyTorch's default stream (a wrapper around
+    `Kernel.launch`; the kernels' own counters are untouched)."""
+
+    def __init__(self, build):
+        self.build = build
+        self.by_thread = collections.Counter()
+        self.off_default = []
+
+    def __enter__(self):
+        import threading
+
+        orig = self._orig = self.build.Kernel.launch
+        outer = self
+
+        def launch(kernel, *args):
+            name = threading.current_thread().name
+            outer.by_thread[(kernel.name, name)] += 1
+            if torch.cuda.current_stream() != torch.cuda.default_stream():
+                outer.off_default.append((kernel.name, name))
+            return orig(kernel, *args)
+
+        self.build.Kernel.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.build.Kernel.launch = self._orig
+
+    def on(self, prefix: str) -> dict:
+        """Launches by kernel on threads whose name starts with `prefix`."""
+        out = collections.Counter()
+        for (kernel, thread), n in self.by_thread.items():
+            if thread.startswith(prefix):
+                out[kernel] += n
+        return dict(out)
+
+
+def serve_group(serving, jobs, what: str):
+    """One thread a job [(op, columns, kwargs)], released together through
+    `serving.submit`: (results, per-request seconds, wall seconds). Fails
+    on any request's error."""
+    import threading
+
+    results, lat, errors = [None] * len(jobs), [0.0] * len(jobs), []
+    barrier = threading.Barrier(len(jobs) + 1)
+
+    def run(i):
+        op, cols, kw = jobs[i]
+        barrier.wait()
+        t0 = time.perf_counter()
+        try:
+            results[i] = serving.submit(op, *cols, **kw).result(timeout=300)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{op}: {exc!r}")
+        lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"step 17: {what}: requests failed or hung: {errors[:3]}")
+    return results, lat, wall
+
+
+def pct(values, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * (len(ordered) - 1) + 0.5))]
+
+
+def launched_from_zero(build) -> dict:
+    return {n: c for n, c in build.launch_counts().items() if c}
+
+
+def coalescing_phase(card, build, period, vote):
+    """Step 17.1: 8 threads split step 3's period (keyed, hostile rows
+    included), 32 threads recover one of step 10's signatures each, and
+    32 threads split its samples, each group through one
+    `ServingSigBackend(TorchSigBackend())` at the default `ServingConfig`:
+    every request's result is the direct call's, in its row order, in
+    fewer dispatches than requests, each committee dispatch one `agg_g1`
+    and one `finalexp` (with towers and normalizes), each recovery
+    dispatch one `ecrecover`, each sample dispatch one `das_samples`, all
+    on the dispatch thread."""
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    msgs, sig_rows, pk_rows, keys, want = period
+    (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
+                                   want_ok) = vote
+    direct = TorchSigBackend()
+    serving = ServingSigBackend(TorchSigBackend())
+    # both backends' line tables built first: the groups below run warm
+    if direct.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                    pk_row_keys=keys) != want \
+            or serving.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                             pk_row_keys=keys) != want:
+        fail("step 17: the period's verdicts (direct or served) are not "
+             "the expected list")
+    k = SERVE_COMMITTEE_THREADS
+    cuts = [round(i * SHARDS / k) for i in range(k + 1)]
+    groups = {
+        "committees": [("bls_verify_committees",
+                        (msgs[a:b], sig_rows[a:b], pk_rows[a:b]),
+                        {"pk_row_keys": keys[a:b]})
+                       for a, b in zip(cuts, cuts[1:])],
+        "recoveries": [("ecrecover_addresses", ([digests[i]], [sigs65[i]]),
+                        {}) for i in range(SERVE_RECOVERY_THREADS)],
+        "samples": [],
+    }
+    n_smp = len(chunks)
+    scuts = [round(i * n_smp / SERVE_SAMPLE_THREADS)
+             for i in range(SERVE_SAMPLE_THREADS + 1)]
+    groups["samples"] = [("das_verify_samples",
+                          (chunks[a:b], indices[a:b], proofs[a:b],
+                           roots[a:b]), {})
+                         for a, b in zip(scuts, scuts[1:])]
+    expected = {
+        "committees": [want[a:b] for a, b in zip(cuts, cuts[1:])],
+        "recoveries": [[want_addr[i]] for i in range(SERVE_RECOVERY_THREADS)],
+        "samples": [want_ok[a:b] for a, b in zip(scuts, scuts[1:])],
+    }
+    kernel_of = {"committees": ("bls_verify_committees", "finalexp"),
+                 "recoveries": ("ecrecover_addresses", "ecrecover"),
+                 "samples": ("das_verify_samples", "das_samples")}
+    # the direct call's latency: the whole batch, and one request's rows
+    direct_ms = {
+        "committees": host_ms(lambda: direct.bls_verify_committees(
+            msgs, sig_rows, pk_rows, pk_row_keys=keys), 3),
+        "recoveries": host_ms(lambda: direct.ecrecover_addresses(
+            digests[:SERVE_RECOVERY_THREADS],
+            sigs65[:SERVE_RECOVERY_THREADS]), 3),
+        "samples": host_ms(lambda: direct.das_verify_samples(
+            chunks, indices, proofs, roots), 3)}
+    one_ms = {name: host_ms(lambda: getattr(direct, jobs[0][0])(
+        *jobs[0][1], **jobs[0][2]), 3) for name, jobs in groups.items()}
+    for name, jobs in groups.items():
+        op, kernel = kernel_of[name]
+        d0 = dict(serving.batcher.dispatch_counts)
+        for kern in build.KERNELS.values():
+            kern.launches = 0
+        with LaunchThreads(build) as threads:
+            got, lat, wall = serve_group(serving, jobs, name)
+        dispatches = serving.batcher.dispatch_counts[op] - d0[op]
+        launched = launched_from_zero(build)
+        if got != expected[name]:
+            bad = [i for i, (g, w) in enumerate(zip(got, expected[name]))
+                   if g != w]
+            fail(f"step 17: served {name} differ from the direct call's at "
+                 f"requests {bad}")
+        if not 1 <= dispatches < len(jobs):
+            fail(f"step 17: {name}: {dispatches} dispatches for "
+                 f"{len(jobs)} requests")
+        want_launched = {kernel: dispatches}
+        if name == "committees":
+            want_launched["agg_g1"] = dispatches
+            if not launched.get("tower") or not launched.get("norm"):
+                fail(f"step 17: committee dispatches launched {launched}")
+            extra = {k: v for k, v in launched.items()
+                     if k not in ("agg_g1", "finalexp", "tower", "norm")}
+        else:
+            extra = {k: v for k, v in launched.items() if k != kernel}
+        if any(launched.get(k) != v for k, v in want_launched.items()) \
+                or extra:
+            fail(f"step 17: {name}: {dispatches} dispatches launched "
+                 f"{launched}")
+        if threads.on("serving-dispatch") != launched \
+                or threads.off_default:
+            fail(f"step 17: {name}: launches off the dispatch thread or "
+                 f"its default stream: {dict(threads.by_thread)}, "
+                 f"{threads.off_default}")
+        rows = sum(len(j[1][0]) for j in jobs)
+        lat_ms = [v * 1e3 for v in lat]
+        print(f"serving {name} (step 17.1): {len(jobs)} requests of "
+              f"{rows} rows in {dispatches} dispatches "
+              f"({rows / dispatches:.1f} rows a dispatch), launches "
+              f"{dict(sorted(launched.items()))} on the dispatch thread; "
+              f"per-request latency median {statistics.median(lat_ms):.2f} "
+              f"ms, p99 {pct(lat_ms, 0.99):.2f} ms, the group "
+              f"{wall * 1e3:.1f} ms; the direct call: all {rows} rows "
+              f"{direct_ms[name]:.2f} ms, one request's rows "
+              f"{one_ms[name]:.2f} ms [{card}]", flush=True)
+    jobs = groups["committees"]
+    by_name, wall_ms = device_times(
+        lambda: serve_group(serving, jobs, "committees, profiled"))
+    split = kernel_split(by_name)
+    busy = sum(split.values())
+    print(f"time serving committees under the profiler (8 requests, "
+          f"coalesced): device {busy:.2f} ms of {wall_ms:.1f} ms "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in sorted(split.items()))}),"
+          f" idle share {1 - busy / wall_ms:.3f} [{card}]", flush=True)
+    serving.close()
+
+
+class TimedReference:
+    """The spot-checker's scalar reference with its host time by op."""
+
+    def __init__(self, inner):
+        self.inner, self.name = inner, inner.name
+        self.spent = collections.defaultdict(lambda: [0, 0.0])
+
+    def __getattr__(self, op):
+        fn = getattr(self.inner, op)
+
+        def timed(*cols, **kw):
+            t0 = time.perf_counter()
+            out = fn(*cols, **kw)
+            self.spent[op][0] += len(cols[0])
+            self.spent[op][1] += time.perf_counter() - t0
+            return out
+
+        return timed
+
+
+def soundness_phase(card, period, vote, poly_rows):
+    """Step 17.2: `SpotCheckSigBackend` over the serving tier at rate 1
+    with SPOT_ROWS rows, on a few dispatches of every op, on a clean card:
+    checks on each op, no mismatch and no invariant violation; the host
+    time of a checked row by op."""
+    from gethsharding_tpu_torch import metrics
+    from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.resilience.soundness import (
+        SpotCheckSigBackend)
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+    from gethsharding_tpu_torch.sigbackend import PythonSigBackend
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    msgs, sig_rows, pk_rows, keys, want = period
+    (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
+                                   want_ok) = vote
+    registry = metrics.Registry()
+    reference = TimedReference(PythonSigBackend())
+    serving = ServingSigBackend(TorchSigBackend())
+    spot = SpotCheckSigBackend(serving, rate=1.0, rows=SPOT_ROWS, seed=17,
+                               reference=reference, registry=registry)
+    rows4 = slice(0, 4)
+    agg = aggregate_votes(bls, msgs[rows4], sig_rows[rows4], pk_rows[rows4],
+                          want[rows4])
+    cases = [
+        ("bls_verify_committees", lambda: spot.bls_verify_committees(
+            msgs[:6], sig_rows[:6], pk_rows[:6], pk_row_keys=keys[:6]),
+         want[:6]),
+        ("bls_verify_committees", lambda: spot.bls_verify_committees_async(
+            msgs[2:6], sig_rows[2:6], pk_rows[2:6],
+            pk_row_keys=keys[2:6]).result(), want[2:6]),
+        ("bls_verify_aggregates", lambda: spot.bls_verify_aggregates(
+            *agg[:3]), agg[3]),
+        ("das_verify_multiproofs", lambda: spot.das_verify_multiproofs(
+            *poly_rows[0]), poly_rows[1]),
+    ]
+    for i in range(3):
+        cut = slice(i * 30, i * 30 + 30)
+        cases.append(("ecrecover_addresses", lambda cut=cut:
+                      spot.ecrecover_addresses(digests[cut], sigs65[cut]),
+                      want_addr[cut]))
+        cases.append(("das_verify_samples", lambda cut=cut:
+                      spot.submit("das_verify_samples", chunks[cut],
+                                  indices[cut], proofs[cut],
+                                  roots[cut]).result(), want_ok[cut]))
+    for op, call, expect in cases:
+        if call() != expect:
+            fail(f"step 17: the spot-checked {op} gave other verdicts")
+    serving.close()
+    per_op = {}
+    for op in {c[0] for c in cases}:
+        base = f"resilience/soundness/{op}"
+        checks, mism, inv = (registry.counter(f"{base}/{k}").value for k in
+                             ("checks", "mismatches", "invariant_violations"))
+        if not checks or mism or inv:
+            fail(f"step 17: soundness on a clean card: {op} checks "
+                 f"{checks}, mismatches {mism}, invariant violations {inv}")
+        rows, spent = reference.spent[op]
+        per_op[op] = (checks, rows, spent * 1e3 / rows)
+    print("soundness on a clean card (step 17.2, rate 1, "
+          f"{SPOT_ROWS} rows a check): " + ", ".join(
+              f"{op} {c} checks of {r} rows, {ms:.1f} ms host a row"
+              for op, (c, r, ms) in sorted(per_op.items()))
+          + f"; mismatches 0, invariant violations 0 [{card}]", flush=True)
+
+
+def chaos_phase(card, build, period):
+    """Step 17.3: `failover-serving-torch` with the spot-checker (rate 1,
+    every row of the batch), the serving tier's backend behind
+    `backend.bls_verify_committees:mode=corrupt` for its first
+    CHAOS_CORRUPT calls: the breaker trips within `dispatches_to_detect`'s
+    budget, calls while open give the expected verdicts from the host,
+    the half-open probe recomputes on the card and re-closes; the
+    fallbacks, faults and trips are exactly the schedule's."""
+    from gethsharding_tpu_torch import metrics
+    from gethsharding_tpu_torch.resilience.breaker import (
+        CircuitBreaker, FailoverSigBackend)
+    from gethsharding_tpu_torch.resilience.chaos import (ChaosSigBackend,
+                                                         parse_spec)
+    from gethsharding_tpu_torch.resilience.soundness import (
+        SpotCheckSigBackend, dispatches_to_detect)
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+    from gethsharding_tpu_torch.sigbackend import PythonSigBackend
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    msgs, sig_rows, pk_rows, keys, want = period
+    pick = list(CHAOS_ROWS)
+    batch = ([msgs[i] for i in pick],
+             [sig_rows[i][:CHAOS_VOTES] for i in pick],
+             [pk_rows[i][:CHAOS_VOTES] for i in pick])
+    # keys of their own: a key names its committee's pubkey row
+    bkeys = [("chaos", CHAOS_VOTES) + tuple(keys[i]) for i in pick]
+    expect = [want[i] for i in pick]
+    if sorted(expect) != [False, True]:
+        fail(f"step 17: the chaos batch's rows {pick} are not one True and "
+             f"one False")
+    schedule = parse_spec(
+        f"seed=20,backend.bls_verify_committees:mode=corrupt,"
+        f"backend.bls_verify_committees={CHAOS_CORRUPT}")
+    registry = metrics.Registry()
+    serving = ServingSigBackend(ChaosSigBackend(TorchSigBackend(), schedule),
+                                registry=registry)
+    spot = SpotCheckSigBackend(serving, rate=1.0, rows=len(pick), seed=20,
+                               registry=registry)
+    # the breaker's clock is the phase's: the cooldown passes where the
+    # phase says, whatever the host's pace of the calls before it
+    clock = [0.0]
+    breaker = CircuitBreaker(name="chaos", fault_threshold=CHAOS_THRESHOLD,
+                             reset_s=CHAOS_RESET_S, registry=registry,
+                             clock=lambda: clock[0])
+    backend = FailoverSigBackend(spot, PythonSigBackend(), breaker=breaker,
+                                 registry=registry)
+    per_fault = dispatches_to_detect(1.0, len(pick), len(pick))
+    budget = CHAOS_THRESHOLD * per_fault
+    timeline, t_start = [], time.perf_counter()
+    trip_at = None
+    for call in range(CHAOS_THRESHOLD + 4):
+        if call == CHAOS_THRESHOLD + 1:
+            # past the cooldown: the next call is the half-open probe
+            clock[0] += CHAOS_RESET_S
+        before = breaker.state_name
+        d0 = serving.batcher.dispatch_counts["bls_verify_committees"]
+        for kern in build.KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        got = backend.bls_verify_committees(*batch, pk_row_keys=bkeys)
+        ms = (time.perf_counter() - t0) * 1e3
+        on_card = build.launch_counts()["finalexp"]
+        dispatched = (serving.batcher.dispatch_counts["bls_verify_committees"]
+                      - d0)
+        after = breaker.state_name
+        if before == "closed" and after == "open":
+            trip_at = call + 1
+        timeline.append((round(t0 - t_start, 2), before, after, got,
+                         dispatched, on_card, round(ms, 1)))
+        if got != expect:
+            fail(f"step 17: call {call + 1} under chaos gave {got}, want "
+                 f"{expect}")
+    c = lambda name: registry.counter(
+        f"resilience/breaker/chaos/{name}").value
+    mism = registry.counter(
+        "resilience/soundness/bls_verify_committees/mismatches").value
+    states = [(b, a) for _, b, a, *_ in timeline]
+    want_states = ([("closed", "closed")] * (CHAOS_THRESHOLD - 1)
+                   + [("closed", "open"), ("open", "open"),
+                      ("open", "closed"), ("closed", "closed"),
+                      ("closed", "closed")])
+    if trip_at is None or trip_at > budget or states != want_states:
+        fail(f"step 17: breaker timeline {timeline}; tripped at call "
+             f"{trip_at}, budget {budget}")
+    probe = timeline[CHAOS_THRESHOLD + 1]
+    if probe[5] != 1 or timeline[CHAOS_THRESHOLD][5] != 0 \
+            or timeline[-1][5] != 1:
+        fail(f"step 17: the probe or the closed calls did not run on the "
+             f"card, the open call did: {timeline}")
+    if (c("trips"), c("primary_faults"), c("fallback_calls"), c("probes"),
+            c("closes"), c("probe_mismatches"), mism) != (
+                1, CHAOS_CORRUPT, CHAOS_CORRUPT + 1, 1, 1, 0,
+                CHAOS_CORRUPT) \
+            or schedule.injected != {"backend.bls_verify_committees":
+                                     CHAOS_CORRUPT}:
+        fail(f"step 17: trips {c('trips')}, faults {c('primary_faults')}, "
+             f"fallbacks {c('fallback_calls')}, probes {c('probes')}, "
+             f"closes {c('closes')}, mismatches {mism}, injected "
+             f"{schedule.injected}")
+    serving.close()
+    print(f"chaos, breaker and failover (step 17.3): rows {pick} (their "
+          f"first {CHAOS_VOTES} votes), `backend.bls_verify_committees:mode=corrupt` for "
+          f"{CHAOS_CORRUPT} dispatches, spot-check rate 1 of "
+          f"{len(pick)} rows, threshold {CHAOS_THRESHOLD}, cooldown "
+          f"{CHAOS_RESET_S} s on the breaker's clock: tripped at call {trip_at} (budget {budget}: "
+          f"{CHAOS_THRESHOLD} faults × {per_fault} dispatch to detect at "
+          f"99%); 1 trip, {CHAOS_CORRUPT} faults, {CHAOS_CORRUPT + 1} "
+          f"fallbacks, 1 probe on the card, 1 close. Timeline (s from "
+          f"start, state before -> after, verdicts, dispatches, finalexp "
+          f"launches, ms): {timeline} [{card}]", flush=True)
+
+
+def watchdog_phase(card, build, period):
+    """Step 17.4: `dispatch.bls_verify_committees` hangs the serving
+    dispatch thread WATCHDOG_HANG_S s under a watchdog of WATCHDOG_S s:
+    the hung batch fails with `DeadlineExceeded`, the next batches are
+    served on the card by a fresh dispatch thread with the expected
+    verdicts, and once the stale thread's late call returns, both
+    threads' verdicts equal the expected list."""
+    import threading
+
+    from gethsharding_tpu_torch import metrics
+    from gethsharding_tpu_torch.resilience.chaos import (ChaosSigBackend,
+                                                         parse_spec)
+    from gethsharding_tpu_torch.resilience.errors import DeadlineExceeded
+    from gethsharding_tpu_torch.serving import ServingConfig, ServingSigBackend
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    msgs, sig_rows, pk_rows, keys, want = period
+    calls = []     # (thread ident, verdicts) of every call the card ran
+
+    class Recorded(TorchSigBackend):
+        def bls_verify_committees_async(self, *args, **kw):
+            out = super().bls_verify_committees_async(*args, **kw).result()
+            calls.append((threading.get_ident(), out))
+            return VerdictDone(out)
+
+    class VerdictDone:
+        def __init__(self, out):
+            self.out = out
+
+        def result(self, timeout=None):
+            return self.out
+
+    rows = slice(0, 12)
+    batch = (msgs[rows], sig_rows[rows], pk_rows[rows])
+    bkeys, expect = keys[rows], want[rows]
+    inner = Recorded()
+    inner.bls_verify_committees(*batch, pk_row_keys=bkeys)   # warm tables
+    calls.clear()
+    schedule = parse_spec("seed=21,dispatch.bls_verify_committees=1")
+    registry = metrics.Registry()
+    serving = ServingSigBackend(
+        ChaosSigBackend(inner, schedule, hang_s=WATCHDOG_HANG_S),
+        ServingConfig(watchdog_s=WATCHDOG_S), registry=registry)
+    t0 = time.perf_counter()
+    try:
+        serving.bls_verify_committees(*batch, pk_row_keys=bkeys)
+        fail("step 17: the hung batch did not fail")
+    except DeadlineExceeded:
+        failed_s = time.perf_counter() - t0
+    served = 0
+    while len({t for t, _ in calls}) < 2 or served < 2:
+        if time.perf_counter() - t0 > WATCHDOG_HANG_S + 30:
+            fail(f"step 17: the stale thread's call never returned "
+                 f"({len(calls)} calls)")
+        if serving.bls_verify_committees(*batch,
+                                         pk_row_keys=bkeys) != expect:
+            fail("step 17: a batch after the watchdog's restart gave "
+                 "other verdicts")
+        served += 1
+    serving.close()
+    threads = {t for t, _ in calls}
+    if len(threads) != 2 or any(out != expect for _, out in calls) \
+            or registry.counter("resilience/watchdog/timeouts").value != 1:
+        fail(f"step 17: watchdog: {len(threads)} dispatch threads, "
+             f"verdicts {[out == expect for _, out in calls]}, timeouts "
+             f"{registry.counter('resilience/watchdog/timeouts').value}")
+    print(f"watchdog (step 17.4): a {WATCHDOG_HANG_S:.0f} s chaos hang of "
+          f"the dispatch thread under a {WATCHDOG_S} s deadline: the hung "
+          f"batch failed with DeadlineExceeded after {failed_s:.2f} s, "
+          f"{served} batches served on the card by the fresh dispatch "
+          f"thread meanwhile, the stale thread's late call then returned; "
+          f"{len(calls)} calls on 2 threads, every verdict the expected "
+          f"list [{card}]", flush=True)
+
+
+def serving_node_devnet(card, build, members) -> None:
+    """Step 17.5a: step 15's devnet cut to SERVE_PERIODS periods, every
+    node composed `failover-torch` over soundness (rate 1, one row) over
+    the serving tier: the notary's votes are the SMC's records and its
+    journal's, its audit, recovery and the proposers' txpool recoveries
+    launch on the serving dispatch threads, primary calls equal the
+    serving requests and the launches their dispatches, the breakers stay
+    closed with 0 fallbacks and 0 spot-check mismatches, no node error."""
+    from gethsharding_tpu_torch import metrics
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_node_script as script
+
+    m = script.modules("gethsharding_tpu_torch")
+    cfg = m.Config(quorum_size=1, windback_depth=1)
+    os.environ["GETHSHARDING_TORCH_SOUNDNESS_ROWS"] = "1"
+    reg = metrics.DEFAULT_REGISTRY
+    value = lambda name: getattr(reg.get(name), "value", 0)
+    names = ["resilience/breaker/sigbackend/" + k for k in (
+        "trips", "fallback_calls", "primary_calls", "primary_faults")]
+    names += [f"serving/{k}/{w}" for k in ("ecrecover", "bls_committee",
+                                           "bls_aggregate", "das_verify",
+                                           "das_poly_verify")
+              for w in ("requests", "dispatches")]
+    names += [f"resilience/soundness/{op}/{w}" for op in (
+        "ecrecover_addresses", "bls_verify_committees")
+        for w in ("checks", "mismatches", "invariant_violations")]
+    before = {k: value(k) for k in names}
+    for kern in build.KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with LaunchThreads(build) as threads:
+            out = script.run(m, cfg, NOTARY_POOL, SERVE_PERIODS,
+                             {"sig_backend": "failover-torch",
+                              "serving": True, "soundness_rate": 1.0},
+                             txs_per_collation=NODE_TXS, min_proposers=4,
+                             counts=build.launch_counts, members=members)
+            torch.cuda.synchronize()
+    finally:
+        del os.environ["GETHSHARDING_TORCH_SOUNDNESS_ROWS"]
+    run_s = time.perf_counter() - t0
+    d = {k: value(k) - before[k] for k in names}
+    layout, chain, nodes = out["layout"], out["chain"], out["nodes"]
+    last = out["summaries"][SERVE_PERIODS + 1]
+    errors = {k: v for k, v in last["errors"].items() if v}
+    if errors:
+        fail(f"step 17: the serving nodes recorded errors {errors}")
+    mine = layout["eligibility"]
+    voted = sum(len(mine[p][layout["notary"]])
+                for p in range(1, SERVE_PERIODS + 1))
+    n = last["notary"]
+    if (n["votes_submitted"], n["audits_run"], n["audit_mismatches"]) \
+            != (voted, SERVE_PERIODS, 0):
+        fail(f"step 17: the serving notary's counters {n}; want {voted} "
+             f"votes and {SERVE_PERIODS} clean audits")
+    for p in range(1, SERVE_PERIODS + 1):
+        journaled = {tuple(v) for v in out["summaries"][p]["journal"]
+                     ["votes"]}
+        for s in mine[p][layout["notary"]]:
+            rec = chain.collation_record(s, p)
+            if (s, p) not in journaled or not rec.vote_count:
+                fail(f"step 17: the notary's vote on shard {s} period {p} "
+                     f"is not the SMC's record or its journal's")
+    served = threads.on("serving-dispatch")
+    for kernel in ("agg_g1", "tower", "norm", "finalexp", "ecrecover"):
+        if not served.get(kernel):
+            fail(f"step 17: the serving dispatch threads launched no "
+                 f"{kernel}: {dict(threads.by_thread)}")
+    if threads.off_default:
+        fail(f"step 17: launches off the default stream "
+             f"{threads.off_default[:4]}")
+    proposers = [node for name, node in nodes.items()
+                 if name.startswith("proposer")]
+    recovered = sum(node.sig_backend.primary.inner.batcher.dispatch_counts
+                    ["ecrecover_addresses"] for node in proposers)
+    requests = sum(d[f"serving/{k}/requests"] for k in (
+        "ecrecover", "bls_committee", "bls_aggregate", "das_verify",
+        "das_poly_verify"))
+    if not recovered \
+            or served.get("ecrecover") != d["serving/ecrecover/dispatches"] \
+            or served.get("finalexp") != d[
+                "serving/bls_committee/dispatches"] \
+            or served.get("agg_g1") != d["serving/bls_committee/dispatches"] \
+            or d["resilience/breaker/sigbackend/primary_calls"] != requests:
+        fail(f"step 17: launches on the dispatch threads {served}, "
+             f"counters {d}, proposer recovery dispatches {recovered}")
+    if d["resilience/breaker/sigbackend/trips"] \
+            or d["resilience/breaker/sigbackend/fallback_calls"] \
+            or d["resilience/breaker/sigbackend/primary_faults"] \
+            or any(node.sig_backend.breaker.state_name != "closed"
+                   for node in nodes.values()):
+        fail(f"step 17: a breaker tripped or fell back: {d}")
+    for op in ("ecrecover_addresses", "bls_verify_committees"):
+        base = f"resilience/soundness/{op}"
+        if not d[f"{base}/checks"] or d[f"{base}/mismatches"] \
+                or d[f"{base}/invariant_violations"]:
+            fail(f"step 17: the node's spot-checks of {op}: {d}")
+    on_main = {k: v for (k, t), v in threads.by_thread.items()
+               if not t.startswith("serving-dispatch")}
+    print(f"serving node devnet (step 17.5a): step 15's devnet cut to "
+          f"{SERVE_PERIODS} periods, every node failover+soundness(rate 1, "
+          f"1 row)+serving+torch; {SERVE_PERIODS} periods in {run_s:.1f} s; "
+          f"the notary voted {n['votes_submitted']} times (the SMC's "
+          f"records), audited {n['audits_run']} periods; serving requests "
+          f"{requests} = primary calls, dispatches: committees "
+          f"{d['serving/bls_committee/dispatches']}, recoveries "
+          f"{d['serving/ecrecover/dispatches']} ({recovered} of them the "
+          f"proposers' txpools); launches on the dispatch threads "
+          f"{dict(sorted(served.items()))}, elsewhere (the judge's and the "
+          f"observer's replays) {on_main}; spot-checks "
+          f"{d['resilience/soundness/ecrecover_addresses/checks']} "
+          f"recoveries and "
+          f"{d['resilience/soundness/bls_verify_committees/checks']} "
+          f"committees, 0 mismatches; breakers closed, 0 fallbacks, 0 "
+          f"trips [{card}]", flush=True)
+    print(f"time serving node blocks (ms): "
+          f"{ {b: round(v * 1e3, 1) for b, v in out['block_s'].items()} } "
+          f"[{card}]", flush=True)
+
+
+def start_serving_cli():
+    """Start step 17.5b's CLI in a process of its own (it runs beside the
+    devnet of step 17.5a); returns (command, process, start time)."""
+    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", "sharding",
+           "--actor", "notary", "--deposit", "--serving",
+           "--soundness-rate", "0.05", "--sigbackend", "failover-torch",
+           "--runtime", "8", "--blocktime", "0.2"]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    return cmd, proc, time.perf_counter()
+
+
+def serving_cli(card: str, started) -> None:
+    """Step 17.5b: `python -m gethsharding_tpu_torch.cli sharding --actor
+    notary --deposit --serving --soundness-rate 0.05 --sigbackend
+    failover-torch --runtime 8 --blocktime 0.2` in a process of its own
+    (`start_serving_cli`): exit 0, a sealed period, no service error, and
+    the breaker's exit summary clean: 0 primary faults, 0 fallback calls,
+    0 trips, the breaker closed, no fault line, primary calls equal to the
+    serving requests, and each op's dispatches equal to its kernel's
+    launches. The CLI's lone
+    notary has no proposer beside it, so it has nothing to vote on and may
+    make no device call: this step holds the CLI's flags and composition;
+    step 17.5a holds the composed node on the card."""
+    cmd, proc, t0 = started
+    try:
+        log, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        fail("step 17.5b: the CLI did not exit within 180 s")
+    wall_s = time.perf_counter() - t0
+    sealed = re.findall(r"period \d+ sealed", log)
+    found = re.search(r"sigbackend failover\+soundness\+serving\+torch at "
+                      r"exit: (\{.*\})", log)
+    if proc.returncode != 0 or not sealed or "service error" in log \
+            or "primary sigbackend" in log or not found:
+        fail(f"step 17.5b: the CLI exited {proc.returncode}, {len(sealed)} "
+             f"periods sealed:\n{log[-3000:]}")
+    summary = json.loads(found.group(1))
+    serving, launches = summary["serving"], summary["launches"]
+    requests = sum(r for r, _ in serving.values())
+    # the kernel each op's dispatch launches once
+    heads = {"ecrecover": "ecrecover", "bls_committee": "agg_g1",
+             "das_verify": "das_samples"}
+    if summary["primary_faults"] or summary["fallback_calls"] \
+            or summary["trips"] or summary["state"] != "closed" \
+            or summary["primary_calls"] != requests \
+            or any(serving[op][1] != launches.get(k, 0)
+                   for op, k in heads.items()) \
+            or (summary["primary_calls"] and not launches):
+        fail(f"step 17.5b: the CLI's breaker summary {summary}")
+    print(f"node CLI serving (step 17.5b): {' '.join(cmd[1:])}: exit 0, "
+          f"{len(sealed)} periods sealed, no service error; at exit "
+          f"{summary['primary_calls']} primary calls (the lone notary has "
+          f"no proposer's header to vote on), 0 faults, 0 fallbacks, 0 "
+          f"trips, breaker closed, launches {launches}; {wall_s:.1f} s "
+          f"with its start, beside the devnet [{card}]", flush=True)
+
+
+def serving_phase(card: str, seed: int, period, members) -> None:
+    """Step 17: the serving and resilience plane on the card (its five
+    phases above), timed."""
+    from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+    from gethsharding_tpu_torch.crypto.keccak import keccak256
+    from gethsharding_tpu_torch.das import pcs
+    from gethsharding_tpu_torch.das import proofs as das
+    from gethsharding_tpu_torch.ops import _build
+
+    t_step = time.perf_counter()
+    vote = vote_period(ecdsa, das, keccak256, seed)   # step 10's
+    # one honest multiproof row (the dev SRS is step 11's): its host check
+    # costs ~1.4 s
+    rows = poly_period(pcs, seed, 1)
+    poly = ([list(col) for col in zip(*rows)], [True])
+    marks = [("made", time.perf_counter())]
+    coalescing_phase(card, _build, period, vote)
+    marks.append(("coalescing", time.perf_counter()))
+    soundness_phase(card, period, vote, poly)
+    marks.append(("soundness", time.perf_counter()))
+    chaos_phase(card, _build, period)
+    marks.append(("chaos", time.perf_counter()))
+    watchdog_phase(card, _build, period)
+    marks.append(("watchdog", time.perf_counter()))
+    cli = start_serving_cli()
+    try:
+        serving_node_devnet(card, _build, members)
+        marks.append(("node", time.perf_counter()))
+        serving_cli(card, cli)
+        marks.append(("cli after it", time.perf_counter()))
+    finally:
+        if cli[1].poll() is None:     # a failed phase: stop the CLI
+            cli[1].kill()
+            cli[1].wait()
+    prev, parts = t_step, []
+    for name, t in marks:
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    print(f"step 17: {time.perf_counter() - t_step:.1f} s in all "
+          f"({', '.join(parts)} s)", flush=True)
 
 
 def exact_phase(seed: int) -> int:
@@ -4050,6 +4811,8 @@ def main() -> int:
     members = notary_phase(card, args.seed)
     node_phase(card, members)
     das_phase(card, members)
+    serving_phase(card, args.seed, (msgs, sig_rows, pk_rows, keys, want),
+                  members)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the build "
           f"included", flush=True)
     print(json.dumps({"kernels": kernels}))

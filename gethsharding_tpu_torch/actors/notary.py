@@ -27,7 +27,11 @@ body; the windback is held by sampling too.
 `sig_backend=None` is `TorchSigBackend()` on the card, which raises where
 there is none. The head launches the audit before the vote phases and
 judges it after them, so the card verifies the previous period while the
-host votes; `audit_period(s)` is the synchronous form.
+host votes; `audit_period(s)` is the synchronous form. Behind a serving
+tier (a backend with `submit`), the proposer signatures recover on the
+tier's dispatch thread while this thread requests the bodies that are
+not local, and every audit call is tagged with the ``bulk_audit``
+admission class.
 
 `p2p` (a `P2PServer`) fetches bodies that are not local; `mirror` (a
 `StateMirror`) serves each head's reads and the windback's prior records
@@ -58,6 +62,9 @@ from gethsharding_tpu_torch.resilience.policy import (POLL_MISS,
                                                       RetryExecutor,
                                                       RetryPolicy,
                                                       poll_probe)
+from gethsharding_tpu_torch.serving.batcher import observe_future_wake
+from gethsharding_tpu_torch.serving.classes import (CLASS_BULK_AUDIT,
+                                                    admission_class)
 from gethsharding_tpu_torch.sigbackend import SigBackend
 from gethsharding_tpu_torch.smc.state_machine import SMCRevert, vote_digest
 from gethsharding_tpu_torch.utils.hexbytes import Hash32
@@ -327,7 +334,23 @@ class Notary(Service):
         sig_ok = {}
         if signed:
             with tracing.span("notary/recover", rows=len(signed)):
-                results = self.verify_proposer_signatures(signed)
+                submit = getattr(self.sig_backend, "submit", None)
+                if submit is not None:
+                    # serving backend: the recovery runs on the serving
+                    # tier's dispatch thread while this thread fires the
+                    # body requests of collations that are not local, so
+                    # the syncers' round trips overlap it. Fire and forget:
+                    # the authoritative (polling) availability check stays
+                    # in submit_vote.
+                    digests, sigs = self._proposer_sig_inputs(signed)
+                    future = submit("ecrecover_addresses", digests, sigs)
+                    for shard_id, p, record in candidates:
+                        self._prefetch_availability(shard_id, p, record)
+                    recovered = future.result()
+                    observe_future_wake(future)
+                    results = self._match_proposers(recovered, signed)
+                else:
+                    results = self.verify_proposer_signatures(signed)
                 for (shard_id, _, _), good in zip(signed, results):
                     sig_ok[shard_id] = good
 
@@ -522,8 +545,12 @@ class Notary(Service):
         with tracing.span("notary/audit", periods=len(spans),
                           rows=len(msgs)):
             with self.m_audit_latency.time():
-                ok = self.sig_backend.bls_verify_committees(
-                    msgs, sig_rows, pk_rows, pk_row_keys=pk_keys)
+                # the period audit is bulk traffic: behind a serving tier
+                # it coalesces under the bulk_audit admission class, and
+                # the thread-local tag survives the wrappers in between
+                with admission_class(CLASS_BULK_AUDIT):
+                    ok = self.sig_backend.bls_verify_committees(
+                        msgs, sig_rows, pk_rows, pk_row_keys=pk_keys)
         self.audits_run += len(spans)
         for period, (start, end) in spans.items():
             results[period] = self._judge_period(
@@ -549,9 +576,12 @@ class Notary(Service):
                     rows = collected[period]
                     if rows is None:
                         continue
-                    future = self.sig_backend.bls_verify_committees_async(
-                        rows["msgs"], rows["sig_rows"], rows["pk_rows"],
-                        pk_row_keys=rows["pk_keys"])
+                    with admission_class(CLASS_BULK_AUDIT):
+                        future = (self.sig_backend
+                                  .bls_verify_committees_async(
+                                      rows["msgs"], rows["sig_rows"],
+                                      rows["pk_rows"],
+                                      pk_row_keys=rows["pk_keys"]))
                     pending.append((period, rows, future))
                 for period, rows, future in pending:
                     verdicts.append((period, rows, future.result()))
@@ -571,9 +601,10 @@ class Notary(Service):
             if collected is None:
                 return lambda: None
             t0 = time.monotonic()
-            future = self.sig_backend.bls_verify_committees_async(
-                collected["msgs"], collected["sig_rows"],
-                collected["pk_rows"], pk_row_keys=collected["pk_keys"])
+            with admission_class(CLASS_BULK_AUDIT):
+                future = self.sig_backend.bls_verify_committees_async(
+                    collected["msgs"], collected["sig_rows"],
+                    collected["pk_rows"], pk_row_keys=collected["pk_keys"])
             submit_s = time.monotonic() - t0
 
         def finish() -> None:
@@ -905,6 +936,16 @@ class Notary(Service):
                 )
             )
         return header, None
+
+    def _prefetch_availability(self, shard_id: int, period: int,
+                               record) -> None:
+        """Fire the body request of a collation that is not local now, so
+        the responding syncer's round trip runs while this thread waits on
+        something else; `_check_availability` stays the authoritative
+        (polling) gate. A sampled notary never requests a body."""
+        if self._sampled():
+            return
+        self._availability_probe(shard_id, period, record)
 
     def _check_availability(self, shard_id: int, period: int, record) -> bool:
         header, verdict = self._availability_probe(shard_id, period, record)

@@ -40,7 +40,10 @@ which can only be validated against the on-chain record the fetcher
 holds, are parked in a small per-key list for the same reason: a forged
 frame arriving first must not evict the genuine one.
 
-`chaos` must be None: the port has no `resilience/chaos.py` yet.
+`chaos` (a `resilience/chaos.py` `ChaosSchedule`, or None) fires the
+``das.*`` seams of `CHAOS_SEAMS`: ``das.parity_publish`` once per publish,
+the three fetch seams once per fetch attempt, so an injected fault (a
+`ConnectionError`) rides the fetch's retry ladder like a lost frame.
 """
 
 from __future__ import annotations
@@ -77,9 +80,8 @@ from gethsharding_tpu_torch.resilience.policy import (DEFAULT_RETRYABLE,
                                                       poll_probe)
 from gethsharding_tpu_torch.storage.chunker import ChunkStore
 
-# the chaos seams of this service, by the JAX package's names: its
-# `resilience/chaos.py` fires them per fetch attempt and publish; the port
-# has no chaos layer yet, so nothing fires them
+# the chaos seams of this service (the node CLI's `--chaos` wires them for
+# `--da-mode sampled`)
 CHAOS_SEAMS = ("das.commitment_fetch", "das.sample_fetch",
                "das.parity_publish", "das.multiproof_fetch")
 
@@ -192,10 +194,6 @@ class DASService(Service):
                  fetch_attempts: int = 3,
                  proof_mode: str = "merkle"):
         super().__init__()
-        if chaos is not None:
-            raise ValueError(
-                "DASService(chaos=...): the port has no resilience/chaos.py "
-                "yet (ROADMAP.md, queue A item 8); pass chaos=None")
         if proof_mode not in PROOF_MODES:
             raise ValueError(f"unknown DAS proof mode {proof_mode!r}; "
                              f"choose from {PROOF_MODES}")
@@ -208,11 +206,13 @@ class DASService(Service):
         self.store = store if store is not None else ChunkStore()
         self.parity_ratio = parity_ratio
         self.samples = samples
+        self.chaos = chaos
         self.poll_interval = poll_interval
         self.fetch_timeout = fetch_timeout
         self._attempt_timeout = fetch_timeout / max(1, fetch_attempts)
         # the default transient set, which holds this layer's own miss
-        # signals (TransientError): a lost frame costs a capped backoff
+        # signals (TransientError) and a chaos InjectedFault
+        # (ConnectionError): a lost frame costs a capped backoff
         self._fetch_retry = RetryExecutor(
             "das", RetryPolicy(attempts=max(1, fetch_attempts),
                                base_s=poll_interval, cap_s=0.25,
@@ -289,6 +289,10 @@ class DASService(Service):
                     self.record_error(f"das handler failed: {exc}")
         return loop
 
+    def _fire(self, seam: str) -> None:
+        if self.chaos is not None:
+            self.chaos.fire(seam)
+
     # -- publisher side ----------------------------------------------------
 
     def publish(self, shard_id: int, period: int, chunk_root,
@@ -298,6 +302,7 @@ class DASService(Service):
         and sign the commitment, and start serving both. The proposer
         calls this right after `save_collation`."""
         with tracing.span("das/publish", shard=shard_id, period=period):
+            self._fire("das.parity_publish")
             xb = extend_body(bytes(body), parity_ratio=self.parity_ratio)
             levels = merkle_levels([chunk_leaf(c) for c in xb.chunks])
             das_root = levels[-1][0]
@@ -521,6 +526,7 @@ class DASService(Service):
             raise _CommitmentMiss("rejected response")
 
         def attempt() -> DASCommitment:
+            self._fire("das.commitment_fetch")
             self.p2p.broadcast(DASCommitmentRequest(shard_id=key[0],
                                                     period=key[1]))
             got = poll_probe(
@@ -599,6 +605,7 @@ class DASService(Service):
             return True
 
         def attempt() -> None:
+            self._fire("das.sample_fetch")
             still = missing()
             if not still:
                 return
@@ -665,6 +672,7 @@ class DASService(Service):
             return got
 
         def attempt() -> tuple:
+            self._fire("das.multiproof_fetch")
             self.p2p.broadcast(DASMultiproofRequest(das_root=root,
                                                     indices=indices))
             got = poll_probe(

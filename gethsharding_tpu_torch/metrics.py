@@ -1,5 +1,6 @@
-"""Metrics: counters, gauges and timers behind a registry (the port's copy
-of the core of the JAX package's `metrics.py`; its exporters wait).
+"""Metrics: counters, gauges, fixed-bucket histograms and timers behind a
+registry (the port's copy of the core of the JAX package's `metrics.py`;
+its exporters wait).
 
 Parity: the go-metrics registry (`metrics.go:22-39`) scoped to what the
 notary needs: aggregate signature verifications, collation validate and
@@ -85,6 +86,91 @@ class Gauge:
 
     def snapshot(self) -> dict:
         return {"type": "gauge", "value": self._value}
+
+
+class Histogram:
+    """Fixed-bucket distribution of observations: the serving tier's
+    batch sizes (discrete, bucket-shaped values a reservoir percentile
+    would interpolate between) and the SLO tracker's latencies.
+
+    Bucket semantics are Prometheus's: ``le_*`` counts are cumulative
+    (observations at or below the bound; ``le_inf`` == ``count``), and
+    ``bucket_*`` keys hold the exact per-slot counts.
+    """
+
+    DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+    def __init__(self, buckets=DEFAULT_BUCKETS) -> None:
+        if not buckets:
+            raise ValueError("histogram needs at least one bucket bound")
+        self._bounds = tuple(sorted(buckets))
+        # one slot per bound + the overflow (> last bound) slot
+        self._counts = [0] * (len(self._bounds) + 1)
+        self._count = 0
+        self._total = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        slot = len(self._bounds)
+        for i, bound in enumerate(self._bounds):
+            if value <= bound:
+                slot = i
+                break
+        with self._lock:
+            self._counts[slot] += 1
+            self._count += 1
+            self._total += value
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def read(self) -> tuple:
+        """One consistent locked read: (per-slot counts, count, total), so
+        a reader racing `observe` never sees ``le_inf != count``."""
+        with self._lock:
+            return list(self._counts), self._count, self._total
+
+    def quantile(self, q: float) -> float:
+        """Estimate the q-quantile from the buckets, interpolating linearly
+        within the bucket the target rank falls in (Prometheus'
+        `histogram_quantile`): the first bucket interpolates from 0, the
+        overflow bucket clamps to the largest finite bound. 0.0 with no
+        observations."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        counts, count, _ = self.read()
+        if count == 0:
+            return 0.0
+        target = q * count
+        running = 0
+        lower = 0.0
+        for i, bound in enumerate(self._bounds):
+            if running + counts[i] >= target:
+                if counts[i] == 0:
+                    return float(bound)
+                frac = (target - running) / counts[i]
+                return lower + (bound - lower) * frac
+            running += counts[i]
+            lower = float(bound)
+        return float(self._bounds[-1])
+
+    def snapshot(self) -> dict:
+        counts, count, total = self.read()
+        out = {"type": "histogram", "count": count,
+               "mean": round(total / count if count else 0.0, 3),
+               "p50": round(self.quantile(0.50), 4),
+               "p95": round(self.quantile(0.95), 4),
+               "p99": round(self.quantile(0.99), 4)}
+        running = 0
+        for i, bound in enumerate(self._bounds):
+            running += counts[i]
+            out[f"le_{bound:g}"] = running
+        out["le_inf"] = running + counts[-1]
+        for i, bound in enumerate(self._bounds):
+            out[f"bucket_{bound:g}"] = counts[i]
+        out["bucket_inf"] = counts[-1]
+        return out
 
 
 class Timer:
@@ -174,6 +260,13 @@ class Registry:
     def timer(self, name: str) -> Timer:
         return self._get_or_register(name, Timer)
 
+    def histogram(self, name: str, buckets=None) -> Histogram:
+        """`buckets` applies only on first registration (the first caller
+        of a name defines its instrument)."""
+        factory = (Histogram if buckets is None
+                   else (lambda: Histogram(buckets)))
+        return self._get_or_register(name, factory)
+
     def get(self, name: str) -> Optional[object]:
         return self._metrics.get(name)
 
@@ -197,3 +290,7 @@ def gauge(name: str) -> Gauge:
 
 def timer(name: str) -> Timer:
     return DEFAULT_REGISTRY.timer(name)
+
+
+def histogram(name: str, buckets=None) -> Histogram:
+    return DEFAULT_REGISTRY.histogram(name, buckets=buckets)

@@ -13,6 +13,19 @@ is none; "cpu" runs the kernels' plain versions): the notary's
 `TorchSigBackend` and the observer's replay both take it. What the port
 has not ported yet is refused by a `ValueError` that names the missing
 module (`UNPORTED`).
+
+The signature backend is composed innermost first, each layer optional,
+as the JAX package composes it: device backend (`sig_backend`) -> chaos
+injection (`chaos`) -> serving tier (`serving`) -> soundness spot-check
+(`soundness_rate`) -> failover breaker (``sig_backend="failover-*"``).
+Chaos sits where device faults originate; the breaker sits outside the
+serving tier so a watchdog's `DeadlineExceeded` surfacing from a serving
+future counts as a primary fault; the spot-checker sits between them,
+so it audits what the device delivered through the tier and its
+`SoundnessViolation` trips the breaker. One instance node-wide: one
+admission queue per device, one breaker per node. A proposer's txpool
+recovers senders through the composed backend when one is composed, and
+on the host when none is (the JAX package's node does the same).
 """
 
 from __future__ import annotations
@@ -37,7 +50,8 @@ from gethsharding_tpu_torch.mainchain.mirror import StateMirror
 from gethsharding_tpu_torch.p2p.service import Hub, P2PServer
 from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
 from gethsharding_tpu_torch.resilience.journal import VoteJournal
-from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+from gethsharding_tpu_torch.sigbackend import (BACKEND_NAMES, SigBackend,
+                                              build_backend, get_backend)
 from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
 from gethsharding_tpu_torch.storage.netstore import NetStore
 
@@ -48,12 +62,8 @@ S = TypeVar("S")
 UNPORTED = {
     "actor='light'": "actors/light.py",
     "password": "mainchain/keystore.py",
-    "serving": "serving/",
-    "chaos": "resilience/chaos.py",
-    "soundness_rate": "resilience/soundness.py",
     "fleet_frontend": "fleet/",
     "http_port": "node/http_status.py",
-    "sig_backend='failover-*'": "resilience/breaker.py",
 }
 
 
@@ -83,6 +93,7 @@ class ShardNode:
                  supervise_interval: float = 1.0,
                  http_port: Optional[int] = None,
                  serving: bool = False,
+                 serving_config=None,
                  chaos=None,
                  soundness_rate: Optional[float] = None,
                  da_mode: str = "full",
@@ -101,24 +112,29 @@ class ShardNode:
         for option, given in (
                 ("actor='light'", actor == "light"),
                 ("password", password is not None),
-                ("serving", serving or sig_backend.startswith("serving-")),
-                ("chaos", chaos is not None),
-                ("soundness_rate", bool(soundness_rate)),
                 ("fleet_frontend", fleet_frontend is not None),
-                ("http_port", http_port is not None),
-                ("sig_backend='failover-*'",
-                 sig_backend.startswith("failover-"))):
+                ("http_port", http_port is not None)):
             if given:
                 raise refuse(option)
-        if sig_backend != "torch":
-            raise ValueError(f"unknown sigbackend {sig_backend!r}; the "
-                             f"port has 'torch'")
+        if sig_backend not in BACKEND_NAMES:
+            raise ValueError(f"unknown sigbackend {sig_backend!r}; choose "
+                             f"from {BACKEND_NAMES}")
+        failover = sig_backend.startswith("failover-")
+        inner_name = sig_backend[len("failover-"):] if failover \
+            else sig_backend
+        if serving and inner_name.startswith("serving-"):
+            raise ValueError("--serving already wraps the backend; use "
+                             "the bare backend name with --serving")
         self.actor = actor
         self.shard_id = shard_id
         self.config = config
         # no fallback: a node without a card raises here unless the caller
         # asked for the CPU
         self.device = resolve_device(device)
+        self._serving_backend = None
+        self.sig_backend = self._compose(inner_name, failover, serving,
+                                         serving_config, chaos,
+                                         soundness_rate)
         self._services: Dict[Type, object] = {}
         self._order: List[object] = []
         self._factories: Dict[Type, object] = {}
@@ -162,15 +178,17 @@ class ShardNode:
             self._register(netstore)
             self.das_service = DASService(
                 client=client, p2p=p2p, store=netstore.store,
-                parity_ratio=da_parity, samples=da_samples,
+                parity_ratio=da_parity, samples=da_samples, chaos=chaos,
                 proof_mode=da_proofs)
             self._register(self.das_service)
         das = self.das_service
 
         if actor == "proposer":
-            # sender recovery on the host, as the reference's plain node
+            # sender recovery through the composed backend; on the host
+            # when no wrapper was asked for, as in the JAX package's node
             txpool = TXPool(simulate_interval=txpool_interval,
-                            sig_backend=None)
+                            sig_backend=(self.sig_backend if self._composed
+                                         else None))
             self._register(txpool)
             self._register_factory(
                 lambda: Proposer(client=client, txpool=txpool,
@@ -182,19 +200,22 @@ class ShardNode:
             if os.environ.get("GETHSHARDING_TORCH_VOTE_JOURNAL", "1") != "0":
                 journal = VoteJournal(shard_db.db)
             # one backend node-wide: a restarted notary keeps its tables
-            sig = TorchSigBackend(device=self.device)
             self._register_factory(
                 lambda: Notary(client=client, shard=shard, p2p=p2p,
                                config=config, deposit_flag=deposit,
-                               sig_backend=sig,
+                               sig_backend=self.sig_backend,
                                mirror=self.service(StateMirror),
                                journal=journal, das=das,
                                da_mode=da_mode))
         else:
-            # the backend is the card's: the observer replays there too
+            # the observer replays where the backend runs: on the card for
+            # `torch` (and its wrappers), on the host for `python`
             self._register_factory(
                 lambda: Observer(client=client, shard=shard,
-                                 replay_engine="torch", device=self.device))
+                                 replay_engine=(
+                                     "python" if sig_backend.endswith(
+                                         "python") else "torch"),
+                                 device=self.device))
 
         if actor != "notary":
             # non-notary nodes run the simulator (backend.go:303)
@@ -205,6 +226,45 @@ class ShardNode:
 
         self._register_factory(
             lambda: Syncer(client=client, shard=shard, p2p=p2p))
+
+    # -- the signature backend ---------------------------------------------
+
+    def _compose(self, inner_name, failover, serving, serving_config,
+                 chaos, soundness_rate) -> SigBackend:
+        """device -> chaos -> serving -> soundness -> failover (see the
+        module docstring)."""
+        device = composed = build_backend(inner_name, self.device)
+        if inner_name.startswith("serving-"):
+            self._serving_backend = device
+        if chaos is not None:
+            from gethsharding_tpu_torch.resilience.chaos import (
+                ChaosSigBackend)
+
+            composed = ChaosSigBackend(composed, chaos)
+        if serving:
+            from gethsharding_tpu_torch.serving import (ServingConfig,
+                                                        ServingSigBackend)
+
+            composed = ServingSigBackend(
+                composed, config=serving_config or ServingConfig())
+            self._serving_backend = composed
+        if soundness_rate is None:
+            soundness_rate = float(os.environ.get(
+                "GETHSHARDING_TORCH_SOUNDNESS_RATE", "0") or 0)
+        if soundness_rate > 0:
+            from gethsharding_tpu_torch.resilience.soundness import (
+                SpotCheckSigBackend)
+
+            composed = SpotCheckSigBackend(composed, rate=soundness_rate)
+        if failover:
+            from gethsharding_tpu_torch.resilience.breaker import (
+                FailoverSigBackend)
+
+            composed = FailoverSigBackend(composed, get_backend("python"))
+        # whether a wrapper was asked for: the txpool recovers through the
+        # backend only then
+        self._composed = composed is not device
+        return composed
 
     # -- registry (backend.go:151-174) ------------------------------------
 
@@ -249,6 +309,9 @@ class ShardNode:
                 service.stop()
             except Exception:
                 pass
+        if self._serving_backend is not None:
+            # after the consumers: a draining actor must still resolve
+            self._serving_backend.close()
 
     # -- supervision (failure detection / elastic recovery) ----------------
 

@@ -179,10 +179,12 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: kernel launch failed with "
                                f"{error_string(err)}")
-        self.launches += 1
+        with _count_lock:  # backends on several threads launch it
+            self.launches += 1
 
 
 KERNELS: dict = {}
+_count_lock = threading.Lock()
 
 
 def launch_counts() -> dict:

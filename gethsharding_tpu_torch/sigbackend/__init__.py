@@ -1,7 +1,18 @@
 """Signature backends of the port: the five methods of the JAX package's
 `SigBackend` API (proposer-signature recovery, committee audits,
-aggregate votes, DAS samples and DAS polynomial multiproofs), with the
-`torch` backend behind `get_backend("torch")`.
+aggregate votes, DAS samples and DAS polynomial multiproofs), and the
+registry: `get_backend(name)` (the process's one backend of a name) on
+`build_backend(name, device)` (a new one on a device, as a node builds
+its own):
+
+- ``torch``: `TorchSigBackend`, the kernels on the CUDA card (default);
+- ``python``: `PythonSigBackend`, the scalar host implementations, always
+  available: the failover breaker's fallback and the soundness
+  spot-checker's reference;
+- ``serving-torch`` / ``serving-python``: either behind the coalescing
+  serving tier (`serving/`);
+- ``failover-<name>``: any of the above as the primary behind a circuit
+  breaker over the ``python`` backend (`resilience/breaker.py`).
 
 - ``marshal.py``: host -> limb planes, the padding policy, row keys.
 - ``cache.py``: `LineTableCache`, the resident line tables of the
@@ -17,6 +28,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 from gethsharding_tpu_torch.crypto import bn256 as bls
+from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
 
 
 class VerdictFuture:
@@ -123,22 +135,95 @@ class SigBackend:
         raise NotImplementedError
 
 
-def _torch_factory() -> SigBackend:
-    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+class PythonSigBackend(SigBackend):
+    """The scalar host implementations (the JAX package's
+    `PythonSigBackend`): the breaker's fallback and the spot-checker's
+    reference, never on the default path."""
 
-    return TorchSigBackend()
+    name = "python"
+
+    def ecrecover_addresses(self, digests, sigs65):
+        out: List[Optional[bytes]] = []
+        for digest, sig in zip(digests, sigs65):
+            try:
+                signature = ecdsa.Signature.from_bytes65(bytes(sig))
+                out.append(ecdsa.ecrecover_address(bytes(digest), signature))
+            except (ValueError, AssertionError):
+                out.append(None)
+        return out
+
+    def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
+        return [bls.bls_verify(bytes(m), s, pk)
+                for m, s, pk in zip(messages, agg_sigs, agg_pks)]
+
+    def bls_verify_committees(self, messages, sig_rows, pk_rows,
+                              pk_row_keys=None):
+        return [bls.bls_verify_aggregate(
+                    bytes(m), bls.bls_aggregate_sigs(sigs), list(pks))
+                for m, sigs, pks in zip(messages, sig_rows, pk_rows)]
+
+    def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
+                                    pk_row_keys=None):
+        """Computed now: a resolved future."""
+        out = self.bls_verify_committees(messages, sig_rows, pk_rows)
+        future = VerdictFuture(lambda: out)
+        future.result()
+        return future
+
+    def das_verify_samples(self, chunks, indices, proofs, roots):
+        # lazy: the DAS modules are not needed by every scalar caller
+        from gethsharding_tpu_torch.das.proofs import verify_samples
+
+        return verify_samples(chunks, indices, proofs, roots)
+
+    def das_verify_multiproofs(self, commitments, index_rows, eval_rows,
+                               proofs, ns):
+        from gethsharding_tpu_torch.das.poly_proofs import verify_multiproofs
+
+        return verify_multiproofs(commitments, index_rows, eval_rows,
+                                  proofs, ns)
 
 
-_BACKENDS = {"torch": _torch_factory}
+# the names `build_backend` and `get_backend` take
+BACKEND_NAMES = ("torch", "python", "serving-torch", "serving-python",
+                 "failover-torch", "failover-python",
+                 "failover-serving-torch", "failover-serving-python")
+
+
+def build_backend(name: str, device=None, part=None) -> SigBackend:
+    """A new backend of registry name `name`: 'torch' on `device` (None:
+    the CUDA card), 'python', 'serving-<inner>' (the coalescing tier over
+    `part(inner)`) or 'failover-<primary>' (a breaker over `part(primary)`
+    with `part('python')` as its fallback). `part` makes the named inner
+    layer: by default a new one on `device`; `get_backend` passes itself,
+    so that its wrappers wrap its own backends (imported only when
+    asked for)."""
+    if name not in BACKEND_NAMES:
+        raise ValueError(
+            f"unknown sigbackend {name!r}; choose from {sorted(BACKEND_NAMES)}")
+    if part is None:
+        part = lambda inner: build_backend(inner, device)
+    if name == "torch":
+        from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+        return TorchSigBackend(device=device)
+    if name == "python":
+        return PythonSigBackend()
+    if name.startswith("serving-"):
+        from gethsharding_tpu_torch.serving.backend import ServingSigBackend
+
+        return ServingSigBackend(part(name[len("serving-"):]))
+    from gethsharding_tpu_torch.resilience.breaker import FailoverSigBackend
+
+    return FailoverSigBackend(part(name[len("failover-"):]), part("python"))
+
+
 _cache: dict = {}
 
 
 def get_backend(name: str = "torch") -> SigBackend:
-    """Backend registry of the port: 'torch' (the audit kernels on the
-    CUDA card)."""
-    if name not in _BACKENDS:
-        raise ValueError(
-            f"unknown sigbackend {name!r}; choose from {sorted(_BACKENDS)}")
+    """The process's backend of that name, built on first use (see
+    `build_backend`; 'torch' on the CUDA card)."""
     if name not in _cache:
-        _cache[name] = _BACKENDS[name]()
+        _cache[name] = build_backend(name, part=get_backend)
     return _cache[name]

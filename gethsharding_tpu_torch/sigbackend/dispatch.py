@@ -29,6 +29,12 @@ and one final exponentiation (`bn.bls_verify_aggregate_batch`).
 on the same two launches, after the host folds each row into its three
 pairing points (`das/poly_proofs.py`).
 
+One lock serializes each call's host staging and launches: the serving
+tier's watchdog can leave an abandoned dispatch thread inside a call
+while a fresh one enters, and the staging planes, the line-table cache
+and `last_timing` / `last_wire` are per-call state. The async committee
+path pulls its verdicts outside the lock.
+
 The notary's vote phase runs on two more kernels, one launch each:
 `ecrecover_addresses` (the proposer signatures of a period,
 `ops/secp256k1.py` on `csrc/secp256k1.cu`; the rare recovery ids 2 and 3
@@ -39,6 +45,7 @@ are recovered on the host) and `das_verify_samples` (samples × shards,
 from __future__ import annotations
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -104,15 +111,21 @@ class TorchSigBackend(SigBackend):
         self.last_wire: dict | None = None
         # `das_verify_samples`' staging planes, by bucket
         self._sample_staging: dict = {}
+        # held over each call's staging and launches (module docstring)
+        self._lock = threading.Lock()
 
     def ecrecover_addresses(self, digests, sigs65):
         """One launch of the recovery kernel over the batch, padded to
         `marshal.bucket_size`. Only v in {0, 1} goes to the device; v in
         {2, 3} (r + n overflow, rare) is recovered on the host, anything
         else is None."""
-        n = len(digests)
-        if n == 0:
+        if len(digests) == 0:
             return []
+        with self._lock:
+            return self._ecrecover(digests, sigs65)
+
+    def _ecrecover(self, digests, sigs65):
+        n = len(digests)
         before = _build.launch_counts()
         t0 = time.perf_counter()
         planes, host_rows = marshal.ecrecover_host_planes(digests, sigs65)
@@ -140,10 +153,14 @@ class TorchSigBackend(SigBackend):
         plane on the host (`das_proofs.stage_samples`, into this bucket's
         staging planes). `last_timing` splits the call into the marshal,
         the upload with the kernel (`device_s`) and the readback."""
+        with self._lock:
+            if len(chunks) == 0:
+                self.last_wire = None
+                return []
+            return self._das_samples(chunks, indices, proofs, roots)
+
+    def _das_samples(self, chunks, indices, proofs, roots):
         n = len(chunks)
-        if n == 0:
-            self.last_wire = None
-            return []
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
@@ -196,9 +213,13 @@ class TorchSigBackend(SigBackend):
                               for k, c in after.items()}, **extra)
 
     def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
-        n = len(messages)
-        if n == 0:
+        if len(messages) == 0:
             return []
+        with self._lock:
+            return self._aggregates(messages, agg_sigs, agg_pks)
+
+    def _aggregates(self, messages, agg_sigs, agg_pks):
+        n = len(messages)
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
@@ -231,10 +252,15 @@ class TorchSigBackend(SigBackend):
         package; they are not a fallback of the kernels. The dev SRS is
         built on the first call of the process (`pcs.dev_srs`), not with
         the backend."""
+        with self._lock:
+            if len(commitments) == 0:
+                self.last_wire = None
+                return []
+            return self._multiproofs(commitments, index_rows, eval_rows,
+                                     proofs, ns)
+
+    def _multiproofs(self, commitments, index_rows, eval_rows, proofs, ns):
         n = len(commitments)
-        if n == 0:
-            self.last_wire = None
-            return []
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
@@ -259,6 +285,14 @@ class TorchSigBackend(SigBackend):
             future = VerdictFuture(lambda: [])
             future.result()
             return future
+        with self._lock:
+            out = self._committees(messages, sig_rows, pk_rows, pk_row_keys)
+        return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])
+
+    def _committees(self, messages, sig_rows, pk_rows, pk_row_keys):
+        """Stage and launch one audit; returns the verdict plane on the
+        device."""
+        n = len(messages)
         before = _build.launch_counts()
         t0 = time.perf_counter()
         bucket = marshal.bucket_size(n)
@@ -278,7 +312,7 @@ class TorchSigBackend(SigBackend):
             before, t0, t1, n, bucket, width=width,
             precomp=keys is not None, limb_form=LIMB_FORM,
             g2_wire_bytes=int(g2_bytes), hit_rows=hit_rows, memo=memo)
-        return VerdictFuture(lambda: [bool(v) for v in out.cpu()[:n].tolist()])
+        return out
 
     def _precomp_audit(self, messages, sig_rows, pk_rows, keys, bucket):
         pad = bucket - len(messages)

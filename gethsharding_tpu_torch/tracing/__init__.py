@@ -8,5 +8,6 @@ from gethsharding_tpu_torch.tracing.tracer import (  # noqa: F401
     Tracer,
     disable,
     enable,
+    request_context,
     span,
 )

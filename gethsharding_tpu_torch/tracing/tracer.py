@@ -16,7 +16,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from gethsharding_tpu_torch import metrics
 
@@ -140,6 +140,30 @@ class Tracer:
         self._record(span.name, span.trace_id, span.span_id, span.parent_id,
                      span.start, span.end, span.tags, span.tid)
 
+    def record(self, name: str, start: float, end: float,
+               trace_id: Optional[int] = None,
+               parent_id: Optional[int] = None,
+               tags: Optional[dict] = None,
+               tid: Optional[int] = None) -> Optional[int]:
+        """Record a finished span from explicit monotonic timestamps: the
+        cross-thread form the serving tier uses (a request's lifecycle
+        spans the caller, flusher and dispatch threads; no one context
+        owns it). Returns the span id (None when disabled)."""
+        if not self.enabled:
+            return None
+        span_id = self.new_trace_id()
+        self._record(name, trace_id or self.new_trace_id(), span_id,
+                     parent_id, start, end, dict(tags) if tags else {},
+                     threading.get_ident() if tid is None else tid)
+        return span_id
+
+    def current(self) -> Optional[Tuple[int, int]]:
+        """(trace_id, span_id) of the context's active span, or None."""
+        stack = _SPAN_STACK.get()
+        if not stack:
+            return None
+        return (stack[-1].trace_id, stack[-1].span_id)
+
     def _record(self, name, trace_id, span_id, parent_id, start, end,
                 tags, tid) -> None:
         record = {
@@ -189,3 +213,11 @@ def span(name: str, **tags):
     if not TRACER.enabled:
         return NOOP_SPAN
     return TRACER.start(name, tags or None)
+
+
+def request_context() -> Optional[Tuple[int, int]]:
+    """The caller's (trace_id, span_id) to stitch a cross-thread serving
+    request to, or None: one attribute read when tracing is off."""
+    if not TRACER.enabled:
+        return None
+    return TRACER.current()

@@ -1088,3 +1088,149 @@ def test_node_sampled_devnet_on_the_card(cuda, proofs):
     assert last["notary"]["votes_submitted"] == len(want["honest"])
     assert last["das"]["notary_body_requests"] == 0
     assert [tuple(v) for v in last["das"]["verdicts"]] == want["held"]
+
+
+# == the serving tier over the card's backend =================================
+
+
+def _vote_rows(n: int):
+    """n recovery rows: signatures of `_signed`, every fourth truncated."""
+    digests, sigs65 = [], []
+    for i in range(n):
+        _, digest, sig = _signed(i % 12)
+        wire = sig.to_bytes65()
+        digests.append(digest)
+        sigs65.append(wire[:64] if i % 4 == 3 else wire)
+    return digests, sigs65
+
+
+@pytest.mark.cuda
+def test_serving_on_card_equals_direct(cuda):
+    """Concurrent threads' committee (keyed and keyless), recovery and
+    sample requests through `ServingSigBackend(TorchSigBackend())`: every
+    request's result is the direct call's on its rows, in fewer
+    dispatches than requests, on the dispatch thread's kernels."""
+    import threading
+
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+
+    msgs, sig_rows, pk_rows, want_c = _committee_period(24, 6)
+    keys = [("cuda-serving", s) for s in range(24)]
+    digests, sigs65 = _vote_rows(32)
+    samples = _sample_rows(48)
+    direct = TorchSigBackend()
+    want_r = direct.ecrecover_addresses(digests, sigs65)
+    want_s = direct.das_verify_samples(*samples)
+    assert direct.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                        pk_row_keys=keys) == want_c
+    jobs = [("bls_verify_committees", (msgs[i:i + 3], sig_rows[i:i + 3],
+                                       pk_rows[i:i + 3]),
+             {"pk_row_keys": keys[i:i + 3]} if i % 2 else {},
+             want_c[i:i + 3]) for i in range(0, 24, 3)]
+    jobs += [("ecrecover_addresses", (digests[i:i + 1], sigs65[i:i + 1]),
+              {}, want_r[i:i + 1]) for i in range(32)]
+    jobs += [("das_verify_samples", tuple(c[i:i + 6] for c in samples), {},
+              want_s[i:i + 6]) for i in range(0, 48, 6)]
+    serving = ServingSigBackend(TorchSigBackend())
+    got = [None] * len(jobs)
+    barrier = threading.Barrier(len(jobs))
+
+    def run(i):
+        op, cols, kw, _ = jobs[i]
+        barrier.wait()
+        got[i] = serving.submit(op, *cols, **kw).result(timeout=300)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs))]
+    try:
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert not any(t.is_alive() for t in threads)
+        counts = dict(serving.batcher.dispatch_counts)
+    finally:
+        serving.close()
+    assert got == [want for _, _, _, want in jobs]
+    assert sum(counts.values()) < len(jobs)
+    launched = _build.launch_counts()
+    assert launched["ecrecover"] == counts["ecrecover_addresses"]
+    assert launched["das_samples"] == counts["das_verify_samples"]
+    assert launched["finalexp"] == counts["bls_verify_committees"]
+
+
+@pytest.mark.cuda
+def test_two_threads_in_one_backend_equal_each_alone(cuda):
+    """Two threads calling one `TorchSigBackend` at once (the watchdog's
+    stale and fresh dispatch threads): each gets the verdicts it gets
+    alone, on every op it calls."""
+    import threading
+
+    backend = TorchSigBackend()
+    msgs, sig_rows, pk_rows, want_c = _committee_period(16, 5)
+    keys = [("cuda-two", s) for s in range(16)]
+    digests, sigs65 = _vote_rows(24)
+    samples = _sample_rows(64)
+    alone = {
+        "committees": backend.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                                    pk_row_keys=keys),
+        "recover": backend.ecrecover_addresses(digests, sigs65),
+        "samples": backend.das_verify_samples(*samples),
+    }
+    assert alone["committees"] == want_c
+    calls = {
+        "committees": lambda: backend.bls_verify_committees_async(
+            msgs, sig_rows, pk_rows, pk_row_keys=keys).result(),
+        "recover": lambda: backend.ecrecover_addresses(digests, sigs65),
+        "samples": lambda: backend.das_verify_samples(*samples),
+    }
+    out = {"a": [], "b": []}
+
+    def worker(name, order):
+        for _ in range(4):
+            for op in order:
+                out[name].append((op, calls[op]()))
+
+    threads = [threading.Thread(target=worker, args=(
+        "a", ("committees", "samples", "recover"))),
+               threading.Thread(target=worker, args=(
+        "b", ("samples", "recover", "committees")))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    for name in out:
+        assert len(out[name]) == 12
+        for op, res in out[name]:
+            assert res == alone[op], (name, op)
+
+
+@pytest.mark.cuda
+def test_dispatch_thread_launches_on_the_default_stream(cuda):
+    """The serving dispatch thread launches on PyTorch's default stream
+    (no serving thread sets another): the recovery launched there is
+    counted, and the stream it saw is the default one."""
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+
+    seen = []
+
+    class Watched(TorchSigBackend):
+        def ecrecover_addresses(self, digests, sigs65):
+            seen.append((torch.cuda.current_stream(),
+                         torch.cuda.default_stream()))
+            return super().ecrecover_addresses(digests, sigs65)
+
+    digests, sigs65 = _vote_rows(4)
+    serving = ServingSigBackend(Watched())
+    try:
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        got = serving.ecrecover_addresses(digests, sigs65)
+    finally:
+        serving.close()
+    assert got == TorchSigBackend().ecrecover_addresses(digests, sigs65)
+    assert len(seen) == 1 and seen[0][0] == seen[0][1]
+    assert _build.launch_counts()["ecrecover"] >= 1

@@ -17,7 +17,7 @@ comparison is exact (bytes, booleans, integers):
    frames (a forged commitment first, unsolicited and duplicate
    responses, a tampered chunk, a withheld index, the index cap, a
    garbage multiproof, a merkle-only commitment in poly mode), and the
-   chaos refusal;
+   chaos seams fired per publish and per fetch attempt;
 5. the two rows the fetcher synthesizes (an empty sample, an empty
    multiproof) scoring False through `TorchSigBackend(device="cpu")`;
 6. the sampled notary in both proof modes on the reference's
@@ -359,7 +359,7 @@ class _Pair:
     pairing, ~1.4 s on this CPU."""
 
     def __init__(self, pk, samples=6, proof_mode="merkle",
-                 fetch_proof_mode=None):
+                 fetch_proof_mode=None, chaos=(None, None)):
         self.pk = pk
         config = pk.params.Config()
         self.chain = pk.chain.SimulatedMainchain(config=config)
@@ -373,7 +373,7 @@ class _Pair:
                 account=am.new_account(seed=b"das-pair-%d" % i))
             svc = pk.service.DASService(
                 client=client, p2p=pk.p2p.P2PServer(self.hub),
-                samples=samples, proof_mode=mode,
+                samples=samples, proof_mode=mode, chaos=chaos[i],
                 **_budget(fetch_proof_mode or proof_mode))
             svc.start()
             self.services.append(svc)
@@ -614,9 +614,40 @@ def test_get_sample_and_status_match_reference(pairs):
     assert got[0] == got[1]
 
 
-def test_service_refuses_chaos_by_module():
-    with pytest.raises(ValueError, match="no resilience/chaos.py yet"):
-        PORT.service.DASService(chaos=object())
+def test_service_fires_chaos_seams_like_reference(pairs):
+    """A chaos schedule on each service: the publisher's first publish
+    fails (`das.parity_publish`), the fetcher's first commitment and
+    sample fetch attempts fail and ride the retry ladder; the rows,
+    verdicts, counters and the schedules' call and injection counts equal
+    the reference's. (Merkle mode: a poly fetch's attempt count depends on
+    the host pairing's pace.)"""
+    spec = "seed=3,das.commitment_fetch=1,das.sample_fetch=1"
+    proof_mode = "merkle"
+    got = []
+    for pk in BOTH:
+        chaos = importlib.import_module(
+            pk.service.__name__.replace("das.service", "resilience.chaos"))
+        schedules = (chaos.parse_spec("seed=3,das.parity_publish=1"),
+                     chaos.parse_spec(spec))
+        (pair,) = [p for p in pairs(samples=4, proof_mode=proof_mode,
+                                    chaos=schedules) if p.pk is pk]
+        root32 = pk.hexbytes.Hash32(b"\x09" * 32)
+        with pytest.raises(chaos.InjectedFault):
+            pair.prop.publish(1, 2, root32, _body(13, 9000))
+        pair.prop.publish(1, 2, root32, _body(13, 9000))
+        row = pair.fetch.collect_rows(1, 2, pair.record(root32),
+                                      pair.account())
+        ok = _sig(pk).das_verify_samples(row["chunks"], row["indices"],
+                                         row["proofs"], row["roots"])
+        seams = {seam: (s.calls(seam), s.injected.get(seam, 0))
+                 for s in schedules for seam in pk.service.CHAOS_SEAMS
+                 if s.calls(seam)}
+        got.append((_rows(row), ok, pair.counters(), seams))
+    assert got[0] == got[1]
+    assert all(got[0][1])
+    assert got[0][3] == {"das.parity_publish": (2, 1),
+                         "das.commitment_fetch": (2, 1),
+                         "das.sample_fetch": (2, 1)}
     with pytest.raises(ValueError, match="unknown DAS proof mode"):
         PORT.service.DASService(proof_mode="zk")
     assert PORT.service.CHAOS_SEAMS == REF.service.CHAOS_SEAMS

@@ -277,9 +277,10 @@ def _hostile_payload(m, period: int, shard: int, size: int) -> bytes:
 def run(m, cfg, pool: int, periods: int, node_kw: dict,
         txs_per_collation: int = 1, min_proposers: int = 0,
         counts=None, seal_with=None, members=None, da_proofs=None,
-        hostile=(), hostile_payload: int = 0) -> dict:
+        hostile=(), hostile_payload: int = 0, proposer_kw=None) -> dict:
     """The devnet. `node_kw` goes to every `ShardNode` (the port's
-    `sig_backend` and `device`, or the reference's `sig_backend`);
+    `sig_backend` and `device`, or the reference's `sig_backend`), and
+    `proposer_kw`, where given, over it to the proposer nodes;
     `counts`, where given, returns kernel launch counts by name, read
     around each sealed block; `seal_with(block_number, commit)`, where
     given, seals each block by calling `commit` (a profiler's hook) and
@@ -330,7 +331,7 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
     for s in layout["proposers"]:
         node = m.ShardNode(actor="proposer", shard_id=s,
                            txpool_interval=None, simulator_interval=3600.0,
-                           **common)
+                           **{**common, **(proposer_kw or {})})
         _seed_identity(node, b"devnet-proposer-%d" % s)
         chain.fund(node.client.account(), 2000 * m.ETHER)
         proposer_nodes[s] = node
