@@ -6,12 +6,14 @@ Drives the notary's committee audit through the port at its real size
 (100 shards × 135 votes per period), through the entry point a notary
 calls, `TorchSigBackend().bls_verify_committees`, on both of its paths
 (and, after it, the notary's vote phase and its `--da-proofs poly`
-phase at 100 and at 50 of the 100 shards, steps 10 and 11, and last the collation
+phase at 100 and at 25 of the 100 shards, steps 10 and 11, and last the collation
 replay of BASELINE config 4 and the fused period step of config 5,
 steps 12 and 13, the notary service itself on its own chain, step
 14, the sharding node with its CLI, step 15, that node sampled,
-`--da-mode sampled`, step 16, and the serving and resilience plane,
-`--serving --soundness-rate --sigbackend failover-torch`, step 17):
+`--da-mode sampled`, step 16, the serving and resilience plane,
+`--serving --soundness-rate --sigbackend failover-torch`, step 17, and
+the cross-process topology, a chain process serving remote callers and a
+devnet of OS processes, step 18):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -151,7 +153,7 @@ resident on the card) and the recompute path (without keys):
    with their host marshal and bytes shipped; the samples' call split
    into marshal, upload with the kernel, and readback);
 11. the notary's `--da-proofs poly` phase on the dev SRS (built first,
-   timed), cut to 50 of the 100 shards (so that step 16 fits the
+   timed), cut to 25 of the 100 shards (so that steps 16 and 18 fit the
    smoke's time): one row per shard, 16 indices without repeats
    over n = 255 chunk values (seeded 4096-byte chunks), committed and
    opened with the port's own `pcs.commit` / `open_multi`, and 12 more
@@ -196,7 +198,8 @@ resident on the card) and the recompute path (without keys):
    host marshal apart and its kernels under the profiler;
 13. the fused period step of config 5 as bench.py:586-605 defines it
    (`parallel/stress.py::StressPipeline`, 1,024 shards, 2 votes and 1
-   transaction a shard, a pool of 135), its host build timed on its own
+   transaction a shard, a pool of 135), its host build (a process of its
+   own started after the build, beside steps 1-12) timed on its own
    line, at quorum 90 (nothing elected) and quorum 2 (every shard
    elects). Counted from 0: three `keccak_fixed` and one launch each of
    `agg_g1`, `agg_g2`, `miller`, `finalexp`, `ecrecover` and `replay`,
@@ -241,7 +244,7 @@ resident on the card) and the recompute path (without keys):
    script where sampled, proposer nodes on 4 shards whose txpools are fed
    33 signed transactions a period (32 applied, 1 rejected), an observer
    node on one of them, and the other 96 shards' headers proposed by the
-   script; three periods sealed as the CLI's loop seals them, waiting on
+   script; two periods sealed as the CLI's loop seals them, waiting on
    the services' counters. Counted from 0 around the run, by block: every
    kernel of the path launched (`agg_g1`, `tower`, `norm`, `finalexp`,
    `keccak_fixed`, `ecrecover`, `replay`); each auditing head one
@@ -258,12 +261,13 @@ resident on the card) and the recompute path (without keys):
    --actor notary --deposit --runtime 8 --blocktime 0.2`): exit 0, a
    sealed period, no service error;
 16. the DAS plane on that node: step 15's devnet with every node
-   `da_mode="sampled"` (16 samples, parity 0.5), 2 periods, once with
-   `--da-proofs merkle` and once with `poly`, and hostile shards with
-   known answers on the notary's path, proposed and published by the
-   script (44,416 B bodies, k = 11 of n = 17 chunks): every sample
-   withheld, garbage chunks under the real commitment, a commitment
-   signed by another key, and in poly one published merkle-only
+   `da_mode="sampled"` (16 samples, parity 0.5), 2 periods of 3 blocks,
+   once with `--da-proofs merkle` and once with `poly`, and hostile
+   shards with known answers on the notary's path, proposed and
+   published by the script (44,416 B bodies, k = 11 of n = 17 chunks): in
+   merkle every sample withheld, garbage chunks under the real
+   commitment and a commitment signed by another key; in poly garbage
+   chunks and one published merkle-only
    (`tests/torch_node_script.py::plan` places them on the shards of the
    member sampled for the most). The notary's votes are the SMC's records
    and its journal's, on its honest shards only; no body request leaves
@@ -273,12 +277,12 @@ resident on the card) and the recompute path (without keys):
    for its fresh candidates, one for each uncached windback period; one
    `das_samples`, or one `miller` and one `finalexp`, a call), and every
    launch inside those calls equals its plain version on the card on the
-   tensors it was given. Timed: the heads (whole and without the hostile
-   candidates' fetch waits), the DAS spans and calls, the kernels on a
-   head's tensors, a head's idle share under the profiler. Then the CLI,
-   `sharding --actor notary --deposit --da-mode sampled --da-proofs poly
-   --runtime 4 --blocktime 0.2`: exit 0, a sealed period, no service
-   error;
+   tensors it was given; each layout makes a windback call. Timed: the
+   heads (whole and without the hostile candidates' fetch waits), the
+   DAS spans and calls, the kernels on a head's tensors, a head's idle
+   share under the profiler. Beside the devnets, the CLI, `sharding
+   --actor notary --deposit --da-mode sampled --da-proofs poly --runtime
+   4 --blocktime 0.2`: exit 0, a sealed period, no service error;
 17. the serving and resilience plane (`serving_phase`), five phases:
    (1) coalescing: 8 threads split step 3's period (keyed, hostile rows
    included), 32 threads recover one of step 10's signatures each, 32
@@ -310,7 +314,30 @@ resident on the card) and the recompute path (without keys):
    mismatches, no node error; then `sharding --actor notary --deposit
    --serving --soundness-rate 0.05 --sigbackend failover-torch --runtime 8
    --blocktime 0.2`: exit 0, a sealed period, no service error. Timed,
-   phase by phase.
+   phase by phase;
+18. the cross-process topology (`topology_phase`): (1) `python -m
+   gethsharding_tpu_torch.rpc.chain_server --sigbackend torch --quorum 1`
+   as a child process; 8 client threads, each on its own `RPCClient`,
+   send step 3's period as 8 keyed `shard_verifyCommittees` requests
+   (hostile rows included), 32 single `shard_ecrecover` calls on step
+   10's signatures, step 10's samples as 8 `shard_dasVerify` requests,
+   and one `shard_verifyPeriodBatch` of a period with a vote, a warm-up
+   round first: every reply equal to the smoke's direct in-process call
+   row for row, fewer dispatches than requests, and by the chain
+   process's exit line (stderr) launches of `agg_g1`, `tower`, `norm`,
+   `finalexp`, `ecrecover`, `das_samples` and `keccak_fixed`; timed per
+   request over the wire (median, p99) beside step 17's in-process
+   request and the direct call; (2) `python -m gethsharding_tpu_torch.cli
+   devnet --notaries 1 --proposers 2 --observers 1 --quorum 1
+   --shardcount 2 --sigbackend torch --blocktime 0.2` with a datadir,
+   dialed from here: a sealed period in which the notary's vote on each
+   proposed shard is the SMC's approved record, then the notary
+   SIGKILLed, respawned by the devnet with the same account (its
+   keystore), no second deposit, a vote again; at exit the notary
+   child's launches (`agg_g1`, `finalexp`, `tower`, `norm`,
+   `ecrecover`) and heads from its log, the chain child's vote-log
+   replay (`keccak_fixed`), the observer's canonical headers, no child
+   error.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -328,10 +355,12 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -1459,7 +1488,7 @@ def vote_phase(card: str, seed: int) -> list:
 # without repeats from a domain of TREE_LEAVES (MAX_TOTAL_CHUNKS) chunk
 # values, each a 4096-byte chunk's keccak mod N; half the shards, so that
 # step 16 fits the smoke's time (a row's host MSMs take ~0.5 s)
-POLY_ROWS = SHARDS // 2
+POLY_ROWS = SHARDS // 4
 POLY_CHUNK = 4096
 
 
@@ -2059,7 +2088,43 @@ def replay_phase(card: str, seed: int) -> list:
             entry("replay", replay.KERNEL, k_replay, p_replay, rep_bound)]
 
 
-def stress_phase(card: str, seed: int) -> None:
+def start_stress_build(seed: int):
+    """Start step 13's host build (`build_stress_inputs` on the CPU, a
+    minute of Python EC arithmetic) in a process of its own, so that it
+    runs beside steps 1-12 (it uses the host only); returns (process,
+    output path, start time)."""
+    import tempfile
+
+    import atexit
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip-stress-"), "inputs.pt")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--stress-inputs", path,
+         "--seed", str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    # a phase failing before step 13 takes it: the build stops with us
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path, time.perf_counter()
+
+
+def stress_inputs(path: str, seed: int) -> int:
+    """The `--stress-inputs PATH` mode: step 13's inputs built on the CPU
+    and saved to PATH (the same inputs as on the card: the builder's
+    draws and host crypto do not depend on the device)."""
+    from gethsharding_tpu_torch.parallel import stress
+
+    t0 = time.perf_counter()
+    inputs, pool, bh, size, _ = stress.build_stress_inputs(
+        STRESS_SHARDS, votes_per_shard=STRESS_VOTES,
+        txs_per_shard=STRESS_TXS, committee_size=COMMITTEE, seed=seed + 7,
+        device="cpu")
+    torch.save({"inputs": inputs._asdict(), "pool": torch.from_numpy(pool),
+                "bh": torch.from_numpy(bh), "size": size,
+                "build_s": time.perf_counter() - t0}, path)
+    return 0
+
+
+def stress_phase(card: str, seed: int, started) -> None:
     """Step 13: config 5 on one card, 1,024 shards, 2 votes and 1
     transaction a shard, a pool of 135, at quorum 90 (nothing elected)
     and at quorum 2 (every shard elects). Counted from 0 around each
@@ -2074,16 +2139,28 @@ def stress_phase(card: str, seed: int) -> None:
     from gethsharding_tpu_torch.params import Config
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    inputs, pool, bh, size, _ = stress.build_stress_inputs(
-        STRESS_SHARDS, votes_per_shard=STRESS_VOTES,
-        txs_per_shard=STRESS_TXS, committee_size=COMMITTEE, seed=seed + 7,
-        device=dev)
+    proc, path, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("step 13: the host build did not finish within 600 s")
+    waited = time.perf_counter()
+    if proc.returncode != 0:
+        fail(f"step 13: the host build exited {proc.returncode}:\n"
+             f"{out[-3000:]}")
+    built = torch.load(path)
+    inputs = stress.StressInputs(**{k: v.to(dev) for k, v in
+                                    built["inputs"].items()})
+    pool, bh, size = built["pool"].numpy(), built["bh"].numpy(), built["size"]
     torch.cuda.synchronize()
     print(f"stress build: build_stress_inputs({STRESS_SHARDS}, "
           f"votes_per_shard={STRESS_VOTES}, txs_per_shard={STRESS_TXS}, "
-          f"committee_size={COMMITTEE}) {time.perf_counter() - t0:.1f} s on "
-          f"the host", flush=True)
+          f"committee_size={COMMITTEE}) {built['build_s']:.1f} s on the host, "
+          f"in a process of its own beside steps 1-12 (started "
+          f"{waited - t0:.1f} s before this step took it) [{card}]",
+          flush=True)
     votes = STRESS_SHARDS * STRESS_VOTES
     plain = None
     for quorum, elected in ((Config().quorum_size, 0), (2, STRESS_SHARDS)):
@@ -2514,7 +2591,7 @@ def notary_phase(card: str, seed: int):
 
 # step 15: the port's sharding node (node/backend.py::ShardNode) on the
 # card, at config 5's pool, and its CLI
-NODE_PERIODS = 3
+NODE_PERIODS = 2      # cut from 3 so that step 18 fits the smoke's time
 NODE_TXS = 33          # a collation: 32 applied transactions, 1 rejected
 # what the notary's auditing head and the observer's replaying block launch
 NODE_AUDIT = ("agg_g1", "tower", "norm", "finalexp", "keccak_fixed",
@@ -2746,35 +2823,81 @@ def node_devnet(card: str, members) -> None:
           f"the senders on the host, twice) [{card}]", flush=True)
 
 
-def node_cli(card: str) -> None:
-    """Step 15b: the port's CLI as a user starts it, in a process of its
-    own: `python -m gethsharding_tpu_torch.cli sharding --actor notary
-    --deposit --runtime 8 --blocktime 0.2`. Fails unless it exits 0,
-    logs a sealed period and reports no service error."""
-    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", "sharding",
-           "--actor", "notary", "--deposit", "--runtime", "8",
-           "--blocktime", "0.2"]
+def start_cli(args):
+    """Start `python -m gethsharding_tpu_torch.cli *args` in a process of
+    its own, its output into a temporary file (it runs beside a devnet),
+    and a thread that notes when it exits; returns (command, process, log
+    file, start time, exit times)."""
+    import tempfile
+    import threading
+
+    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", *args]
+    out = tempfile.TemporaryFile(mode="w+")
     t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=out, stderr=subprocess.STDOUT, text=True)
+    exited = []
+    threading.Thread(target=lambda: (proc.wait(), exited.append(
+        time.perf_counter())), daemon=True).start()
+    return cmd, proc, out, t0, exited
+
+
+def finish_cli(started, what: str):
+    """Wait for a CLI of `start_cli`: (log, seconds from its start to its
+    exit)."""
+    cmd, proc, out, t0, exited = started
     try:
-        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
-            __file__)), capture_output=True, text=True, timeout=180)
+        proc.wait(timeout=180)
     except subprocess.TimeoutExpired:
-        fail("step 15b: the CLI did not exit within 180 s")
-    wall_s = time.perf_counter() - t0
-    log = out.stdout + out.stderr
+        proc.kill()
+        proc.wait()
+        fail(f"{what}: the CLI did not exit within 180 s")
+    deadline = time.monotonic() + 5.0
+    while not exited and time.monotonic() < deadline:
+        time.sleep(0.01)
+    out.seek(0)
+    log = out.read()
+    out.close()
+    return log, (exited[0] if exited else time.perf_counter()) - t0
+
+
+def stop_cli(started) -> None:
+    """A failed phase: stop its CLI."""
+    proc = started[1]
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+NODE_CLI = ("sharding", "--actor", "notary", "--deposit", "--runtime", "8",
+            "--blocktime", "0.2")
+
+
+def node_cli(card: str, started) -> None:
+    """Step 15b: the port's CLI as a user starts it, in a process of its
+    own beside the devnet of step 15a: `python -m gethsharding_tpu_torch.cli
+    sharding --actor notary --deposit --runtime 8 --blocktime 0.2`. Fails
+    unless it exits 0, logs a sealed period and reports no service
+    error."""
+    log, wall_s = finish_cli(started, "step 15b")
     sealed = re.findall(r"period \d+ sealed", log)
-    if out.returncode != 0 or not sealed or "service error" in log:
-        fail(f"step 15b: the CLI exited {out.returncode}, {len(sealed)} "
-             f"periods sealed:\n{log[-3000:]}")
-    print(f"node CLI (step 15b): {' '.join(cmd[1:])}: exit 0, "
+    if started[1].returncode != 0 or not sealed or "service error" in log:
+        fail(f"step 15b: the CLI exited {started[1].returncode}, "
+             f"{len(sealed)} periods sealed:\n{log[-3000:]}")
+    print(f"node CLI (step 15b): {' '.join(started[0][1:])}: exit 0, "
           f"{len(sealed)} periods sealed, no service error, {wall_s:.1f} s "
-          f"with its start [{card}]", flush=True)
+          f"from its start to its exit, beside the devnet [{card}]",
+          flush=True)
 
 
 def node_phase(card: str, members) -> None:
     t0 = time.perf_counter()
-    node_devnet(card, members)
-    node_cli(card)
+    cli = start_cli(NODE_CLI)
+    try:
+        node_devnet(card, members)
+        node_cli(card, cli)
+    finally:
+        stop_cli(cli)
     print(f"step 15: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
@@ -2782,8 +2905,19 @@ def node_phase(card: str, members) -> None:
 # 15's devnet with every node sampled, once a proof scheme, with hostile
 # shards of known answer on the notary's path, and the CLI
 DAS_PERIODS = 2
+# the devnet's period length, cut from the default 5 so that each hostile
+# candidate is checked at 2 voting heads a period, not 4 (a negative
+# verdict is not cached, and each check waits out the fetch deadline)
+DAS_PLEN = 3
+# every hostile kind, each scheme's own in that scheme: a foreign-key
+# commitment fails the same way in both schemes, so it runs in merkle
+# only; withheld samples run in both (in poly they are the fetch failure
+# of `collect_poly_row`), with garbage (a multiproof rejected at
+# admission) and merkle-only (a commitment without its polynomial part)
+# in poly. At DAS_PLEN both layouts keep a windback call
+# (sampled_expected).
 DAS_HOSTILE = {"merkle": ("withhold", "garbage", "foreign"),
-               "poly": ("withhold", "garbage", "foreign", "merkle_only")}
+               "poly": ("withhold", "garbage", "merkle_only")}
 # a hostile shard's transaction payload: a body of 44,416 B, k = 11 data
 # chunks and n = 17 extended, so that 16 samples are 16 distinct chunks
 DAS_PAYLOAD = 43_000
@@ -2884,7 +3018,7 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     import torch_node_script as script
 
     m = script.modules("gethsharding_tpu_torch")
-    cfg = m.Config(quorum_size=1, windback_depth=1)
+    cfg = m.Config(quorum_size=1, windback_depth=1, period_length=DAS_PLEN)
     plen = cfg.period_length
     profiled = {}
     profile_block = DAS_PERIODS * plen   # the last period's first head
@@ -2932,6 +3066,9 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     bad = layout["hostile"]
     if sorted(bad.values()) != sorted(DAS_HOSTILE[proofs]):
         fail(f"{what}: the hostile shards were placed as {bad}")
+    windback = {b: n for b, n in want["calls"].items() if b == 2 * plen}
+    if not windback or max(windback.values()) < 2:
+        fail(f"{what}: the layout makes no windback call: {want['calls']}")
     me = layout["notary"]
     last = out["summaries"][DAS_PERIODS + 1]
     # the votes: the SMC's records and the notary's journal
@@ -3069,7 +3206,8 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     rows = [r for _, r, _ in cap.calls]
     print(f"node devnet sampled, {proofs} (step 16a): config 5's pool "
           f"(100 shards, committee 135, 135 members, quorum 1, windback "
-          f"1, {DAS_SAMPLES} samples, parity 0.5, fetch deadline "
+          f"1, period length {plen}, {DAS_SAMPLES} samples, parity 0.5, "
+          f"fetch deadline "
           f"{DAS_FETCH_S} s), notary at pool index "
           f"{me} sampled for {dict((p, layout['eligibility'][p][me]) for p in range(1, DAS_PERIODS + 1))}, "
           f"hostile {bad}, proposer nodes {layout['proposers']}; "
@@ -3111,37 +3249,37 @@ def das_devnet(card: str, members, proofs: str) -> dict:
     return {"run_s": run_s, "launches": dict(held), "kernel_ms": kernel_ms}
 
 
-def das_cli(card: str) -> None:
+DAS_CLI = ("sharding", "--actor", "notary", "--deposit", "--da-mode",
+           "sampled", "--da-proofs", "poly", "--runtime", "4",
+           "--blocktime", "0.2")
+
+
+def das_cli(card: str, started) -> None:
     """Step 16b: `python -m gethsharding_tpu_torch.cli sharding --actor
     notary --deposit --da-mode sampled --da-proofs poly --runtime 4
-    --blocktime 0.2` in a process of its own: exit 0, a sealed period, no
-    service error."""
-    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli", "sharding",
-           "--actor", "notary", "--deposit", "--da-mode", "sampled",
-           "--da-proofs", "poly", "--runtime", "4", "--blocktime", "0.2"]
-    t0 = time.perf_counter()
-    try:
-        out = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
-            __file__)), capture_output=True, text=True, timeout=180)
-    except subprocess.TimeoutExpired:
-        fail("step 16b: the CLI did not exit within 180 s")
-    wall_s = time.perf_counter() - t0
-    log = out.stdout + out.stderr
+    --blocktime 0.2` in a process of its own beside the devnets of step
+    16a: exit 0, a sealed period, no service error."""
+    log, wall_s = finish_cli(started, "step 16b")
     sealed = re.findall(r"period \d+ sealed", log)
-    if out.returncode != 0 or not sealed or "service error" in log \
+    if started[1].returncode != 0 or not sealed or "service error" in log \
             or "da=sampled/poly" not in log:
-        fail(f"step 16b: the CLI exited {out.returncode}, {len(sealed)} "
-             f"periods sealed:\n{log[-3000:]}")
-    print(f"node CLI sampled (step 16b): {' '.join(cmd[1:])}: exit 0, "
-          f"{len(sealed)} periods sealed, no service error, {wall_s:.1f} s "
-          f"with its start [{card}]", flush=True)
+        fail(f"step 16b: the CLI exited {started[1].returncode}, "
+             f"{len(sealed)} periods sealed:\n{log[-3000:]}")
+    print(f"node CLI sampled (step 16b): {' '.join(started[0][1:])}: exit "
+          f"0, {len(sealed)} periods sealed, no service error, {wall_s:.1f} "
+          f"s from its start to its exit, beside the devnets [{card}]",
+          flush=True)
 
 
 def das_phase(card: str, members) -> None:
     t0 = time.perf_counter()
-    for proofs in ("merkle", "poly"):
-        das_devnet(card, members, proofs)
-    das_cli(card)
+    cli = start_cli(DAS_CLI)
+    try:
+        for proofs in ("merkle", "poly"):
+            das_devnet(card, members, proofs)
+        das_cli(card, cli)
+    finally:
+        stop_cli(cli)
     print(f"step 16: {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
@@ -3161,7 +3299,7 @@ CHAOS_THRESHOLD = 3        # the breaker's consecutive faults to trip
 CHAOS_RESET_S = 5.0        # the breaker's open cooldown, on its own clock
 WATCHDOG_S = 1.5           # the watchdog's deadline
 WATCHDOG_HANG_S = 4.0      # the chaos hang of the watchdog phase
-SERVE_PERIODS = 2          # the node devnet of step 17, cut from step 15's 3
+SERVE_PERIODS = 2          # the node devnet of step 17
 
 
 class LaunchThreads:
@@ -3253,11 +3391,13 @@ def coalescing_phase(card, build, period, vote):
     fewer dispatches than requests, each committee dispatch one `agg_g1`
     and one `finalexp` (with towers and normalizes), each recovery
     dispatch one `ecrecover`, each sample dispatch one `das_samples`, all
-    on the dispatch thread."""
+    on the dispatch thread. Returns each group's per-request latency
+    (median ms) and the direct call's on one request's rows."""
     from gethsharding_tpu_torch.serving import ServingSigBackend
     from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
 
     msgs, sig_rows, pk_rows, keys, want = period
+    medians = {}
     (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
                                    want_ok) = vote
     direct = TorchSigBackend()
@@ -3343,6 +3483,7 @@ def coalescing_phase(card, build, period, vote):
                  f"{threads.off_default}")
         rows = sum(len(j[1][0]) for j in jobs)
         lat_ms = [v * 1e3 for v in lat]
+        medians[name] = (statistics.median(lat_ms), one_ms[name])
         print(f"serving {name} (step 17.1): {len(jobs)} requests of "
               f"{rows} rows in {dispatches} dispatches "
               f"({rows / dispatches:.1f} rows a dispatch), launches "
@@ -3362,6 +3503,7 @@ def coalescing_phase(card, build, period, vote):
           f"({', '.join(f'{k} {v:.2f}' for k, v in sorted(split.items()))}),"
           f" idle share {1 - busy / wall_ms:.3f} [{card}]", flush=True)
     serving.close()
+    return medians
 
 
 class TimedReference:
@@ -3818,9 +3960,10 @@ def serving_cli(card: str, started) -> None:
           f"with its start, beside the devnet [{card}]", flush=True)
 
 
-def serving_phase(card: str, seed: int, period, members) -> None:
+def serving_phase(card: str, seed: int, period, members):
     """Step 17: the serving and resilience plane on the card (its five
-    phases above), timed."""
+    phases above), timed. Returns step 10's vote rows and the coalescing
+    phase's per-request medians, which step 18 reuses."""
     from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
     from gethsharding_tpu_torch.crypto.keccak import keccak256
     from gethsharding_tpu_torch.das import pcs
@@ -3834,7 +3977,7 @@ def serving_phase(card: str, seed: int, period, members) -> None:
     rows = poly_period(pcs, seed, 1)
     poly = ([list(col) for col in zip(*rows)], [True])
     marks = [("made", time.perf_counter())]
-    coalescing_phase(card, _build, period, vote)
+    medians = coalescing_phase(card, _build, period, vote)
     marks.append(("coalescing", time.perf_counter()))
     soundness_phase(card, period, vote, poly)
     marks.append(("soundness", time.perf_counter()))
@@ -3858,6 +4001,519 @@ def serving_phase(card: str, seed: int, period, members) -> None:
         prev = t
     print(f"step 17: {time.perf_counter() - t_step:.1f} s in all "
           f"({', '.join(parts)} s)", flush=True)
+    return vote, medians
+
+
+# step 18: the cross-process topology on the card: a chain process serving
+# the verifications to remote callers, and a devnet of OS processes
+TOPO_THREADS = 8                # client threads, each on its own RPCClient
+TOPO_RECOVERIES = 32            # single shard_ecrecover calls
+TOPO_KERNELS = ("agg_g1", "tower", "norm", "finalexp", "ecrecover",
+                "das_samples", "keccak_fixed")
+DEVNET_NOTARY = ("agg_g1", "finalexp", "tower", "norm", "ecrecover")
+CHAIN_ARGS = ("--sigbackend", "torch", "--quorum", "1", "--runtime", "600")
+DEVNET_CMD = ("devnet", "--notaries", "1", "--proposers", "2",
+              "--observers", "1", "--quorum", "1", "--shardcount", "2",
+              "--sigbackend", "torch", "--blocktime", "0.2",
+              "--interval", "0.5")
+DEVNET_RUNTIME_S = 300          # the devnet's own limit; stopped earlier
+# the votes the notary may lose to the chain sealing their period while
+# they are in flight, per vote it cast, over both of its lives: at 1 s
+# periods a header added late in its period leaves its vote no time (on
+# the H100: 2 missed beside 4 cast in one run, 4 missed in another); a
+# notary whose votes miss as a rule loses far more
+DEVNET_MISSED_PER_VOTE = 2
+DEVNET_WAIT_S = 150             # the longest wait on one devnet event
+
+
+def read_line(proc, timeout: float, what: str) -> str:
+    """The next stdout line of `proc`, or fail after `timeout` s."""
+    import selectors
+
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    try:
+        if not sel.select(timeout=timeout):
+            fail(f"step 18: {what}: no line within {timeout:.0f} s")
+        line = proc.stdout.readline()
+    finally:
+        sel.close()
+    if not line:
+        fail(f"step 18: {what}: the process exited ({proc.poll()})")
+    return line
+
+
+def stop_child(proc, sig=signal.SIGINT, timeout: float = 60.0) -> None:
+    """Stop a child as an operator does; kill it past `timeout`."""
+    if proc.poll() is None:
+        proc.send_signal(sig)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def exit_line(log: str, prefix: str) -> dict:
+    found = re.findall(re.escape(prefix) + r" (\{.*\})", log)
+    if not found:
+        fail(f"step 18: no '{prefix}' line in:\n{log[-3000:]}")
+    return json.loads(found[-1])
+
+
+def topology_jobs(period, vote, codec):
+    """Step 18.1's requests, as (op label, method, params, expected
+    reply): step 3's period split in 8 keyed committee requests, 32 single
+    recoveries of step 10's signatures, step 10's samples in 8 requests;
+    the expected replies are the direct in-process calls', in the wire's
+    form."""
+    msgs, sig_rows, pk_rows, keys, want = period
+    (digests, sigs65, want_addr), (chunks, indices, proofs, roots,
+                                   want_ok) = vote
+    k = TOPO_THREADS
+    cuts = [round(i * SHARDS / k) for i in range(k + 1)]
+    jobs = {"committees": [], "recoveries": [], "samples": []}
+    for a, b in zip(cuts, cuts[1:]):
+        jobs["committees"].append(("shard_verifyCommittees", (
+            [codec.enc_bytes(m) for m in msgs[a:b]],
+            codec.enc_g1_rows(sig_rows[a:b]),
+            codec.enc_g2_rows(pk_rows[a:b]),
+            codec.enc_pk_row_keys(keys[a:b])), want[a:b]))
+    for i in range(TOPO_RECOVERIES):
+        jobs["recoveries"].append(("shard_ecrecover", (
+            [codec.enc_bytes(digests[i])], [codec.enc_bytes(sigs65[i])]),
+            [None if want_addr[i] is None
+             else codec.enc_bytes(bytes(want_addr[i]))]))
+    n = len(chunks)
+    scuts = [round(i * n / k) for i in range(k + 1)]
+    for a, b in zip(scuts, scuts[1:]):
+        jobs["samples"].append(("shard_dasVerify", codec.enc_das_call(
+            chunks[a:b], indices[a:b], proofs[a:b], roots[a:b]),
+            want_ok[a:b]))
+    return jobs
+
+
+def wire_round(address, jobs, rpc_client):
+    """One round: TOPO_THREADS threads, each on its own RPCClient, send
+    their share of each group at once (a barrier between the groups).
+    Returns {group: [(reply, expected, seconds)]}; fails on an error."""
+    import threading
+
+    out = {name: [None] * len(group) for name, group in jobs.items()}
+    errors = []
+    barrier = threading.Barrier(TOPO_THREADS)
+
+    def run(t):
+        client = rpc_client(*address, timeout=600)
+        try:
+            for name, group in jobs.items():
+                barrier.wait()
+                for i in range(t, len(group), TOPO_THREADS):
+                    method, params, expected = group[i]
+                    t0 = time.perf_counter()
+                    reply = client.call(method, *params)
+                    out[name][i] = (reply, expected,
+                                    time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+            barrier.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True)
+               for t in range(TOPO_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"step 18.1: requests failed or hung: {errors[:3]}")
+    return out
+
+
+def chain_votes(remote, mods, ether):
+    """One notary's vote on the chain process's SMC, so that its vote log
+    has a period to replay: fund, register with a BLS key, a header and a
+    vote in period p, then p sealed. Returns p."""
+    am = mods.am
+    acct = am.new_account(seed=b"chip-topology-notary")
+    remote.fund(acct.address, 2000 * ether)
+    remote.register_notary(acct.address, bls_pubkey=acct.bls_pubkey,
+                           bls_pop=am.bls_proof_of_possession(acct.address))
+    remote.fast_forward(1)
+    p = remote.current_period()
+    root = mods.Hash32(b"\x18" * 32)
+    remote.add_header(acct.address, 0, p, root, b"")
+    remote.submit_vote(acct.address, 0, p, 0, root, bls_sig=am.bls_sign(
+        acct.address, bytes(mods.vote_digest(0, p, root))))
+    remote.fast_forward(1)
+    return p
+
+
+def chain_phase(card: str, period, vote, medians, before_round) -> None:
+    """Step 18.1: `python -m gethsharding_tpu_torch.rpc.chain_server
+    --sigbackend torch --quorum 1` as a child process; from 8 client
+    threads, each on its own `RPCClient`: step 3's period in 8 keyed
+    `shard_verifyCommittees` requests (hostile rows included), 32 single
+    `shard_ecrecover` calls on step 10's signatures, step 10's samples in
+    8 `shard_dasVerify` requests, and one `shard_verifyPeriodBatch` of a
+    period with a vote. Fails unless every reply equals the smoke's own
+    direct in-process call row for row, the chain process dispatched
+    fewer times than it was asked, and its exit line (on stderr) counts
+    launches of every kernel of TOPO_KERNELS. Timed: the per-request
+    latency over the wire (median, p99) beside step 17's in-process
+    serving request and the direct call on one request's rows. The
+    chain process boots while the smoke makes the requests and the
+    direct calls; `before_round()` runs between the warm-up round and
+    the measured one (step 18.2's devnet boots meanwhile)."""
+    import tempfile
+
+    from gethsharding_tpu_torch.mainchain.accounts import AccountManager
+    from gethsharding_tpu_torch.params import ETHER
+    from gethsharding_tpu_torch.rpc import codec
+    from gethsharding_tpu_torch.rpc.client import RemoteMainchain, RPCClient
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+    from gethsharding_tpu_torch.smc.state_machine import vote_digest
+    from gethsharding_tpu_torch.utils.hexbytes import Hash32
+
+    t0 = time.perf_counter()
+    err = tempfile.TemporaryFile(mode="w+")
+    cmd = [sys.executable, "-m", "gethsharding_tpu_torch.rpc.chain_server",
+           *CHAIN_ARGS]
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=err, text=True)
+    jobs = topology_jobs(period, vote, codec)
+    # the direct in-process calls: the expected replies are theirs
+    direct = TorchSigBackend()
+    msgs, sig_rows, pk_rows, keys, want = period
+    (digests, sigs65, want_addr), samples = vote[0], vote[1][:4]
+    if direct.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                    pk_row_keys=keys) != want \
+            or direct.ecrecover_addresses(digests, sigs65) != want_addr \
+            or direct.das_verify_samples(*samples) != vote[1][4]:
+        stop_child(proc)
+        fail("step 18.1: the direct calls differ from the known answers")
+    try:
+        endpoint = json.loads(read_line(proc, 120, "the chain endpoint"))
+        address = (endpoint["host"], endpoint["port"])
+        start_s = time.perf_counter() - t0
+        remote = RemoteMainchain.dial(*address)
+        mods = SimpleNamespace(am=AccountManager(), Hash32=Hash32,
+                               vote_digest=vote_digest)
+        replayed = chain_votes(remote, mods, ETHER)
+        # a warm-up round (the chain's line tables built), then the round
+        # that is checked for coalescing and timed
+        wire_round(address, jobs, RPCClient)
+        before_round()
+        before = remote.rpc.call("shard_servingStats")["dispatches"]
+        calls0 = remote.rpc.call("shard_methodStats")
+        got = wire_round(address, jobs, RPCClient)
+        t_batch = time.perf_counter()
+        batch = remote.verify_period_batch(replayed)
+        batch_ms = (time.perf_counter() - t_batch) * 1e3
+        after = remote.rpc.call("shard_servingStats")["dispatches"]
+        calls = remote.rpc.call("shard_methodStats")
+        remote.close()
+    finally:
+        stop_child(proc)
+    err.seek(0)
+    log = err.read()
+    err.close()
+    if proc.returncode != 0:
+        fail(f"step 18.1: the chain process exited {proc.returncode}:\n"
+             f"{log[-3000:]}")
+    for name, rows in got.items():
+        bad = [i for i, (reply, want_i, _) in enumerate(rows)
+               if reply != want_i]
+        if bad:
+            fail(f"step 18.1: {name}: replies over the wire differ from "
+                 f"the direct call's at requests {bad}")
+    if batch is not True:
+        fail(f"step 18.1: shard_verifyPeriodBatch({replayed}) gave {batch}")
+    ops = {"committees": "bls_verify_committees",
+           "recoveries": "ecrecover_addresses",
+           "samples": "das_verify_samples"}
+    asked = {name: len(jobs[name]) for name in ops}
+    dispatched = {name: after[op] - before[op] for name, op in ops.items()}
+    method_of = {"committees": "shard_verifyCommittees",
+                 "recoveries": "shard_ecrecover",
+                 "samples": "shard_dasVerify"}
+    served = {name: calls[method_of[name]] - calls0.get(method_of[name], 0)
+              for name in ops}
+    if served != asked or sum(dispatched.values()) >= sum(asked.values()) \
+            or min(dispatched.values()) < 1:
+        fail(f"step 18.1: {asked} requests, served {served}, dispatched "
+             f"{dispatched}")
+    summary = exit_line(log, "chain-server at exit:")
+    launched = summary["launches"]
+    missing = [k for k in TOPO_KERNELS if not launched.get(k)]
+    if missing:
+        fail(f"step 18.1: the chain process launched {launched}; none of "
+             f"{missing}")
+    print(f"chain process (step 18.1): {' '.join(cmd[1:])}: endpoint line "
+          f"read {start_s:.1f} s after its start (the direct calls made "
+          f"meanwhile); {sum(asked.values())} requests from "
+          f"{TOPO_THREADS} client threads, each reply equal to the direct "
+          f"in-process call row for row (hostile rows included); "
+          f"dispatches {dispatched} for {asked} requests; "
+          f"shard_verifyPeriodBatch({replayed}) True in {batch_ms:.1f} ms; "
+          f"the chain process's launches at exit {launched} (the warm-up "
+          f"round and the measured one, the measured one beside the "
+          f"booted devnet of step 18.2) [{card}]", flush=True)
+    step17 = {"committees": "committees", "recoveries": "recoveries",
+              "samples": "samples"}
+    for name in ops:
+        lat_ms = [v * 1e3 for _, _, v in got[name]]
+        serve17, one17 = medians.get(step17[name], (float("nan"),) * 2)
+        print(f"time over the wire, {name} (step 18.1): {len(lat_ms)} "
+              f"requests, per-request latency median "
+              f"{statistics.median(lat_ms):.2f} ms, p99 "
+              f"{pct(lat_ms, 0.99):.2f} ms; in-process serving request "
+              f"(step 17.1) median {serve17:.2f} ms; the direct call on "
+              f"one request's rows {one17:.2f} ms [{card}]", flush=True)
+
+
+def find_pids(datadir: str, role: str) -> list:
+    """Pids of the devnet's `role` children (their argv names the
+    role's datadir under `datadir`), read from /proc."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if os.path.join(datadir, role).encode() in argv:
+            pids.append(int(entry))
+    return pids
+
+
+def wait_chain(pred, what: str, timeout: float = DEVNET_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = pred()
+        if value:
+            return value
+        time.sleep(0.2)
+    fail(f"step 18.2: {what} did not happen within {timeout:.0f} s")
+
+
+def voted_period(chain, account, after: int, shards: int = 2):
+    """The first sealed period > `after` with a proposed shard, in which
+    every proposed shard's record is elected with `account`'s vote (the
+    SMC's approved record); None if there is none yet."""
+    current = chain.current_period()
+    for p in range(after + 1, current):
+        records = [chain.collation_record(s, p) for s in range(shards)]
+        proposed = [r for r in records if r is not None]
+        if proposed and all(
+                r.is_elected and any(bytes(v.signer) == bytes(account)
+                                     for v in r.vote_sigs.values())
+                for r in proposed):
+            return p
+    return None
+
+
+class Devnet:
+    """Step 18.2's devnet process: started, then booted (its chain's
+    endpoint read and dialed, the notary's deposit on it)."""
+
+    def __init__(self):
+        import tempfile
+
+        self.datadir = tempfile.mkdtemp(prefix="chip-devnet-")
+        self.cmd = [sys.executable, "-m", "gethsharding_tpu_torch.cli",
+                    *DEVNET_CMD, "--runtime", str(DEVNET_RUNTIME_S),
+                    "--datadir", self.datadir]
+        self.t0 = time.perf_counter()
+        # its status lines go to a file (a pipe nobody reads would fill),
+        # read through a handle of its own
+        self.out_path = os.path.join(self.datadir, "devnet.out")
+        with open(self.out_path, "w") as out:
+            self.proc = subprocess.Popen(
+                self.cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=out, stderr=subprocess.STDOUT, text=True)
+        self.marks = {}
+        self.chain = self.account = self.up = None
+
+    def mark(self, what: str) -> None:
+        self.marks[what] = time.perf_counter() - self.t0
+
+    def boot(self) -> None:
+        from gethsharding_tpu_torch.rpc.client import RemoteMainchain
+
+        def up_line():
+            with open(self.out_path) as fh:
+                for line in fh:
+                    if '"event": "up"' in line:
+                        return json.loads(line)
+            if self.proc.poll() is not None:
+                fail(f"step 18.2: the devnet exited {self.proc.returncode} "
+                     f"before its up line")
+            return None
+
+        self.up = wait_chain(up_line, "the devnet's up line", timeout=120)
+        self.chain = RemoteMainchain.dial(self.up["host"], self.up["port"])
+        self.mark("up")
+        self.account = wait_chain(lambda: self.chain.notary_by_pool_index(0),
+                                  "the notary's deposit")
+        self.mark("deposit")
+
+    def stop(self) -> str:
+        if self.chain is not None:
+            self.chain.close()
+            self.chain = None
+        stop_child(self.proc)
+        with open(self.out_path) as fh:
+            return fh.read()
+
+
+def devnet_phase(card: str, net: Devnet) -> None:
+    """Step 18.2: `python -m gethsharding_tpu_torch.cli devnet --notaries 1
+    --proposers 2 --observers 1 --quorum 1 --shardcount 2 --sigbackend
+    torch --blocktime 0.2` with a datadir (`Devnet`, started with step 18
+    and booted before step 18.1's measured round): a chain process and
+    four actor processes on the card. Dialing the chain from here: a
+    sealed period in which the notary's vote on each proposed shard is
+    the SMC's approved record, both shards approved; then the notary
+    SIGKILLed: the devnet respawns it, it comes back with the same
+    account (its keystore), no second deposit, and votes again. At exit
+    (SIGINT to the devnet, which stops its children with SIGTERM, actors
+    first): the notary child's exit line counts launches of
+    DEVNET_NOTARY and its heads, the chain child's counts the vote-log
+    replay's `keccak_fixed`, the observer logged the SMC's canonical
+    headers of its shard, no child logged a service error or a
+    traceback, and the notary missed at most DEVNET_MISSED_PER_VOTE
+    votes to the chain sealing their period (`notary/votes_missed`) for
+    each vote it cast. Prints the
+    framing of the direct p2p frames (AEAD only where `cryptography` is
+    installed). The observer replays no collation: no node of a devnet
+    writes its canonical body (ROADMAP.md queue A item 8)."""
+    chain, account, datadir = net.chain, net.account, net.datadir
+    cmd = net.cmd
+    try:
+        first = wait_chain(lambda: voted_period(chain, account, 0),
+                           "a period voted by the notary")
+        wait_chain(lambda: all(chain.last_approved_collation(s) > 0
+                               for s in (0, 1)), "both shards approved")
+        net.mark("voted")
+        (victim,) = find_pids(datadir, "notary-0")
+        os.kill(victim, signal.SIGKILL)
+        killed_at = chain.current_period()
+        net.mark("killed")
+        respawned = wait_chain(lambda: [p for p in find_pids(
+            datadir, "notary-0") if p != victim], "the notary's respawn")
+        again = wait_chain(lambda: voted_period(chain, account, killed_at),
+                           "a vote of the respawned notary")
+        net.mark("voted again")
+        # one more period, so that the respawned notary audits its vote
+        wait_chain(lambda: chain.current_period() > again + 1,
+                   "the period after the vote")
+        if chain.notary_by_pool_index(0) != account \
+                or chain.notary_by_pool_index(1) is not None \
+                or not chain.notary_registry(account).deposited:
+            fail(f"step 18.2: the pool after the respawn: "
+                 f"{chain.notary_by_pool_index(0)}, "
+                 f"{chain.notary_by_pool_index(1)}; want {account} alone")
+    finally:
+        out = net.stop()
+    wall_s = time.perf_counter() - net.t0
+    proc = net.proc
+    if proc.returncode != 0 or '"event": "shutdown"' not in out:
+        fail(f"step 18.2: the devnet exited {proc.returncode}:\n{out[-3000:]}")
+    logs = {}
+    for name in ("chain", "notary-0", "proposer-0", "proposer-1",
+                 "observer-0"):
+        with open(os.path.join(datadir, "logs", f"{name}.log")) as fh:
+            logs[name] = fh.read()
+    bad = {name: [line for line in log.splitlines()
+                  if "service error" in line or "Traceback" in line]
+           for name, log in logs.items()}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad:
+        fail(f"step 18.2: the children logged errors {bad}")
+    notary = exit_line(logs["notary-0"], "node at exit:")
+    chain_summary = exit_line(logs["chain"], "chain-server at exit:")
+    missing = [k for k in DEVNET_NOTARY if not notary["launches"].get(k)]
+    if missing or not chain_summary["launches"].get("keccak_fixed") \
+            or notary["account"].lower() != "0x" + bytes(account).hex():
+        fail(f"step 18.2: the notary child's exit line {notary} (none of "
+             f"{missing}), the chain child's launches "
+             f"{chain_summary['launches']}")
+    observed = re.findall(r"(?:Canonical header approved for|Observed "
+                          r"canonical collation:) shard 0 period (\d+)",
+                          logs["observer-0"])
+    # votes the chain sealed the period before: both lives' warnings, and
+    # the respawned life's `votes_missed` at exit; votes cast: the first
+    # life's, from the journal the respawned one recovered, and its own
+    missed = len(re.findall(r"vote on shard \d+ missed the end of period",
+                            logs["notary-0"]))
+    recovered = re.findall(r"vote journal recovered: (\d+) submitted votes",
+                           logs["notary-0"])
+    cast = (int(recovered[-1]) if recovered else 0) + notary["votes"]
+    if missed > DEVNET_MISSED_PER_VOTE * cast \
+            or notary.get("votes_missed", 0) > missed:
+        fail(f"step 18.2: the notary missed {missed} votes and cast {cast} "
+             f"(at most {DEVNET_MISSED_PER_VOTE} missed a vote cast; "
+             f"{notary.get('votes_missed')} in its exit line)")
+    from gethsharding_tpu_torch.p2p import direct
+    framing = ("AEAD (AES-GCM)" if direct.AESGCM is not None
+               else "plaintext (no `cryptography` here)")
+    replayed = re.findall(r"Replayed collation: shard 0 period (\d+) "
+                          r"applied (\d+)/(\d+) root 0x(\w+) state_root "
+                          r"0x(\w+)", logs["observer-0"])
+    if not observed:
+        fail("step 18.2: the observer logged no canonical header of its "
+             "shard")
+    starts = logs["notary-0"].count("Starting sharding node")
+    print(f"devnet of OS processes (step 18.2): {' '.join(cmd[3:-2])}: "
+          f"{len(logs)} children (chain, notary, 2 proposers, observer); "
+          f"period {first} voted by the notary {bytes(account).hex()} on "
+          f"each proposed shard (the SMC's approved records), both shards "
+          f"approved; the notary SIGKILLed in period {killed_at}, "
+          f"respawned as pid {respawned[0]} ({starts} starts in its log) "
+          f"with the same account, no second deposit, voted again in "
+          f"period {again}; the notary child's launches at exit "
+          f"{notary['launches']}; votes cast {cast} and missed {missed} "
+          f"in both lives ({notary['votes']} and "
+          f"{notary['votes_missed']} in the respawned one); direct p2p "
+          f"frames {framing}; the chain "
+          f"child's {chain_summary['launches']} (the vote-log replay); the "
+          f"observer saw the SMC's canonical headers of shard 0 for "
+          f"periods {sorted(set(map(int, observed)))}, replayed "
+          f"{len(replayed)} collations"
+          + (f" (roots {[r[3] for r in replayed]})" if replayed else
+             " (no node writes an observer's canonical collation: "
+             "ROADMAP.md queue A item 8)")
+          + f"; no child error; {wall_s:.1f} s, marks "
+          + ", ".join(f"{k} {v:.1f}" for k, v in net.marks.items())
+          + f" s [{card}]", flush=True)
+    heads = notary["heads"]
+    print(f"time devnet notary head (step 18.2; the respawned notary child, "
+          f"its own log, notary/head_latency): {heads['count']} heads, "
+          f"median {heads['p50_ms']:.1f} ms, largest {heads['max_ms']:.1f} "
+          f"ms [{card}]", flush=True)
+
+
+def topology_phase(card: str, period, vote, medians) -> None:
+    """Step 18: the cross-process topology on the card: 18.2's devnet
+    started first, 18.1's chain process serving the verifications while
+    it boots (the measured round once it has), then 18.2; timed."""
+    t0 = time.perf_counter()
+    net = Devnet()
+    try:
+        chain_phase(card, period, vote, medians, net.boot)
+        t1 = time.perf_counter()
+        devnet_phase(card, net)
+    finally:
+        if net.proc.poll() is None:    # a failed phase: stop the devnet
+            net.stop()
+    print(f"step 18: {time.perf_counter() - t0:.1f} s in all (the chain "
+          f"process {t1 - t0:.1f} s with the devnet booting beside it, "
+          f"the devnet {time.perf_counter() - t0:.1f} s from its start)",
+          flush=True)
 
 
 def exact_phase(seed: int) -> int:
@@ -4255,9 +4911,14 @@ def main() -> int:
     parser.add_argument("--exact-phase", action="store_true",
                         help="run step 8 alone (as the script runs it, "
                              "with GETHSHARDING_TORCH_LIMB_FORM=exact)")
+    parser.add_argument("--stress-inputs", default="", metavar="PATH",
+                        help="build step 13's inputs on the host and save "
+                             "them to PATH (as the script runs it)")
     args = parser.parse_args()
     if args.exact_phase:
         return exact_phase(args.seed)
+    if args.stress_inputs:
+        return stress_inputs(args.stress_inputs, args.seed)
     if not torch.cuda.is_available():
         fail("no CUDA device")
     t_smoke = time.perf_counter()
@@ -4276,6 +4937,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    stress_build = start_stress_build(args.seed)
+    print("step 13's host build runs in a process of its own from here "
+          "to step 13: the host times of steps 1-12 (marshal, latency "
+          "and build lines) are taken beside it, on one more busy core",
+          flush=True)
     if limb.LIMB_FORM != "wide":
         fail("the main phases run in the wide limb form")
     if not keccak.native_available():
@@ -4803,18 +5469,35 @@ def main() -> int:
           f"device path with pull {device_ms:.2f} ms (audit kernels "
           f"{kernel_ms:.2f} ms, glue and pull {device_ms - kernel_ms:.2f} "
           f"ms); hash_to_g1 {hash_ms:.3f} ms per message (host) [{card}]")
+    marks = [("build and steps 1-8", time.perf_counter())]
     kernels += run_exact_phase(args.seed)
+    marks.append(("9", time.perf_counter()))
     kernels += vote_phase(card, args.seed)
+    marks.append(("10", time.perf_counter()))
     multiproof_phase(card, args.seed)
+    marks.append(("11", time.perf_counter()))
     kernels += replay_phase(card, args.seed)
-    stress_phase(card, args.seed)
+    marks.append(("12", time.perf_counter()))
+    stress_phase(card, args.seed, stress_build)
+    marks.append(("13", time.perf_counter()))
     members = notary_phase(card, args.seed)
+    marks.append(("14", time.perf_counter()))
     node_phase(card, members)
+    marks.append(("15", time.perf_counter()))
     das_phase(card, members)
-    serving_phase(card, args.seed, (msgs, sig_rows, pk_rows, keys, want),
-                  members)
+    marks.append(("16", time.perf_counter()))
+    vote, medians = serving_phase(
+        card, args.seed, (msgs, sig_rows, pk_rows, keys, want), members)
+    marks.append(("17", time.perf_counter()))
+    topology_phase(card, (msgs, sig_rows, pk_rows, keys, want), vote,
+                   medians)
+    marks.append(("18", time.perf_counter()))
+    prev, parts = t_smoke, []
+    for name, t in marks:
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s in all, the build "
-          f"included", flush=True)
+          f"included (by step, s: {', '.join(parts)})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -62,6 +62,7 @@ from gethsharding_tpu_torch.resilience.policy import (POLL_MISS,
                                                       RetryExecutor,
                                                       RetryPolicy,
                                                       poll_probe)
+from gethsharding_tpu_torch.rpc import codec
 from gethsharding_tpu_torch.serving.batcher import observe_future_wake
 from gethsharding_tpu_torch.serving.classes import (CLASS_BULK_AUDIT,
                                                     admission_class)
@@ -123,6 +124,7 @@ class Notary(Service):
             sig_backend = TorchSigBackend()
         self.sig_backend = sig_backend
         self.votes_submitted = 0
+        self.votes_missed = 0
         self.canonical_set = 0
         self.signatures_rejected = 0
         self.audits_run = 0
@@ -136,7 +138,12 @@ class Notary(Service):
             "notary/aggregate_sig_verifications")
         self.m_validate_latency = metrics.timer("notary/validate_latency")
         self.m_audit_latency = metrics.timer("notary/period_audit_latency")
+        # a head end to end (the node CLI logs it at exit)
+        self.m_head_latency = metrics.timer("notary/head_latency")
         self.m_votes = metrics.counter("notary/votes_submitted")
+        # votes the chain sealed the period before (a lost race, counted
+        # and not a service error; the node CLI logs them at exit)
+        self.m_votes_missed = metrics.counter("notary/votes_missed")
         self.m_audit_mismatch = metrics.counter("notary/audit_mismatches")
         self.m_windback_checks = metrics.counter("notary/windback_checks")
         # body-fetch retry seam: each attempt re-broadcasts the shardp2p
@@ -221,7 +228,8 @@ class Notary(Service):
 
     def _on_head(self, block) -> None:
         try:
-            self.notarize_collations(head=block.number)
+            with self.m_head_latency.time():
+                self.notarize_collations(head=block.number)
             self.record_success()
         except Exception as exc:
             # a run of consecutive head failures marks the service crashed
@@ -477,6 +485,18 @@ class Notary(Service):
                                     record.chunk_root,
                                     bls_sig=self.client.bls_sign(digest))
         except SMCRevert as exc:
+            pending = ((self.client.block_number + 1)
+                       // self.config.period_length)
+            if "period is not current" in str(exc) and pending != period:
+                # the chain sealed the period's last block while this vote
+                # was in flight (a chain process seals on its own clock;
+                # a transaction runs in the pending block): a lost race,
+                # not a fault of this service, counted as a missed vote
+                self.votes_missed += 1
+                self.m_votes_missed.inc()
+                self.log.warning("vote on shard %s missed the end of "
+                                 "period %s", shard_id, period)
+                return False
             self.record_error(f"vote reverted: {exc}")
             return False
         if self.journal is not None:
@@ -624,23 +644,21 @@ class Notary(Service):
         slots can be freed and reused before the audit); a released voter's
         row cannot be resolved and is skipped."""
         data = self.client.audit_data(period)
-        if not data.get("raw"):
-            raise ValueError(
-                "audit_data came in the hex wire form of a remote chain; "
-                "the port has no rpc/codec.py to read it yet (ROADMAP.md, "
-                "queue A item 8)")
+        raw = bool(data.get("raw"))  # in-process pull: no hex wire codec
         shards, msgs, sig_rows, pk_rows, pk_keys = [], [], [], [], []
         signed_counts, total_counts, expected = [], [], []
         for shard_id in sorted(data["shards"]):
             rec = data["shards"][shard_id]
             member_pks, sigs, key_parts = [], [], []
             for vote in rec["votes"]:
-                pk = vote["pubkey"]
+                pk = (vote["pubkey"] if raw
+                      else codec.dec_g2(vote["pubkey"]))
                 if pk is None:
                     member_pks = None  # released voter: not resolvable
                     break
                 member_pks.append(pk)
-                sigs.append(vote["sig"])
+                sigs.append(vote["sig"] if raw
+                            else codec.dec_g1(vote["sig"]))
                 # the pubkeys' int limbs identify the row: the backend keeps
                 # its line tables under this key
                 x, y = pk
@@ -648,8 +666,9 @@ class Notary(Service):
             if member_pks is None:
                 continue
             shards.append(shard_id)
-            msgs.append(vote_digest(shard_id, period,
-                                    Hash32(rec["chunk_root"])))
+            root = (Hash32(rec["chunk_root"]) if raw
+                    else Hash32(bytes.fromhex(rec["chunk_root"])))
+            msgs.append(vote_digest(shard_id, period, root))
             sig_rows.append(sigs)
             pk_rows.append(member_pks)
             pk_keys.append(tuple(key_parts))

@@ -27,6 +27,7 @@ from gethsharding_tpu_torch.core.types import (
 from gethsharding_tpu_torch.mainchain.client import SMCClient
 from gethsharding_tpu_torch.actors.txpool import TXPool
 from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
+from gethsharding_tpu_torch.smc.state_machine import SMCRevert
 
 
 def create_collation(client: SMCClient, shard_id: int, period: int,
@@ -100,9 +101,24 @@ class Proposer(Service):
                 # pool then drops as included — core/tx_pool Pending +
                 # mined-drop semantics
                 batch = self.txpool.take_pending()
-                self.create_and_submit(batch if batch else [tx])
+                self._propose(batch if batch else [tx])
             except Exception as exc:
                 self.record_error(f"create collation failed: {exc}")
+
+    def _propose(self, txs: List[Transaction]) -> None:
+        """`create_and_submit`, again once for the new period where the
+        chain sealed the period's last block between the head read and
+        the addHeader transaction (a chain process seals on its own clock,
+        so the window is its RPC round trips; in-process chains never
+        hit it)."""
+        try:
+            self.create_and_submit(txs)
+        except SMCRevert as exc:
+            if "period is not current" not in str(exc):
+                raise
+            self.log.info("period ended before addHeader (%s): proposing "
+                          "again in the new period", exc)
+            self.create_and_submit(txs)
 
     def create_and_submit(self, txs: List[Transaction]) -> Optional[Collation]:
         # the collation lifecycle trace root: create (serialize ->

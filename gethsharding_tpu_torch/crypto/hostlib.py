@@ -1,0 +1,46 @@
+"""Build a host C source of `csrc/` into a shared library that `ctypes`
+loads: the compiled keccak (`csrc/keccak.c`) and scrypt's ROMix
+(`csrc/scrypt.c`).
+
+`build(source, lib)` compiles `source` with the host C compiler (`$CC`,
+else `cc`) into `lib` when the library is missing or its source changed
+(the source's hash is kept beside it, in `<lib>.sha256`). The check and
+the build run under `utils/filelock.py::build_lock` on the library's
+directory, so processes that start together build it once; the library
+is written to a temporary name first and moved into place.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import subprocess
+import tempfile
+from pathlib import Path
+
+from gethsharding_tpu_torch.utils.filelock import build_lock
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+
+def build(source: Path, lib: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()
+    stamp = lib.with_name(lib.name + ".sha256")
+    with build_lock(lib.parent):
+        if lib.exists() and stamp.exists() \
+                and stamp.read_text().strip() == digest:
+            return lib
+        with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+            out = Path(tmp) / lib.name
+            proc = subprocess.run(
+                [os.environ.get("CC", "cc"), "-O3", "-shared", "-fPIC",
+                 "-o", str(out), str(source)], capture_output=True,
+                text=True, timeout=120)
+            if proc.returncode != 0:
+                raise subprocess.SubprocessError(
+                    f"cc failed on {source.name}:\n{proc.stderr}")
+            os.replace(out, lib)
+            stamp.write_text(digest + "\n")
+    return lib

@@ -18,14 +18,13 @@ produces different digests and cannot be used.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
-import os
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import List
+
+from gethsharding_tpu_torch.crypto import hostlib
 
 log = logging.getLogger(__name__)
 
@@ -107,9 +106,8 @@ def keccak256_py(data: bytes) -> bytes:
     return _sponge(data, RATE_BYTES, 32, 0x01)
 
 
-_PACKAGE_DIR = Path(__file__).resolve().parents[1]
-_SOURCE = _PACKAGE_DIR / "csrc" / "keccak.c"
-_LIB = _PACKAGE_DIR / "_build" / "libkeccak.so"
+_SOURCE = hostlib.SRC_DIR / "keccak.c"
+_LIB = hostlib.BUILD_DIR / "libkeccak.so"
 _lock = threading.Lock()
 _fn = None
 _tried = False
@@ -144,24 +142,7 @@ def _native():
 
 
 def _build() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()
-    stamp = _LIB.with_name(_LIB.name + ".sha256")
-    if _LIB.exists() and stamp.exists() \
-            and stamp.read_text().strip() == digest:
-        return _LIB
-    _LIB.parent.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=_LIB.parent) as tmp:
-        lib = Path(tmp) / _LIB.name
-        proc = subprocess.run(
-            [os.environ.get("CC", "cc"), "-O3", "-shared", "-fPIC", "-o",
-             str(lib), str(_SOURCE)], capture_output=True, text=True,
-            timeout=120)
-        if proc.returncode != 0:
-            raise subprocess.SubprocessError(
-                f"cc failed on {_SOURCE.name}:\n{proc.stderr}")
-        os.replace(lib, _LIB)
-        stamp.write_text(digest + "\n")
-    return _LIB
+    return hostlib.build(_SOURCE, _LIB)
 
 
 def _sponge(data: bytes, rate: int, out_len: int, domain: int) -> bytes:

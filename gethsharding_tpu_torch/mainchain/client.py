@@ -1,31 +1,49 @@
 """SMCClient: the actor-side handle on the mainchain and its SMC (the port's
-copy of the JAX package's `mainchain/client.py`, on the in-process
-`SimulatedMainchain`).
+copy of the JAX package's `mainchain/client.py`).
 
 Parity: `sharding/mainchain/smc_client.go` (NewSMCClient :49, Start :72,
-Sign :245, WaitForTransaction :165). Transactions apply synchronously, so
-`wait_for_transaction` resolves at once.
+Sign :245, WaitForTransaction :165). The backend is the in-process
+`SimulatedMainchain` by default, whose transactions apply synchronously,
+or a chain process dialed over RPC (`rpc/client.py::RemoteMainchain`).
 
 `stop()` marks the client stopped: in-flight `wait_for_transaction` polls
-exit promptly and every later call raises `ClientStopped`. Reads of the
-in-process chain cannot fail transiently, so none is retried; the read
-retries of a remote chain come with the port's `rpc/codec.py`.
+exit promptly and every later call raises `ClientStopped`. An optional
+`retry_policy` routes every idempotent backend read through a
+`RetryExecutor` (seam ``mainchain``): transient connection errors against
+a flaky chain process are absorbed with capped backoff and counted.
+Writes (votes, headers, registry transactions) are never retried: a
+connection error mid-write is ambiguous, and replaying it could
+double-submit. Env default: ``GETHSHARDING_CLIENT_RETRIES`` (attempts,
+0 = off) and ``GETHSHARDING_CLIENT_RETRY_BASE_S``, the reference's names.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Optional
 
 from gethsharding_tpu_torch.mainchain.accounts import Account, AccountManager
 from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
+from gethsharding_tpu_torch.resilience.policy import (RetryExecutor,
+                                                      RetryPolicy)
 from gethsharding_tpu_torch.smc.chain import Receipt, SimulatedMainchain
 from gethsharding_tpu_torch.utils.hexbytes import Address20, Hash32
 
 
 class ClientStopped(RuntimeError):
     """The SMCClient was stopped; this call can never complete."""
+
+
+def _default_retry_policy() -> Optional[RetryPolicy]:
+    attempts = int(os.environ.get("GETHSHARDING_CLIENT_RETRIES", "0"))
+    if attempts <= 0:
+        return None
+    return RetryPolicy(
+        attempts=attempts,
+        base_s=float(os.environ.get(
+            "GETHSHARDING_CLIENT_RETRY_BASE_S", "0.02")))
 
 
 class SMCClient:
@@ -37,7 +55,8 @@ class SMCClient:
                  accounts: Optional[AccountManager] = None,
                  account: Optional[Account] = None,
                  deposit_flag: bool = False,
-                 config: Config = DEFAULT_CONFIG):
+                 config: Config = DEFAULT_CONFIG,
+                 retry_policy: Optional[RetryPolicy] = None):
         self.backend = backend if backend is not None else SimulatedMainchain(config)
         self.accounts = accounts or AccountManager()
         # a FRESH identity per client unless one is supplied (keystore or
@@ -47,6 +66,15 @@ class SMCClient:
         self.deposit_flag = deposit_flag
         self.config = config
         self._stop = threading.Event()
+        if retry_policy is None:
+            retry_policy = _default_retry_policy()
+        # the stop event doubles as the backoff sleeper: stop() wakes an
+        # in-flight retry ladder mid-backoff, and the abort hook turns it
+        # into ClientStopped instead of one more attempt
+        self._retry = (RetryExecutor("mainchain", retry_policy,
+                                     sleep=self._stop.wait,
+                                     abort=self._retry_abort)
+                       if retry_policy is not None else None)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -68,10 +96,17 @@ class SMCClient:
         if self._stop.is_set():
             raise ClientStopped("SMCClient is stopped")
 
+    def _retry_abort(self) -> Optional[ClientStopped]:
+        if self._stop.is_set():
+            return ClientStopped("SMCClient is stopped")
+        return None
+
     def _read(self, fn, *args, **kwargs):
-        """One backend read behind the stop gate."""
+        """One idempotent backend read: stop gate and retry executor."""
         self._ensure_running()
-        return fn(*args, **kwargs)
+        if self._retry is None:
+            return fn(*args, **kwargs)
+        return self._retry.call(fn, *args, **kwargs)
 
     # -- Signer ------------------------------------------------------------
 
@@ -183,14 +218,19 @@ class SMCClient:
     def verify_period_batch(self, period: int,
                             device=None) -> Optional[bool]:
         """Chain-side batched vote-replay audit on `device` (None: the
-        card); None if the backend does not serve it."""
+        card; a chain process runs it on its own device); None if the
+        backend does not serve it."""
         fn = getattr(self.backend, "verify_period_batch", None)
         return (self._read(fn, period, device=device) if fn is not None
                 else None)
 
     def mirror_snapshot(self) -> dict:
-        """One consistent snapshot of the hot-loop SMC read surface,
-        assembled from the client's own (stop-gated) reads."""
+        """One consistent snapshot of the hot-loop SMC read surface: a
+        single round trip against backends that serve it in bulk (a chain
+        process), assembled from the client's own reads otherwise."""
+        fn = getattr(self.backend, "mirror_snapshot", None)
+        if fn is not None:
+            return self._read(fn)
         from gethsharding_tpu_torch.mainchain.mirror import assemble_snapshot
 
         return assemble_snapshot(self)
@@ -210,7 +250,7 @@ class SMCClient:
             return self._read(fn, period)
         from gethsharding_tpu_torch.mainchain.mirror import assemble_audit_data
 
-        return assemble_audit_data(self, period)
+        return assemble_audit_data(self, period, jsonable=False)
 
     # -- tx resilience (WaitForTransaction parity) ------------------------
 

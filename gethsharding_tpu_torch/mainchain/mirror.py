@@ -288,13 +288,19 @@ def _rec_jsonable(record) -> dict:
     }
 
 
-def assemble_audit_data(source, period: int) -> dict:
+def assemble_audit_data(source, period: int, jsonable: bool = True) -> dict:
     """Bulk audit pull: for every shard with a collation record in
     `period`, the record's vote signatures and the voters' registered BLS
     pubkeys (resolved by vote-time attribution; None for a released
-    voter), as raw point tuples, the chunk root as raw bytes, and
-    `raw: True`. The hex wire form of a remote chain waits for the port's
-    `rpc/codec.py`."""
+    voter): one round trip for a remote notary's period audit instead of
+    O(shards) record reads and O(votes) registry lookups. Shared by
+    `SMCClient`'s local walk and the `shard_auditData` RPC method.
+
+    `jsonable=False` (the in-process path) skips the hex wire codec: the
+    points ride as raw tuples, the chunk root as raw bytes, and the result
+    carries `raw: True`."""
+    from gethsharding_tpu_torch.rpc import codec
+
     shards: Dict[int, dict] = {}
     for shard_id in range(source.shard_count()):
         record = source.collation_record(shard_id, period)
@@ -303,17 +309,28 @@ def assemble_audit_data(source, period: int) -> dict:
         votes = []
         for index, vote in record.vote_sigs.items():
             entry = source.notary_registry(vote.signer)
-            votes.append({"index": index, "signer": vote.signer,
-                          "sig": vote.sig,
-                          "pubkey": None if entry is None
-                          else entry.bls_pubkey})
+            pubkey = None if entry is None else entry.bls_pubkey
+            if jsonable:
+                votes.append({
+                    "index": index,
+                    "signer": bytes(vote.signer).hex(),
+                    "sig": codec.enc_g1(vote.sig),
+                    "pubkey": codec.enc_g2(pubkey),
+                })
+            else:
+                votes.append({"index": index, "signer": vote.signer,
+                              "sig": vote.sig, "pubkey": pubkey})
         shards[shard_id] = {
-            "chunk_root": bytes(record.chunk_root),
+            "chunk_root": (bytes(record.chunk_root).hex() if jsonable
+                           else bytes(record.chunk_root)),
             "vote_count": record.vote_count,
             "is_elected": bool(record.is_elected),
             "votes": votes,
         }
-    return {"period": period, "shards": shards, "raw": True}
+    out = {"period": period, "shards": shards}
+    if not jsonable:
+        out["raw"] = True
+    return out
 
 
 def _ctx_jsonable(ctx: Optional[dict]) -> Optional[dict]:

@@ -61,7 +61,6 @@ S = TypeVar("S")
 # module each waits for (ROADMAP.md, queue A item 8)
 UNPORTED = {
     "actor='light'": "actors/light.py",
-    "password": "mainchain/keystore.py",
     "fleet_frontend": "fleet/",
     "http_port": "node/http_status.py",
 }
@@ -111,7 +110,6 @@ class ShardNode:
                              "pick 'merkle' or 'poly'")
         for option, given in (
                 ("actor='light'", actor == "light"),
-                ("password", password is not None),
                 ("fleet_frontend", fleet_frontend is not None),
                 ("http_port", http_port is not None)):
             if given:
@@ -152,9 +150,30 @@ class ShardNode:
         p2p = P2PServer(hub=hub)
         self._register(p2p)
 
+        # node identity: with a datadir and a password, load or create an
+        # encrypted key file so that the address survives restarts
+        # (accounts/keystore parity; smc_client.go:218 unlock flow)
+        account = None
+        accounts_mgr = None
+        if data_dir and password is not None:
+            from gethsharding_tpu_torch.mainchain.accounts import (
+                AccountManager)
+            from gethsharding_tpu_torch.mainchain.keystore import Keystore
+
+            keystore = Keystore(f"{data_dir}/keystore")
+            accounts_mgr = AccountManager()
+            account = accounts_mgr.import_key(
+                keystore.load_or_create(password))
+
         client = SMCClient(backend=backend, config=config,
-                           deposit_flag=deposit)
+                           deposit_flag=deposit, accounts=accounts_mgr,
+                           account=account)
         self._register(client)
+        if hub is not None and hasattr(hub, "set_identity"):
+            # a cross-process hub (p2p/remote.py) signs its attach and
+            # direct-peer handshakes with the node's key: the identity is
+            # proven, not claimed
+            hub.set_identity(client.accounts, client.account())
 
         shard = Shard(shard_id=shard_id, shard_db=shard_db.db)
         self.shard = shard

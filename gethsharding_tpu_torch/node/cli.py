@@ -1,19 +1,26 @@
-"""`python -m gethsharding_tpu_torch.cli sharding` — the port's node entry
-point (the port's copy of the `sharding` subcommand of the JAX package's
-`node/cli.py`).
+"""`python -m gethsharding_tpu_torch.cli sharding|devnet` — the port's node
+entry points (the port's copy of the `sharding` and `devnet` subcommands of
+the JAX package's `node/cli.py`).
 
 Parity: `cmd/geth/shardingcmd.go` (+ flags `cmd/utils/flags.go:536-549`):
 `sharding --actor {notary,proposer,observer} --shardid N --deposit
---datadir PATH`, the data-availability flags (`--da-mode sampled
---da-proofs merkle|poly --da-samples K --da-parity R`), the serving and
-resilience flags (`--serving` and its `--serving-*` knobs, `--chaos SPEC`,
-`--soundness-rate R`, `--sigbackend failover-torch`), plus the dev-mode
-flags that run an in-process simulated mainchain with automatic block
-production. The flags are the reference's
-of the features the port has, with the same names and defaults; the node
-runs on the CUDA card and exits non-zero where there is none. The options
-the port has not ported (ROADMAP.md, queue A) are absent, and `--actor
-light` is refused by naming its module.
+--datadir PATH --password PW`, the data-availability flags (`--da-mode
+sampled --da-proofs merkle|poly --da-samples K --da-parity R`), the serving
+and resilience flags (`--serving` and its `--serving-*` knobs, `--chaos
+SPEC`, `--soundness-rate R`, `--sigbackend failover-torch`), plus the
+dev-mode flags that run an in-process simulated mainchain with automatic
+block production, or `--endpoint HOST:PORT`, which dials a running chain
+process (`rpc/chain_server.py`) for the chain (`RemoteMainchain`) and the
+shardp2p relay (`RemoteHub`) instead. `devnet` starts one chain process and
+N actor processes and supervises them (`devnet.py`). The flags are the
+reference's of the features the port has, with the same names and
+defaults; the node runs on the CUDA card and exits non-zero where there is
+none. The options the port has not ported (ROADMAP.md, queue A) are absent,
+and `--actor light` is refused by naming its module.
+
+At exit the node logs one line `node at exit: {json}`: this process's
+kernel launches by name and, for a notary, its heads (`notary/head_latency`),
+its votes and its missed votes (`notary/votes_missed`). SIGTERM stops the node as SIGINT does.
 """
 
 from __future__ import annotations
@@ -22,14 +29,12 @@ import argparse
 import json
 import logging
 import os
+import signal
 import sys
 import time
 from typing import List, Optional
 
-from gethsharding_tpu_torch import metrics
-from gethsharding_tpu_torch.node.backend import ShardNode
 from gethsharding_tpu_torch.params import Config, ETHER
-from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +58,11 @@ def build_parser() -> argparse.ArgumentParser:
                                "(flags.go:537)")
     sharding.add_argument("--datadir", default="",
                           help="data directory (in-memory DB if empty)")
+    sharding.add_argument("--password", default=None,
+                          help="password file or literal for the encrypted "
+                               "keystore under <datadir>/keystore "
+                               "(flags.go PasswordFileFlag); with --datadir "
+                               "the node address survives restarts")
     sharding.add_argument("--periodlength", type=int, default=5)
     sharding.add_argument("--windback", type=int, default=0,
                           help="enforced windback depth: periods of prior "
@@ -151,6 +161,46 @@ def build_parser() -> argparse.ArgumentParser:
                                "mismatch trips the breaker)")
     sharding.add_argument("--verbosity", default="info",
                           choices=("debug", "info", "warning", "error"))
+    sharding.add_argument("--endpoint", default="",
+                          metavar="HOST:PORT",
+                          help="dial a running chain process instead of "
+                               "hosting an in-process dev chain (the "
+                               "`geth sharding [endpoint]` topology: N "
+                               "actor processes, one mainchain)")
+
+    devnet = sub.add_parser(
+        "devnet", help="spin up a whole network as OS processes: one "
+                       "chain + N supervised actors (the puppeth / "
+                       "ExecAdapter role)")
+    devnet.add_argument("--notaries", type=int, default=1)
+    devnet.add_argument("--proposers", type=int, default=1)
+    devnet.add_argument("--observers", type=int, default=0)
+    devnet.add_argument("--lights", type=int, default=0,
+                        help="not ported: light clients wait for "
+                             "actors/light.py")
+    devnet.add_argument("--datadir", default="",
+                        help="base dir for per-actor datadirs + logs "
+                             "(empty = auto temp dir, kept after exit "
+                             "for post-mortems)")
+    devnet.add_argument("--blocktime", type=float, default=0.5)
+    devnet.add_argument("--quorum", type=int, default=None)
+    devnet.add_argument("--shardcount", type=int, default=None)
+    devnet.add_argument("--sigbackend", default="torch",
+                        choices=("python", "torch", "failover-python",
+                                 "failover-torch"),
+                        help="the chain process's and every actor's "
+                             "signature backend (torch: the port's CUDA "
+                             "kernels on the card)")
+    devnet.add_argument("--http-base", type=int, default=0,
+                        help="not ported: actor status servers wait for "
+                             "node/http_status.py")
+    devnet.add_argument("--runtime", type=float, default=0.0,
+                        help="seconds before automatic shutdown "
+                             "(0 = until SIGINT)")
+    devnet.add_argument("--interval", type=float, default=2.0,
+                        help="supervision/status cadence")
+    devnet.add_argument("--verbosity", default="warning",
+                        choices=("debug", "info", "warning", "error"))
     return parser
 
 
@@ -163,18 +213,68 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
     )
     if args.command == "sharding":
         return run_sharding_node(args)
+    if args.command == "devnet":
+        from gethsharding_tpu_torch.devnet import run_devnet
+
+        return run_devnet(args)
     return 2
 
 
+def raise_interrupt(signum, frame):
+    """SIGTERM as SIGINT: the node stops and logs its exit lines (the
+    devnet stops its children with SIGTERM)."""
+    raise KeyboardInterrupt
+
+
 def run_sharding_node(args, device=None) -> int:
-    """Build the node on an in-process dev chain, start it, seal a block
-    every `--blocktime` seconds for `--runtime` seconds (0: until
+    """Build the node on an in-process dev chain, or on the chain process
+    at `--endpoint`, start it, seal a block every `--blocktime` seconds
+    (the chain process seals its own) for `--runtime` seconds (0: until
     interrupted), stop it and log its services' errors. `device` is the
-    node's (None: the card)."""
+    node's (None: the card for `--sigbackend torch` and its failover
+    form, the host for the scalar `python` ones, which launch no kernel)."""
+    # the node's modules (torch among them) load here, not at the CLI's
+    # import: `devnet` needs none of them
+    from gethsharding_tpu_torch.node.backend import ShardNode
+    from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
+
+    if device is None and args.sigbackend.endswith("python"):
+        device = "cpu"
     config = Config(period_length=args.periodlength,
                     windback_depth=args.windback)
-    raw_backend = backend = SimulatedMainchain(config=config)
     log = logging.getLogger("sharding.node")
+    hub = None
+    if args.endpoint:
+        from gethsharding_tpu_torch.p2p.remote import RemoteHub
+        from gethsharding_tpu_torch.rpc.client import RemoteMainchain
+
+        host, _, port = args.endpoint.rpartition(":")
+        if not port.isdigit():
+            print(f"--endpoint must be HOST:PORT, got {args.endpoint!r}",
+                  file=sys.stderr)
+            return 2
+        try:
+            backend = RemoteMainchain.dial(host or "127.0.0.1", int(port))
+        except OSError as exc:
+            print(f"sharding: --endpoint {args.endpoint}: {exc}",
+                  file=sys.stderr)
+            return 2
+        # the chain process owns the protocol constants: every attached
+        # actor adopts its config, so that all agree on periods and
+        # committees
+        config = backend.chain_config(windback_depth=args.windback)
+        hub = RemoteHub.dial(host or "127.0.0.1", int(port),
+                             network_id=config.network_id)
+    else:
+        backend = SimulatedMainchain(config=config)
+    raw_backend = backend
+    password = args.password
+    if password is not None:
+        try:  # geth convention: --password usually names a file
+            with open(password) as fh:
+                password = fh.read().strip()
+        except OSError:
+            pass  # treat as a literal password
     serving_config = None
     if args.serving_watchdog_s and not args.serving:
         log.warning(
@@ -229,20 +329,25 @@ def run_sharding_node(args, device=None) -> int:
                 ", ".join(f"{w}.*" for w in wired))
         if any(seam == "mainchain" or seam.startswith("mainchain.")
                for seam in chaos_schedule.rules):
-            # the fault proxy fronts the chain under the node's client;
-            # the dev-mode block loop below keeps driving the raw chain:
-            # chaos targets the actor's view of the chain
+            # the fault proxy fronts the chain under the client's retry
+            # executor; the dev-mode block loop below keeps driving the
+            # raw chain: chaos targets the actor's view of the chain
             backend = chaos_mod.wrap(backend, chaos_schedule, "mainchain")
-            log.warning(
-                "chaos mainchain.* rules are wired under the client, which "
-                "does not retry — injected mainchain faults will surface "
-                "to the actors unretried")
+            if int(os.environ.get("GETHSHARDING_CLIENT_RETRIES",
+                                  "0")) <= 0:
+                log.warning(
+                    "chaos mainchain.* rules are wired under the client's "
+                    "retry executor, but GETHSHARDING_CLIENT_RETRIES is "
+                    "unset/0 — injected mainchain faults will surface to "
+                    "the actors unretried")
     try:
         node = ShardNode(
             actor=args.actor,
             shard_id=args.shardid,
             config=config,
             backend=backend,
+            hub=hub,
+            password=password,
             data_dir=args.datadir,
             in_memory_db=args.datadir == "",
             deposit=args.deposit,
@@ -261,6 +366,9 @@ def run_sharding_node(args, device=None) -> int:
         )
     except (ValueError, RuntimeError) as exc:
         print(f"sharding: {exc}", file=sys.stderr)
+        if hub is not None:
+            hub.close()
+            raw_backend.close()
         return 2
     # dev mode: fund the node account so --deposit can stake
     raw_backend.fund(node.client.account(), 2000 * ETHER)
@@ -270,12 +378,14 @@ def run_sharding_node(args, device=None) -> int:
              node.client.account().hex_str, node.device,
              args.da_mode if args.da_mode == "full"
              else f"sampled/{args.da_proofs}", node.sig_backend.name)
-    node.start()
-
-    deadline = time.monotonic() + args.runtime if args.runtime else None
+    previous = signal.signal(signal.SIGTERM, raise_interrupt)
     try:
+        node.start()
+        deadline = time.monotonic() + args.runtime if args.runtime else None
         while deadline is None or time.monotonic() < deadline:
             time.sleep(args.blocktime)
+            if args.endpoint:
+                continue  # the chain process owns block production
             block = raw_backend.commit()
             if block.number % config.period_length == 0:
                 log.info("period %d sealed (block %d)",
@@ -283,11 +393,45 @@ def run_sharding_node(args, device=None) -> int:
     except KeyboardInterrupt:
         log.info("interrupt received, shutting down")
     finally:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        if args.endpoint:
+            # the chain process goes on sealing: no head may run while
+            # the node's services close under it
+            raw_backend.rpc.quiesce()
         node.stop()
+        if args.endpoint:
+            raw_backend.close()
+        signal.signal(signal.SIGTERM, previous)
     for error in node.errors():
         log.warning("service error: %s", error)
     log_failover_summary(log, node)
+    log_exit_summary(log, node)
     return 0
+
+
+def log_exit_summary(log, node) -> None:
+    """Log at exit, as one JSON object, this process's kernel launches by
+    name, the node's account and, for a notary, its votes, the votes the
+    chain sealed the period before (`notary/votes_missed`) and its heads
+    end to end (the `notary/head_latency` timer: count, median, largest,
+    in ms)."""
+    from gethsharding_tpu_torch.ops import _build
+
+    summary = {"account": node.client.account().hex_str,
+               "launches": {name: n for name, n in
+                            _build.launch_counts().items() if n}}
+    if node.actor == "notary":
+        from gethsharding_tpu_torch.actors.notary import Notary
+
+        notary = node.service(Notary)
+        heads = notary.m_head_latency
+        summary["votes"] = notary.votes_submitted
+        summary["votes_missed"] = notary.votes_missed
+        summary["heads"] = {
+            "count": heads.count,
+            "p50_ms": round(heads.percentile(0.5) * 1e3, 3),
+            "max_ms": round(heads.percentile(1.0) * 1e3, 3)}
+    log.info("node at exit: %s", json.dumps(summary, sort_keys=True))
 
 
 def log_failover_summary(log, node) -> None:
@@ -300,6 +444,7 @@ def log_failover_summary(log, node) -> None:
     breaker = getattr(node.sig_backend, "breaker", None)
     if breaker is None:
         return
+    from gethsharding_tpu_torch import metrics
     from gethsharding_tpu_torch.ops import _build
     from gethsharding_tpu_torch.serving.batcher import OP_LABELS
 

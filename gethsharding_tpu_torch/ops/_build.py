@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from gethsharding_tpu_torch.utils.filelock import build_lock
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -91,41 +93,45 @@ def source_hash() -> str:
 def build() -> Path:
     """Compile the kernels if the library is missing or stale; returns
     its path. The compiler's register and shared-memory report of the
-    last build is kept in `build_log`."""
+    last build is kept in `build_log`. The stamp's check and the build
+    run under a lock on `BUILD_DIR` held across processes, so processes
+    that start together (a chain process and its actors) build once."""
     global build_log
     lib = BUILD_DIR / LIB_NAME
     stamp = BUILD_DIR / (LIB_NAME + ".sha256")
     digest = source_hash()
-    if (lib.exists() and stamp.exists()
-            and stamp.read_text().strip() == digest):
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs = [], []
-        for src in sources():
-            obj = Path(tmp) / (src.stem + ".o")
-            objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for src, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {src.name}\n{out}")
-            if proc.returncode != 0:
-                failed.append(src.name)
-        build_log = "\n".join(logs)
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
-        tmp_lib = Path(tmp) / LIB_NAME
-        link = subprocess.run(
-            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
-             *map(str, objs)], capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
-        os.replace(tmp_lib, lib)
-        stamp.write_text(digest + "\n")
+    with build_lock(BUILD_DIR):
+        if (lib.exists() and stamp.exists()
+                and stamp.read_text().strip() == digest):
+            return lib
+        nvcc = nvcc_path()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs, procs = [], []
+            for src in sources():
+                obj = Path(tmp) / (src.stem + ".o")
+                objs.append(obj)
+                procs.append((src, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+            logs, failed = [], []
+            for src, proc in procs:
+                out, _ = proc.communicate()
+                logs.append(f"== {src.name}\n{out}")
+                if proc.returncode != 0:
+                    failed.append(src.name)
+            build_log = "\n".join(logs)
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+            tmp_lib = Path(tmp) / LIB_NAME
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+                 *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"link failed:\n{link.stdout}{link.stderr}")
+            os.replace(tmp_lib, lib)
+            stamp.write_text(digest + "\n")
     return lib
 
 

@@ -1,6 +1,7 @@
 """Shard p2p: typed feed bus + request/response messaging over the
-in-process hub (the port's copy of the JAX package's `p2p/`; its remote
-hub, direct links, discovery and whisper wait, ROADMAP.md queue A).
+in-process hub, or across OS processes over a chain process's relay and
+direct peer sockets (`p2p/remote.py`); the port's copy of the JAX
+package's `p2p/`, whose whisper waits (ROADMAP.md queue A).
 """
 
 from gethsharding_tpu_torch.p2p.feed import Feed, Subscription  # noqa: F401

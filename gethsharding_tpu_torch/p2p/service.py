@@ -1,6 +1,6 @@
 """P2P server: typed feeds + directed send + broadcast over a process-local
 hub (the port's copy of the JAX package's `p2p/service.py`; the
-cross-process `RemoteHub` of `p2p/remote.py` waits).
+cross-process `RemoteHub` of `p2p/remote.py` presents the same face).
 
 The reference's shardp2p holds a `map[reflect.Type]*event.Feed` and stubs
 out Send/Broadcast (`sharding/p2p/service.go:41-50`). Here the same feed-map

@@ -563,3 +563,20 @@ class FailoverSigBackend(SigBackend):
         close = getattr(self.primary, "close", None)
         if close is not None:
             close()
+
+
+def breaker_of(backend):
+    """The failover breaker governing `backend`, found by walking the
+    wrapper chain (`.breaker` on the failover face; `.inner` hops through
+    the serving, soundness and chaos wrappers). None when the composition
+    has no breaker. (The port's copy of the JAX package's
+    `fleet/router.py::breaker_of`, which the chain process's
+    `shard_health` reads; the rest of `fleet/` waits.)"""
+    probe, hops = backend, 0
+    while probe is not None and hops < 8:
+        breaker = getattr(probe, "breaker", None)
+        if breaker is not None:
+            return breaker
+        probe = getattr(probe, "inner", None)
+        hops += 1
+    return None

@@ -47,7 +47,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from gethsharding_tpu_torch import metrics, slo, tracing
 from gethsharding_tpu_torch.perfwatch import ensure_host
@@ -465,6 +465,40 @@ class MicroBatcher:
     def shed_counts(self) -> Dict[str, int]:
         return {op: queue.shed_requests
                 for op, queue in self._queues.items()}
+
+    def call_on_dispatch_thread(self, fn: Callable[[], Any]) -> Any:
+        """Run `fn` on the dispatch thread, in turn with the batches, and
+        return its result or raise its error: a process's device work
+        outside the five ops (the chain process's vote-log replay) stays
+        on the one thread that launches."""
+        future: Future = Future()
+
+        def run() -> None:
+            try:
+                future.set_result(fn())
+            except BaseException as exc:  # noqa: BLE001 - to the caller
+                future.set_exception(exc)
+
+        self._dispatcher.submit(run, fail=future.set_exception)
+        return future.result()
+
+    def class_depths(self, op: str) -> Dict[str, int]:
+        queue = self._queues[op]
+        return {klass: queue.class_depth_rows(klass)
+                for klass in ADMISSION_CLASSES}
+
+    def shed_by_class(self) -> Dict[str, int]:
+        """Total shed requests per admission class, summed across ops
+        (arrival sheds and displacement by a higher class)."""
+        totals = {klass: 0 for klass in ADMISSION_CLASSES}
+        for queue in self._queues.values():
+            for klass, count in queue.shed_by_class.items():
+                totals[klass] += count
+        return totals
+
+    def quota_rejections(self) -> int:
+        return sum(queue.quota_rejections
+                   for queue in self._queues.values())
 
 
 def observe_future_wake(future) -> None:

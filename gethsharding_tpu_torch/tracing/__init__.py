@@ -6,6 +6,7 @@ from gethsharding_tpu_torch.tracing.tracer import (  # noqa: F401
     Span,
     TRACER,
     Tracer,
+    current_context,
     disable,
     enable,
     request_context,

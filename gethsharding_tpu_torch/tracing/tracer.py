@@ -115,17 +115,26 @@ class Tracer:
     def new_trace_id(self) -> int:
         return next(self._ids)
 
-    def start(self, name: str, tags: Optional[dict] = None):
+    def start(self, name: str, tags: Optional[dict] = None,
+              ctx: Optional[Tuple[int, int]] = None):
         """Open a span under the context's current span (a new trace when
-        there is none); NOOP_SPAN when disabled."""
+        there is none); NOOP_SPAN when disabled. An explicit `ctx`, a
+        ``(trace_id, span_id)`` pair from another process's tracer carried
+        on the RPC trace envelope, wins over the local stack: the span
+        joins the remote trace under the remote span."""
         if not self.enabled:
             return NOOP_SPAN
         stack = _SPAN_STACK.get()
-        parent = stack[-1] if stack else None
-        trace_id = parent.trace_id if parent else self.new_trace_id()
+        if ctx is not None and ctx[0] is not None:
+            trace_id, parent_id = int(ctx[0]), ctx[1]
+            parent_id = None if parent_id is None else int(parent_id)
+        else:
+            parent = stack[-1] if stack else None
+            trace_id = parent.trace_id if parent else self.new_trace_id()
+            parent_id = parent.span_id if parent else None
         span = Span(self, name, trace_id=trace_id,
                     span_id=self.new_trace_id(),
-                    parent_id=parent.span_id if parent else None, tags=tags)
+                    parent_id=parent_id, tags=tags)
         span._token = _SPAN_STACK.set(stack + (span,))
         return span
 
@@ -207,12 +216,13 @@ def disable() -> None:
     TRACER.enabled = False
 
 
-def span(name: str, **tags):
+def span(name: str, ctx: Optional[Tuple[int, int]] = None, **tags):
     """Open a context-stacked span on the process tracer (no-op when
-    disabled): ``with tracing.span("notary/fetch"):``."""
+    disabled): ``with tracing.span("notary/fetch"):``. `ctx` adopts a
+    remote (trace_id, span_id), as `Tracer.start` says."""
     if not TRACER.enabled:
         return NOOP_SPAN
-    return TRACER.start(name, tags or None)
+    return TRACER.start(name, tags or None, ctx=ctx)
 
 
 def request_context() -> Optional[Tuple[int, int]]:
@@ -221,3 +231,8 @@ def request_context() -> Optional[Tuple[int, int]]:
     if not TRACER.enabled:
         return None
     return TRACER.current()
+
+
+# the wire-propagation name: what `RPCClient.call` ships on the JSON-RPC
+# trace envelope is the serving tier's stitching context
+current_context = request_context

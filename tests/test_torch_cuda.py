@@ -1234,3 +1234,45 @@ def test_dispatch_thread_launches_on_the_default_stream(cuda):
     assert got == TorchSigBackend().ecrecover_addresses(digests, sigs65)
     assert len(seen) == 1 and seen[0][0] == seen[0][1]
     assert _build.launch_counts()["ecrecover"] >= 1
+
+
+@pytest.mark.cuda
+def test_rpc_committees_on_card_equal_plain(cuda):
+    """A committee batch over the wire: an in-process `RPCServer` holding
+    `TorchSigBackend()` serves `shard_verifyCommittees` (keyed rows, a
+    forged vote and an empty committee) and `shard_verifyPeriodBatch`
+    from the serving tier's dispatch thread; the verdicts equal the
+    plain versions' on the same planes, with one `agg_g1` and one
+    `finalexp` launch for the call."""
+    from gethsharding_tpu_torch.rpc import codec
+    from gethsharding_tpu_torch.rpc.client import RPCClient
+    from gethsharding_tpu_torch.rpc.server import RPCServer
+    from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
+
+    msgs, sig_rows, pk_rows, want = _committee_period(8, 5)
+    keys = [("cuda-rpc", s) for s in range(len(msgs))]
+    server = RPCServer(SimulatedMainchain(), port=0,
+                       sig_backend=TorchSigBackend())
+    server.start()
+    client = RPCClient(*server.address, timeout=600)
+    try:
+        args = ([codec.enc_bytes(m) for m in msgs],
+                codec.enc_g1_rows(sig_rows), codec.enc_g2_rows(pk_rows),
+                codec.enc_pk_row_keys(keys))
+        assert client.call("shard_verifyCommittees", *args) == want
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        assert client.call("shard_verifyCommittees", *args) == want
+        launched = _build.launch_counts()
+        assert launched["agg_g1"] == 1 and launched["finalexp"] == 1
+        stats = client.call("shard_servingStats")
+        assert stats["dispatches"]["bls_verify_committees"] == 2
+        assert client.call("shard_verifyPeriodBatch", 0) is None
+    finally:
+        client.close()
+        server.stop()
+    planes = [torch.as_tensor(a, device=cuda)
+              for a in committee_planes(msgs, sig_rows, pk_rows)]
+    with route.plain_versions():
+        plain = bn.bls_aggregate_verify_committee_batch(*planes)
+    assert plain.cpu()[:len(msgs)].tolist() == want

@@ -81,9 +81,21 @@ REF = _pkg("gethsharding_tpu")
 BOTH = (PORT, REF)
 
 
-def _budget(proof_mode: str) -> dict:
-    """The fetch budget of a test's fetcher: short for merkle rows, the
-    service's default where admission runs a host pairing."""
+# the fetch budget of a fetch that succeeds: a fetch returns as soon as
+# its answers are admitted (the services' counters), so a long deadline
+# costs nothing there, and a loaded host does not miss it
+STEADY_FETCH_S = 30.0
+
+
+def _budget(proof_mode: str, honest: bool = False) -> dict:
+    """The fetch budget of a test's fetcher. A fetch that must fail (a
+    withheld or garbage answer) waits its deadline out, so it keeps a
+    short one: 1 s for merkle rows, the service's default (3 s) where
+    admission runs a host pairing. A fetch that succeeds gets
+    `STEADY_FETCH_S`."""
+    if honest:
+        return {"fetch_timeout": STEADY_FETCH_S,
+                "fetch_attempts": 3 if proof_mode == "poly" else 2}
     return ({} if proof_mode == "poly"
             else {"fetch_timeout": 1.0, "fetch_attempts": 2})
 
@@ -306,7 +318,7 @@ def test_netstore_fetches_over_the_hub_like_reference():
         hub = pk.p2p.Hub()
         server = pk.netstore.NetStore(p2p=pk.p2p.P2PServer(hub))
         fetcher = pk.netstore.NetStore(p2p=pk.p2p.P2PServer(hub),
-                                       fetch_timeout=1.0)
+                                       fetch_timeout=STEADY_FETCH_S)
         server.start()
         fetcher.start()
         try:
@@ -356,10 +368,11 @@ class _Pair:
     seeded accounts; `counters()` reads the `das/*` counters' movement
     since the pair was made. A poly fetcher keeps the service's default
     fetch budget (3 s over 3 attempts): its admission check is a host
-    pairing, ~1.4 s on this CPU."""
+    pairing, ~1.4 s on this CPU. `honest` pairs, whose fetches succeed,
+    get the steady budget (`_budget`)."""
 
     def __init__(self, pk, samples=6, proof_mode="merkle",
-                 fetch_proof_mode=None, chaos=(None, None)):
+                 fetch_proof_mode=None, chaos=(None, None), honest=False):
         self.pk = pk
         config = pk.params.Config()
         self.chain = pk.chain.SimulatedMainchain(config=config)
@@ -374,7 +387,7 @@ class _Pair:
             svc = pk.service.DASService(
                 client=client, p2p=pk.p2p.P2PServer(self.hub),
                 samples=samples, proof_mode=mode, chaos=chaos[i],
-                **_budget(fetch_proof_mode or proof_mode))
+                **_budget(fetch_proof_mode or proof_mode, honest))
             svc.start()
             self.services.append(svc)
             self.clients.append(client)
@@ -428,7 +441,7 @@ def _rows(rows) -> dict:
 
 def test_service_publish_fetch_verify_matches_reference(pairs):
     got = []
-    for pair in pairs():
+    for pair in pairs(honest=True):
         pk = pair.pk
         root32 = pk.hexbytes.Hash32(b"\x07" * 32)
         commitment = pair.prop.publish(2, 5, root32, _body(5, 21000))
@@ -630,7 +643,8 @@ def test_service_fires_chaos_seams_like_reference(pairs):
         schedules = (chaos.parse_spec("seed=3,das.parity_publish=1"),
                      chaos.parse_spec(spec))
         (pair,) = [p for p in pairs(samples=4, proof_mode=proof_mode,
-                                    chaos=schedules) if p.pk is pk]
+                                    chaos=schedules, honest=True)
+                   if p.pk is pk]
         root32 = pk.hexbytes.Hash32(b"\x09" * 32)
         with pytest.raises(chaos.InjectedFault):
             pair.prop.publish(1, 2, root32, _body(13, 9000))
@@ -809,7 +823,7 @@ def _sampled_network(pk, proof_mode="merkle", tamper=False, body_size=9000,
     body_watch = watch.subscribe(pk.msgs.CollationBodyRequest)
     svc_prop, svc_not = (pk.service.DASService(
         client=client, p2p=pk.p2p.P2PServer(hub), samples=samples,
-        proof_mode=proof_mode, **_budget(proof_mode))
+        proof_mode=proof_mode, **_budget(proof_mode, honest=not tamper))
         for client in clients)
     svc_prop.start()
     svc_not.start()

@@ -172,7 +172,6 @@ def test_journal_knob_turns_the_journal_off(monkeypatch):
 
 _REFUSED = {
     "actor='light'": {"actor": "light"},
-    "password": {"password": "pw"},
     "fleet_frontend": {"fleet_frontend": "127.0.0.1:1"},
     "http_port": {"http_port": 8545},
 }
@@ -959,7 +958,7 @@ PORTED_FLAGS = ("actor", "shardid", "deposit", "datadir", "periodlength",
                 "serving_max_batch", "serving_flush_us",
                 "serving_queue_cap", "serving_policy",
                 "serving_quota_rows", "serving_watchdog_s", "chaos",
-                "soundness_rate")
+                "soundness_rate", "password", "endpoint")
 
 
 def _sharding_actions(parser):

@@ -627,15 +627,80 @@ def test_default_backend_is_the_card():
         Notary(client=_client(), shard=Shard(0, MemoryKV()))
 
 
-def test_wire_form_audit_data_refuses():
-    """A remote chain's hex wire form needs `rpc/codec.py`, which the port
-    does not have: the row collection raises rather than read it."""
-    client = _client()
-    client.audit_data = lambda period: {"period": period, "shards": {}}
+@pytest.mark.parametrize("sealed", [True, False])
+def test_vote_that_misses_the_period_is_counted(sealed):
+    """A vote the chain reverts with 'period is not current' after it
+    sealed the period's last block is a missed vote: counted in
+    `notary/votes_missed`, no service error. The same revert inside the
+    period is a service error, as any other revert is."""
+    from types import SimpleNamespace
+
+    cfg = Config(shard_count=2, period_length=5)
+    client = _client(cfg)
     notary = Notary(client=client, shard=Shard(0, MemoryKV()),
-                    sig_backend=TorchSigBackend(device="cpu"))
-    with pytest.raises(ValueError, match="rpc/codec.py"):
-        notary._collect_audit_rows(1)
+                    sig_backend=TorchSigBackend(device="cpu"), config=cfg)
+    period = 3
+    client.notary_registry = lambda *a: SimpleNamespace(deposited=True,
+                                                        pool_index=0)
+    client.has_voted = lambda *a: False
+    client.bls_sign = lambda digest: None
+
+    def revert(*args, **kw):
+        raise sm.SMCRevert("period is not current")
+
+    client.submit_vote = revert
+    # the pending block is the next period's first when the period's last
+    # block is sealed; else still one of this period's
+    last = (period + 1) * cfg.period_length - 1
+    head = property(lambda self: last if sealed else last - 1)
+    record = SimpleNamespace(chunk_root=Hash32(b"\x11" * 32), signature=b"")
+    with mock.patch.object(SMCClient, "block_number", head):
+        before = notary.m_votes_missed.value
+        assert notary.submit_vote(1, period, record,
+                                  availability=True) is False
+        counted = notary.m_votes_missed.value - before
+    assert (notary.votes_missed, counted, notary.errors) == (
+        (1, 1, []) if sealed
+        else (0, 0, ["vote reverted: period is not current"]))
+
+
+def test_wire_form_audit_data_refuses():
+    """A remote chain's hex wire form (`shard_auditData`, `rpc/codec.py`)
+    and the in-process raw form give the same audit rows; a released
+    voter's row (no pubkey) is skipped in both."""
+    from gethsharding_tpu_torch.rpc import codec
+
+    sks = [bls.bls_keygen(b"wire-audit-%d" % j) for j in range(3)]
+    root = Hash32(b"\x5a" * 32)
+    digest = sm.vote_digest(1, 4, root)
+    raw_votes = [{"index": j, "signer": Address20(bytes([j + 1]) * 20),
+                  "sig": bls.bls_sign(bytes(digest), sk), "pubkey": pk}
+                 for j, (sk, pk) in enumerate(sks)]
+    released = [dict(raw_votes[0], pubkey=None)]
+    raw = {"period": 4, "raw": True, "shards": {
+        1: {"chunk_root": bytes(root), "vote_count": 3, "is_elected": True,
+            "votes": raw_votes},
+        0: {"chunk_root": bytes(root), "vote_count": 1, "is_elected": False,
+            "votes": released}}}
+    wire = {"period": 4, "shards": {
+        shard: {**rec, "chunk_root": rec["chunk_root"].hex(),
+                "votes": [{"index": v["index"],
+                           "signer": bytes(v["signer"]).hex(),
+                           "sig": codec.enc_g1(v["sig"]),
+                           "pubkey": codec.enc_g2(v["pubkey"])}
+                          for v in rec["votes"]]}
+        for shard, rec in raw["shards"].items()}}
+    rows = []
+    for data in (raw, json.loads(json.dumps(wire))):
+        client = _client()
+        data = dict(data, shards={int(k): v for k, v in
+                                  data["shards"].items()})
+        client.audit_data = lambda period, data=data: data
+        notary = Notary(client=client, shard=Shard(0, MemoryKV()),
+                        sig_backend=TorchSigBackend(device="cpu"))
+        rows.append(notary._collect_audit_rows(4))
+    assert rows[0] == rows[1]
+    assert rows[0]["shards"] == [1] and rows[0]["msgs"] == [digest]
 
 
 # == 4. the port's notary with jax absent ====================================
