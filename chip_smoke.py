@@ -13,7 +13,7 @@ steps 12 and 13, the notary service itself on its own chain, step
 `--da-mode sampled`, step 16, the serving and resilience plane,
 `--serving --soundness-rate --sigbackend failover-torch`, step 17, and
 the cross-process topology, a chain process serving remote callers and a
-devnet of OS processes, step 18):
+devnet of OS processes, step 18, and the shard mesh, step 19):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -305,7 +305,7 @@ resident on the card) and the recompute path (without keys):
    faults and fallbacks exactly the schedule's; (4) a 4 s chaos hang of
    the dispatch thread under a 1.5 s watchdog: `DeadlineExceeded`, the
    next batches served on the card by a fresh thread, the stale thread's
-   late call equal too; (5) step 15's devnet cut to 2 periods with every
+   late call equal too; (5) step 15's devnet cut to 1 period with every
    node `failover-torch` over the spot-checker (rate 1, one row) over
    `serving=True`: the notary's votes the SMC's records, the audit's,
    recovery's and the proposers' txpool kernels launched on the dispatch
@@ -337,7 +337,24 @@ resident on the card) and the recompute path (without keys):
    child's launches (`agg_g1`, `finalexp`, `tower`, `norm`,
    `ecrecover`) and heads from its log, the chain child's vote-log
    replay (`keccak_fixed`), the observer's canonical headers, no child
-   error.
+   error;
+19. the shard mesh (`mesh_phase`) over the distinct cards where there
+   are two or more, else 4 slots of `cuda:0` (printed which): (1) step
+   3's period through `TorchSigBackend(device=slots)`, keyed cold and
+   warm and unkeyed: the verdicts of one device's backend, one
+   reduction a step (`last_mesh`), every slot holding its verdicts, the
+   vote total their sum, each slot's audit kernels launched (counted
+   from `launch_counts`), the slots' line-table caches sharing no
+   tensor; both warm audits timed beside one device; (2)
+   `CommitteePeriodPipeline` on the period plus one shard (101, uneven)
+   over the 1-D mesh and a 2 × 2 ("dcn", "ici") mesh: every plane and
+   total equal to one device, one reduction per mesh axis; (3) config
+   5's mesh form on step 13's inputs (not built again) at 1,024 and
+   1,023 shards: every plane and total equal to one device's step bit
+   for bit, one reduction, timed beside it; (4) the dry run twin
+   (`parallel/dryrun.py`) on the slots, and `sharding --mesh-devices N`
+   with N one above the visible cards, which must exit non-zero with
+   `requested N devices, only N-1 visible`.
 
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
@@ -2124,7 +2141,7 @@ def stress_inputs(path: str, seed: int) -> int:
     return 0
 
 
-def stress_phase(card: str, seed: int, started) -> None:
+def stress_phase(card: str, seed: int, started):
     """Step 13: config 5 on one card, 1,024 shards, 2 votes and 1
     transaction a shard, a pool of 135, at quorum 90 (nothing elected)
     and at quorum 2 (every shard elects). Counted from 0 around each
@@ -2133,7 +2150,8 @@ def stress_phase(card: str, seed: int, started) -> None:
     and replay kernel, normalizes as glue; every attempt accepted, every
     aggregate and transaction valid, 2,048 votes; equal to the plain
     versions on the card; timed warm with its split by kernel and the
-    idle share."""
+    idle share. Returns its inputs (inputs, pool, blockhash, sample size)
+    for step 19."""
     from gethsharding_tpu_torch.ops import _build, route
     from gethsharding_tpu_torch.parallel import stress
     from gethsharding_tpu_torch.params import Config
@@ -2230,6 +2248,7 @@ def stress_phase(card: str, seed: int, started) -> None:
                   f"its device time {ms:.3f} ms a step, "
                   f"{r['bound_ms'] / ms:.1%} of its bound [{card}]",
                   flush=True)
+    return inputs, pool, bh, size
 
 
 @functools.lru_cache(maxsize=None)
@@ -3299,7 +3318,8 @@ CHAOS_THRESHOLD = 3        # the breaker's consecutive faults to trip
 CHAOS_RESET_S = 5.0        # the breaker's open cooldown, on its own clock
 WATCHDOG_S = 1.5           # the watchdog's deadline
 WATCHDOG_HANG_S = 4.0      # the chaos hang of the watchdog phase
-SERVE_PERIODS = 2          # the node devnet of step 17
+SERVE_PERIODS = 1          # the node devnet of step 17 (cut from 2 for
+                           # step 19)
 
 
 class LaunchThreads:
@@ -4516,6 +4536,228 @@ def topology_phase(card: str, period, vote, medians) -> None:
           flush=True)
 
 
+MESH_SLOTS = 4          # slots of cuda:0 where the machine has one card
+MESH_REPS = 5           # warm calls timed a layout
+
+
+def syncs_of(fn) -> dict:
+    """Run `fn` under PyTorch's CUDA sync debug mode: the host syncs it
+    made, counted by the source line that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return dict(collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message)))
+
+
+def mesh_slots():
+    """Step 19's slots: the distinct cards where there are two or more,
+    else MESH_SLOTS slots of cuda:0; and how to say which."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} distinct cards")
+    return ([torch.device("cuda", 0)] * MESH_SLOTS,
+            f"{MESH_SLOTS} slots of cuda:0 (one card: the layout, padding, "
+            f"per-slot caches, launches and reduction run on real kernels; "
+            f"copies between distinct cards do not)")
+
+
+def slot_launch_line(launches) -> str:
+    return "; ".join(f"slot {i}: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(d.items())) for i, d in
+        enumerate(launches))
+
+
+def mesh_phase(card: str, period, built) -> None:
+    """Step 19: the shard mesh (`parallel/mesh.py`) over `mesh_slots()`:
+    (1) the committee audit of step 3's period through
+    `TorchSigBackend(device=slots)`, keyed cold and warm and unkeyed;
+    (2) `CommitteePeriodPipeline` on that period plus one shard, over the
+    1-D mesh and a 2 × 2 ("dcn", "ici") mesh; (3) config 5's mesh form
+    on step 13's inputs (`built`), at 1,024 and 1,023 shards; (4) the dry
+    run twin on the slots, and `sharding --mesh-devices N` with N above
+    the visible cards, which must exit non-zero with the reference's
+    message. Each against the single-device path, bit for bit; one
+    reduction per mesh axis a step; timed warm beside one device."""
+    t_step = time.perf_counter()
+    slots, what = mesh_slots()
+    too_many = torch.cuda.device_count() + 1
+    cli = start_cli(["sharding", "--actor", "notary", "--runtime", "1",
+                     "--mesh-devices", str(too_many)])
+    try:
+        mesh_checks(card, period, built, slots, what)
+    except BaseException:
+        stop_cli(cli)
+        raise
+    log, cli_s = finish_cli(cli, "step 19.4")
+    msg = f"requested {too_many} devices, only {too_many - 1} visible"
+    if cli[1].returncode == 0 or msg not in log:
+        fail(f"step 19.4: `sharding --mesh-devices {too_many}` exited "
+             f"{cli[1].returncode}: {log[-2000:]}")
+    print(f"mesh CLI: `sharding --mesh-devices {too_many}` exited "
+          f"{cli[1].returncode} with {msg!r} ({cli_s:.1f} s)", flush=True)
+    print(f"step 19: {time.perf_counter() - t_step:.1f} s in all",
+          flush=True)
+
+
+def mesh_checks(card: str, period, built, slots, what: str) -> None:
+    """Steps 19.1-19.4 but the CLI's (`mesh_phase`)."""
+    from gethsharding_tpu_torch.crypto import bn256 as bls
+    from gethsharding_tpu_torch.parallel import mesh, period as pp, stress
+    from gethsharding_tpu_torch.parallel.dryrun import dryrun_multichip
+    from gethsharding_tpu_torch.params import Config
+    from gethsharding_tpu_torch.sigbackend.dispatch import TorchSigBackend
+
+    n_slots = len(slots)
+    print(f"mesh (step 19): {what}", flush=True)
+    msgs, sig_rows, pk_rows, keys, want = period
+
+    # 19.1 the committee audit
+    single = TorchSigBackend(device=slots[0])
+    meshed = TorchSigBackend(device=slots)
+    for label, row_keys in (("keyed, cold", keys), ("keyed, warm", keys),
+                            ("unkeyed (recompute)", None)):
+        reductions = meshed.layout.mesh.reductions
+        got, launched = launches_of(lambda: meshed.bls_verify_committees(
+            msgs, sig_rows, pk_rows, pk_row_keys=row_keys))
+        info = meshed.last_mesh
+        if got != want or got != single.bls_verify_committees(
+                msgs, sig_rows, pk_rows, pk_row_keys=row_keys):
+            fail(f"step 19.1: the mesh audit ({label}) differs from the "
+                 f"known verdicts or the single-device backend")
+        if (info["collectives"], meshed.layout.mesh.reductions
+                - reductions) \
+                != (1, 1) or info["verdict_devices"] != n_slots \
+                or info["vote_total"] != sum(want) \
+                or info["precomp"] != (row_keys is not None):
+            fail(f"step 19.1: the mesh record ({label}) {info}")
+        need = {"agg_g1", "finalexp"} | (
+            {"miller", "agg_g2"} if row_keys is None else {"tower"})
+        if label == "keyed, cold":
+            need.add("agg_g2")
+        for i, d in enumerate(info["slot_launches"]):
+            if not need <= set(d) or d.get("agg_g1") != 1 \
+                    or d.get("finalexp") != 1:
+                fail(f"step 19.1: slot {i} ({label}) launched {d}")
+        print(f"mesh audit ({label}, {SHARDS} x {COMMITTEE} over "
+              f"{n_slots} slots, bucket {info['bucket']}): {sum(got)} of "
+              f"{SHARDS} verified, equal to one device; "
+              f"{info['collectives']} reduction; launches "
+              f"{slot_launch_line(info['slot_launches'])} [{card}]",
+              flush=True)
+    ptrs = [{t.untyped_storage().data_ptr() for t in c.tensors()}
+            for c in meshed.line_shards]
+    if any(not p for p in ptrs) or any(
+            ptrs[i] & ptrs[j] for i in range(n_slots)
+            for j in range(i + 1, n_slots)):
+        fail("step 19.1: the slots' line-table caches share a tensor or "
+             "one is empty")
+    times = {}
+    for label, row_keys in (("keyed warm", keys), ("unkeyed", None)):
+        for name, b in (("mesh", meshed), ("single", single)):
+            times[label, name] = host_ms(
+                lambda: b.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                                pk_row_keys=row_keys),
+                MESH_REPS)
+    syncs = {label: syncs_of(lambda: meshed.bls_verify_committees_async(
+        msgs, sig_rows, pk_rows, pk_row_keys=row_keys))
+        for label, row_keys in (("keyed warm", keys), ("unkeyed", None))}
+    print(f"mesh audit host syncs from staging to the last slot's launch "
+          f"and the reduction (before the verdicts' pull), by line: {syncs}",
+          flush=True)
+    print(f"time mesh audit (warm, median of {MESH_REPS}, to the verdicts): "
+          + ", ".join(f"{label} {times[label, 'mesh']:.1f} ms over "
+                      f"{n_slots} slots against {times[label, 'single']:.1f}"
+                      f" ms on one device" for label in ("keyed warm",
+                                                         "unkeyed"))
+          + f"; the slots' caches hold {[len(c) for c in meshed.line_shards]}"
+            f" tables, disjoint [{card}]", flush=True)
+
+    # 19.2 the committee period pipeline, one extra shard: uneven
+    extra = b"period-mesh/extra-shard"
+    h = bls.hash_to_g1(extra)
+    votes = [bls.g1_mul(j + 1, h) for j in range(COMMITTEE)]
+    pks = [bls.g2_mul(j + 1, bls.G2_GEN) for j in range(COMMITTEE)]
+    headers = list(msgs) + [extra]
+    srows, prows = list(sig_rows) + [votes], list(pk_rows) + [pks]
+    cfg = Config()
+    one = pp.CommitteePeriodPipeline(cfg, device=slots[0])
+    inputs = one.build_inputs(headers, srows, prows)
+    base = one.run(inputs)
+    if base.verified.tolist() != want + [True]:
+        fail("step 19.2: the single-device period pipeline's verdicts")
+    layouts = [("1-D", mesh.make_mesh(devices=slots), 1)]
+    if n_slots % 2 == 0:
+        layouts.append(("2-D", mesh.make_multihost_mesh(
+            n_slots // 2, 2, slots), 2))
+    for label, m, axes in layouts:
+        out = pp.CommitteePeriodPipeline(cfg, mesh=m).run(inputs)
+        if m.reductions != axes or any(
+                not torch.equal(getattr(out, f).cpu(), getattr(base, f).cpu())
+                for f in pp.PeriodOutputs._fields):
+            fail(f"step 19.2: the period pipeline on the {label} mesh "
+                 f"differs from one device")
+    equal_on = ", ".join(f"{label} ({axes} reductions)"
+                         for label, _, axes in layouts)
+    print(f"mesh period pipeline: {SHARDS + 1} shards, verified "
+          f"{int(base.verified.sum())}, approved {int(base.approved.sum())} "
+          f"(quorum {cfg.quorum_size}), totals votes {int(base.total_votes)}"
+          f", approved {int(base.total_approved)}; equal on {equal_on} and "
+          f"one device [{card}]", flush=True)
+
+    # 19.3 config 5's mesh form on step 13's inputs
+    inputs, pool, bh, size = built
+    cfg2 = Config(quorum_size=2)
+    m1 = mesh.make_mesh(devices=slots)
+    for shards in (STRESS_SHARDS, STRESS_SHARDS - 1):
+        cut = stress.StressInputs(*(a[:shards] for a in inputs))
+        base = stress.StressPipeline(cfg2).run(cut, pool, bh, 1, size)
+        reductions = m1.reductions
+        out, launched = launches_of(lambda: stress.StressPipeline(
+            cfg2, mesh=m1).run(cut, pool, bh, 1, size))
+        if m1.reductions - reductions != 1:
+            fail("step 19.3: the stress mesh reduced more than once")
+        diff = [f for f in stress.StressOutputs._fields
+                if not torch.equal(getattr(out, f).cpu(),
+                                   getattr(base, f).cpu())]
+        if diff:
+            fail(f"step 19.3: the stress mesh at {shards} shards differs "
+                 f"from one device in {diff}")
+        if int(out.total_votes) != shards * STRESS_VOTES \
+                or int(out.total_txs) != shards * STRESS_TXS:
+            fail(f"step 19.3: the stress mesh's totals at {shards} shards")
+        syncs = syncs_of(lambda: stress.StressPipeline(cfg2, mesh=m1).run(
+            cut, pool, bh, 1, size))
+        mesh_ms = host_ms(lambda: stress.StressPipeline(cfg2, mesh=m1).run(
+            cut, pool, bh, 1, size).total_txs.item(), MESH_REPS)
+        one_ms = host_ms(lambda: stress.StressPipeline(cfg2).run(
+            cut, pool, bh, 1, size).total_txs.item(), MESH_REPS)
+        print(f"mesh stress step: {shards} shards over {n_slots} slots "
+              f"({-(-shards // n_slots)} a slot), every plane and total "
+              f"equal to one device, 1 reduction; launches "
+              f"{ {k: v for k, v in launched.items() if k != 'norm'} } "
+              f"({launched.get('norm', 0)} norm); host syncs before the "
+              f"totals' pull, by line: {syncs}; time (warm, median of "
+              f"{MESH_REPS}, to the totals' pull) {mesh_ms:.2f} ms against "
+              f"{one_ms:.2f} ms on one device [{card}]", flush=True)
+
+    # 19.4 the dry run twin, and the CLI asking for too many cards
+    t0 = time.perf_counter()
+    summary = dryrun_multichip(slots)
+    print(f"mesh dry run: {summary} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def exact_phase(seed: int) -> int:
     """Step 8, in a process of its own with GETHSHARDING_TORCH_LIMB_FORM=
     exact. Prints its lines and, last, one `EXACT_KERNEL <json>` line per
@@ -5478,7 +5720,7 @@ def main() -> int:
     marks.append(("11", time.perf_counter()))
     kernels += replay_phase(card, args.seed)
     marks.append(("12", time.perf_counter()))
-    stress_phase(card, args.seed, stress_build)
+    stressed = stress_phase(card, args.seed, stress_build)
     marks.append(("13", time.perf_counter()))
     members = notary_phase(card, args.seed)
     marks.append(("14", time.perf_counter()))
@@ -5492,6 +5734,8 @@ def main() -> int:
     topology_phase(card, (msgs, sig_rows, pk_rows, keys, want), vote,
                    medians)
     marks.append(("18", time.perf_counter()))
+    mesh_phase(card, (msgs, sig_rows, pk_rows, keys, want), stressed)
+    marks.append(("19", time.perf_counter()))
     prev, parts = t_smoke, []
     for name, t in marks:
         parts.append(f"{name} {t - prev:.1f}")

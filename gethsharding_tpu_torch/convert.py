@@ -7,8 +7,9 @@ the precomp path across: a resident line table and its infinity flags.
 `srs_from_reference` carries the DAS multiproofs' structured reference
 string across: the same powers of τ as the port's `pcs.SRS`.
 `replay_inputs_from_reference`, `vote_state_from_reference`,
-`vote_attempts_from_reference` and `stress_inputs_from_reference` carry
-the replay, vote-batch and stress planes across (the reference's
+`vote_attempts_from_reference`, `stress_inputs_from_reference` and
+`period_inputs_from_reference` carry the replay, vote-batch, stress and
+period-pipeline planes across (the reference's
 NamedTuples of arrays, read as numpy), limb planes in the port's limb
 form. `smc_fields` reads a scalar SMC's state (either package's: it
 only reads attributes) into plain Python values, and `smc_from_fields`
@@ -137,6 +138,16 @@ def stress_inputs_from_reference(inp, device=None):
     return stress.StressInputs(**_planes(
         inp, stress.StressInputs._fields, _REPLAY_LIMBS + _BLS_LIMBS,
         _KINDS, device))
+
+
+def period_inputs_from_reference(inp, device=None):
+    """A reference `parallel/period.py::PeriodInputs` or
+    `CommitteePeriodInputs` -> the port's twin of the same class name."""
+    from gethsharding_tpu_torch.parallel import period
+
+    cls = getattr(period, type(inp).__name__)
+    limbs = ("hx", "hy", "sx", "sy", "sigx", "sigy", "pkx", "pky")
+    return cls(**_planes(inp, cls._fields, limbs, _KINDS, device))
 
 
 def line_tables_from_reference(tab, inf, device=None):

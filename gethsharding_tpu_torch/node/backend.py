@@ -12,7 +12,11 @@ The node runs on `device` (None: the CUDA card, which raises where there
 is none; "cpu" runs the kernels' plain versions): the notary's
 `TorchSigBackend` and the observer's replay both take it. What the port
 has not ported yet is refused by a `ValueError` that names the missing
-module (`UNPORTED`).
+module (`UNPORTED`). With `mesh_devices` above 1 (`--mesh-devices`, or
+`$GETHSHARDING_TORCH_MESH_DEVICES`) a `torch` backend audits over that
+many slots (`sigbackend/layout.py`): distinct cards, or `device` repeated;
+too few cards raise `requested N devices, only M visible`, and the node's
+own device is slot 0.
 
 The signature backend is composed innermost first, each layer optional,
 as the JAX package composes it: device backend (`sig_backend`) -> chaos
@@ -52,6 +56,7 @@ from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
 from gethsharding_tpu_torch.resilience.journal import VoteJournal
 from gethsharding_tpu_torch.sigbackend import (BACKEND_NAMES, SigBackend,
                                               build_backend, get_backend)
+from gethsharding_tpu_torch.sigbackend.layout import resolve_slots
 from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
 from gethsharding_tpu_torch.storage.netstore import NetStore
 
@@ -99,7 +104,8 @@ class ShardNode:
                  da_samples: int = 16,
                  da_parity: float = 0.5,
                  da_proofs: str = "merkle",
-                 fleet_frontend: Optional[str] = None):
+                 fleet_frontend: Optional[str] = None,
+                 mesh_devices: Optional[int] = None):
         if actor not in self.ACTORS:
             raise ValueError(f"unknown actor {actor!r}; pick from {self.ACTORS}")
         if da_mode not in ("full", "sampled"):
@@ -126,9 +132,12 @@ class ShardNode:
         self.actor = actor
         self.shard_id = shard_id
         self.config = config
-        # no fallback: a node without a card raises here unless the caller
-        # asked for the CPU
-        self.device = resolve_device(device)
+        # no fallback: a node without a card, or with fewer cards than its
+        # mesh asks for, raises here unless the caller asked for the CPU
+        target = (resolve_slots(device, mesh_devices)
+                  if inner_name.endswith("torch") else resolve_device(device))
+        self.slots = target if isinstance(target, list) else None
+        self.device = self.slots[0] if self.slots else target
         self._serving_backend = None
         self.sig_backend = self._compose(inner_name, failover, serving,
                                          serving_config, chaos,
@@ -252,7 +261,8 @@ class ShardNode:
                  chaos, soundness_rate) -> SigBackend:
         """device -> chaos -> serving -> soundness -> failover (see the
         module docstring)."""
-        device = composed = build_backend(inner_name, self.device)
+        device = composed = build_backend(inner_name,
+                                          self.slots or self.device)
         if inner_name.startswith("serving-"):
             self._serving_backend = device
         if chaos is not None:

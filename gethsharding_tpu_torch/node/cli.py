@@ -4,7 +4,8 @@ the JAX package's `node/cli.py`).
 
 Parity: `cmd/geth/shardingcmd.go` (+ flags `cmd/utils/flags.go:536-549`):
 `sharding --actor {notary,proposer,observer} --shardid N --deposit
---datadir PATH --password PW`, the data-availability flags (`--da-mode
+--datadir PATH --password PW`, `--mesh-devices N` (the committee audit
+over an N-card shard mesh), the data-availability flags (`--da-mode
 sampled --da-proofs merkle|poly --da-samples K --da-parity R`), the serving
 and resilience flags (`--serving` and its `--serving-*` knobs, `--chaos
 SPEC`, `--soundness-rate R`, `--sigbackend failover-torch`), plus the
@@ -82,6 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
                                "failover-* puts the chosen backend behind "
                                "a circuit breaker over the scalar fallback "
                                "(resilience/breaker.py)")
+    sharding.add_argument("--mesh-devices", type=int, default=None,
+                          help="lay the torch sigbackend over an N-device "
+                               "1-D shard mesh: each card audits its slab "
+                               "of committees and the vote total is the "
+                               "only value crossing cards (default "
+                               "GETHSHARDING_TORCH_MESH_DEVICES, else 1: "
+                               "one card)")
     sharding.add_argument("--serving", action="store_true",
                           help="run signature verification through the "
                                "micro-batching serving tier: concurrent "
@@ -363,6 +371,7 @@ def run_sharding_node(args, device=None) -> int:
             serving_config=serving_config,
             chaos=chaos_schedule,
             soundness_rate=soundness_rate,
+            mesh_devices=args.mesh_devices,
         )
     except (ValueError, RuntimeError) as exc:
         print(f"sharding: {exc}", file=sys.stderr)

@@ -572,6 +572,12 @@ def generator_line_table() -> np.ndarray:
     return np.array(_GEN_LINES)
 
 
+def generator_lines_on(device) -> torch.Tensor:
+    """The G2 generator's line table on `device`, made once per device
+    (the table `miller_loop_precomp` takes by default)."""
+    return const(_GEN_LINES, device)
+
+
 def precompute_lines(pkx, pky, pkz):
     """Walk the optimal-ate schedule once for a fixed projective G2 point
     (..., 2, 25) each and return its line table (..., 88, 3, 2, 25): per
@@ -627,7 +633,7 @@ def miller_loop_precomp(sig, hx, hy, table, gen_lines=None):
     so the same limbs."""
     sx, sy, sz = sig
     dev = sx.device
-    gen = const(_GEN_LINES, dev) if gen_lines is None else gen_lines
+    gen = generator_lines_on(dev) if gen_lines is None else gen_lines
     gen = torch.cat([gen[:, :2], FP.normalize(gen[:, 2:])], dim=1)
     at_sig = torch.stack([sy, sx, sz], dim=-2)[..., None, :, None, :]
     gen_ev = FP.mul(gen, at_sig)                           # (..., 88, 3, 2, 25)

@@ -130,7 +130,12 @@ _CONSTS: dict = {}
 
 def const(arr: np.ndarray, device) -> torch.Tensor:
     """A numpy constant as a tensor on `device`, made once per device
-    (keyed by the array's identity: callers pass module-level tables)."""
+    (keyed by the array's identity: callers pass module-level tables, and
+    by the device with its index, so two cards never share an entry)."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.index is None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     key = (id(arr), str(device))
     hit = _CONSTS.get(key)
     if hit is None:

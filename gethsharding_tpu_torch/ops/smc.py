@@ -104,11 +104,15 @@ def sample_committee(blockhash: torch.Tensor, pool_index: torch.Tensor,
 def submit_votes_batch(state: VoteState, pool_addr: torch.Tensor,
                        attempts: VoteAttempts, *, period: int,
                        blockhash: torch.Tensor, sample_size,
-                       committee_size: int, quorum_size: int):
+                       committee_size: int, quorum_size: int,
+                       sample_shard: torch.Tensor = None):
     """Apply a period's submitVote batch. Returns (new_state, accepted).
 
     pool_addr (P, 20) uint8, zero rows for empty slots; period an int
-    (the caller guarantees the attempts were made in it, .sol:203)."""
+    (the caller guarantees the attempts were made in it, .sol:203).
+    `sample_shard` (A,) int32 replaces the shard ids of the committee
+    sampling: on a mesh slot the state is indexed by the slab's local
+    ids while the sampling must see the global ones."""
     period = int(period)
     s_count, c_size = state.has_voted.shape
     if c_size != committee_size:
@@ -128,8 +132,10 @@ def submit_votes_batch(state: VoteState, pool_addr: torch.Tensor,
     root_ok = (attempts.chunk_root == state.chunk_root[shard_ix]).all(dim=-1)
 
     # the sender is the sampled committee member (.sol:212-214)
-    slot = sample_committee(blockhash, attempts.pool_index, attempts.shard,
-                            sample_size)
+    slot = sample_committee(
+        blockhash, attempts.pool_index,
+        attempts.shard if sample_shard is None else sample_shard,
+        sample_size)
     member = pool_addr[slot.clamp(0, pool_cap - 1).long()]
     member = torch.where((slot < pool_cap)[:, None], member,
                          torch.zeros_like(member))

@@ -20,8 +20,15 @@ read:
                                   csrc/keccak_fixed.cu)
   -> the period totals.
 
-The reference's mesh form (`shard_map` over the shard axis, the totals as
-psums) is not part of this module.
+With a `Mesh` (`parallel/mesh.py`) the step runs in its mesh form, the
+reference's `shard_map`: each slot runs `_step` on its contiguous slab of
+shards, with the committee sampling on global shard ids (`base` = slot ×
+slab) and the vote state on the slab's local ids. An uneven shard count
+pads with zero rows, masked as the reference masks them (no new header,
+no valid vote attempt, no valid aggregate, no valid transaction). The
+three totals, stacked, cross the slots in one reduction per mesh axis
+(`hierarchical_psum`, the innermost axis first); the per-shard outputs are
+joined on slot 0 and cut back to the shard count.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from gethsharding_tpu_torch.crypto.keccak import keccak256
 from gethsharding_tpu_torch.device import resolve_device
 from gethsharding_tpu_torch.ops import bn256 as bn
 from gethsharding_tpu_torch.ops import replay, smc
+from gethsharding_tpu_torch.parallel import mesh as mesh_mod
 from gethsharding_tpu_torch.params import Config, DEFAULT_CONFIG
 from gethsharding_tpu_torch.smc.state_machine import vote_digest
 from gethsharding_tpu_torch.utils.hexbytes import Address20, Hash32
@@ -105,8 +113,10 @@ class StressOutputs(NamedTuple):
 
 
 def _step(inp: StressInputs, pool_addr, blockhash, period: int,
-          sample_size: int, committee_size: int,
-          quorum_size: int) -> StressOutputs:
+          sample_size: int, committee_size: int, quorum_size: int,
+          base: int = 0) -> StressOutputs:
+    """The step on one device's shards; `base` is the global id of its
+    first shard (a mesh slot's slab), which the committee sampling sees."""
     s, v = inp.att_index.shape
 
     # 1. addHeader resets
@@ -117,7 +127,8 @@ def _step(inp: StressInputs, pool_addr, blockhash, period: int,
     state = smc.add_header_reset_masked(state, inp.new_header, period,
                                         inp.new_chunk_root)
 
-    # 2. the submitVote batch, the attempts flattened shard by shard
+    # 2. the submitVote batch, the attempts flattened shard by shard:
+    # local ids route the state, global ids feed the sampling
     flat = lambda x: x.reshape((s * v,) + x.shape[2:])
     shard_ids = torch.arange(s, dtype=torch.int32,
                              device=inp.att_index.device).repeat_interleave(v)
@@ -129,7 +140,8 @@ def _step(inp: StressInputs, pool_addr, blockhash, period: int,
     state, accepted = smc.submit_votes_batch(
         state, pool_addr, attempts, period=period, blockhash=blockhash,
         sample_size=sample_size, committee_size=committee_size,
-        quorum_size=quorum_size)
+        quorum_size=quorum_size,
+        sample_shard=None if base == 0 else shard_ids + base)
 
     # 3. committee BLS aggregation and verification
     agg_ok = bn.bls_aggregate_verify_committee_batch(
@@ -154,20 +166,50 @@ def _step(inp: StressInputs, pool_addr, blockhash, period: int,
 
 
 class StressPipeline:
-    """The config-5 step on the device of its inputs (the card, or the CPU
-    for CPU tensors), with the committee and quorum of `config`."""
+    """The config-5 step with the committee and quorum of `config`: on the
+    device of its inputs (the card, or the CPU for CPU tensors), or over
+    `mesh`'s slots (module docstring)."""
 
-    def __init__(self, config: Config = DEFAULT_CONFIG):
+    def __init__(self, config: Config = DEFAULT_CONFIG,
+                 mesh: mesh_mod.Mesh = None):
         self.config = config
+        self.mesh = mesh
 
     def run(self, inputs: StressInputs, pool_addr, blockhash, period: int,
             sample_size: int) -> StressOutputs:
-        dev = inputs.has_voted.device
-        on = lambda x: (x if isinstance(x, torch.Tensor) else torch.as_tensor(
-            np.array(x, np.uint8))).to(device=dev, dtype=torch.uint8)
-        return _step(inputs, on(pool_addr), on(blockhash), int(period),
-                     int(sample_size), self.config.committee_size,
-                     self.config.quorum_size)
+        c, q = self.config.committee_size, self.config.quorum_size
+        if self.mesh is None:
+            dev = inputs.has_voted.device
+            with mesh_mod.slot_context(dev):
+                return _step(inputs, _bytes_on(pool_addr, dev),
+                             _bytes_on(blockhash, dev), int(period),
+                             int(sample_size), c, q)
+        m = self.mesh
+        n = int(inputs.has_voted.shape[0])
+        padded = -(-n // m.size) * m.size
+        rows = padded // m.size
+        slabs = [mesh_mod.split_rows(mesh_mod.pad_rows(a, padded - n), m)
+                 for a in inputs]
+        outs = []
+        for i, dev in enumerate(m.devices):
+            with mesh_mod.slot_context(dev):
+                slab = StressInputs(*(plane[i] for plane in slabs))
+                outs.append(_step(slab, _bytes_on(pool_addr, dev),
+                                  _bytes_on(blockhash, dev), int(period),
+                                  int(sample_size), c, q, base=i * rows))
+        totals = mesh_mod.hierarchical_psum(
+            [torch.stack([o.total_votes, o.total_elected, o.total_txs])
+             for o in outs], m)
+        joined = [mesh_mod.gather_rows([getattr(o, name) for o in outs])[:n]
+                  for name in StressOutputs._fields[:6]]
+        return StressOutputs(*joined, *totals.unbind(0))
+
+
+def _bytes_on(x, dev) -> torch.Tensor:
+    """A uint8 plane (numpy, a sequence or a tensor) on `dev`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.array(x, np.uint8))
+    return x.to(device=dev, dtype=torch.uint8)
 
 
 # == distinct-per-shard workload builder ===================================

@@ -12,8 +12,10 @@ The verification RPCs (`shard_verifyCommittees`, `shard_ecrecover`,
 vote-log replay (`shard_verifyPeriodBatch`) run through one serving tier,
 composed device → (chaos) → serving → (soundness) → (failover) as the
 node composes it. `--sigbackend torch` puts the port's CUDA kernels under
-it and exits non-zero where there is no card; `python` serves from the
-host. The vote-log replay runs where the backend runs.
+it and exits non-zero where there is no card; `--mesh-devices N` lays them
+over an N-card shard mesh (`sigbackend/layout.py`) and exits non-zero
+where fewer cards are visible; `python` serves from the host. The
+vote-log replay runs where the backend runs (slot 0 of a mesh).
 
 Prints one JSON line {"host": ..., "port": ...} on stdout once listening,
 so a parent process (test harness, orchestrator) can dial it. Logs, and
@@ -38,7 +40,6 @@ from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
 
 # the reference's options whose modules the port has not ported
 UNPORTED = {
-    "--mesh-devices": "parallel/mesh.py",
     "--trace-out": "tracing/export.py",
     "--fleettrace-export": "fleettrace/",
 }
@@ -81,8 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "and exports the breaker state on "
                              "shard_health")
     parser.add_argument("--mesh-devices", type=int, default=None,
-                        help="not ported: the multi-device layout waits "
-                             "for parallel/mesh.py")
+                        help="lay the torch sigbackend over an N-device "
+                             "1-D shard mesh (default GETHSHARDING_TORCH_"
+                             "MESH_DEVICES, else 1: one card); too few "
+                             "cards exit non-zero")
     parser.add_argument("--serving-watchdog-s", type=float, default=0.0,
                         help="dispatch watchdog deadline for the serving "
                              "tier (0 = off): a wedged device call fails "
@@ -122,8 +125,7 @@ def build_parser() -> argparse.ArgumentParser:
 def refused(args) -> str:
     """The first unported option given, named with its module ('' when
     none is)."""
-    given = {"--mesh-devices": args.mesh_devices is not None,
-             "--trace-out": bool(args.trace_out),
+    given = {"--trace-out": bool(args.trace_out),
              "--fleettrace-export": args.fleettrace_export is not None}
     for option, on in given.items():
         if on:
@@ -134,8 +136,8 @@ def refused(args) -> str:
 
 def compose(args, device):
     """device → (chaos) → serving → (soundness) → (failover), as the node
-    composes its backend (node/backend.py). Returns (the composition, the
-    serving tier)."""
+    composes its backend (node/backend.py); `device` a list of slots for a
+    mesh. Returns (the composition, the serving tier)."""
     from gethsharding_tpu_torch.serving import (ServingConfig,
                                                 ServingSigBackend)
     from gethsharding_tpu_torch.sigbackend import build_backend
@@ -207,6 +209,7 @@ def main(argv=None) -> int:
         return 2
     from gethsharding_tpu_torch import tracing
     from gethsharding_tpu_torch.device import resolve_device
+    from gethsharding_tpu_torch.sigbackend.layout import resolve_slots
 
     if args.trace:
         tracing.enable(ring_spans=args.trace_ring)
@@ -218,12 +221,16 @@ def main(argv=None) -> int:
     if args.networkid is not None:
         overrides["network_id"] = args.networkid
     config = Config(**overrides)
-    # the card for the port's kernels (no card: exit non-zero, never a
-    # fallback); the host for the scalar backend
+    # the card, or the mesh's cards, for the port's kernels (no card or
+    # too few: exit non-zero, never a fallback); the host for the scalar
+    # backend
     try:
-        device = resolve_device(
-            None if args.sigbackend.endswith("torch") else "cpu")
-        composed, serving = compose(args, device)
+        if args.sigbackend.endswith("torch"):
+            target = resolve_slots(None, args.mesh_devices)
+        else:
+            target = resolve_device("cpu")
+        composed, serving = compose(args, target)
+        device = target[0] if isinstance(target, list) else target
     except (RuntimeError, ValueError) as exc:
         print(f"chain-server: {exc}", file=sys.stderr)
         return 2

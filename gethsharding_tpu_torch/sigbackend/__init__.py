@@ -192,12 +192,13 @@ BACKEND_NAMES = ("torch", "python", "serving-torch", "serving-python",
 
 def build_backend(name: str, device=None, part=None) -> SigBackend:
     """A new backend of registry name `name`: 'torch' on `device` (None:
-    the CUDA card), 'python', 'serving-<inner>' (the coalescing tier over
-    `part(inner)`) or 'failover-<primary>' (a breaker over `part(primary)`
-    with `part('python')` as its fallback). `part` makes the named inner
-    layer: by default a new one on `device`; `get_backend` passes itself,
-    so that its wrappers wrap its own backends (imported only when
-    asked for)."""
+    the CUDA card, or `$GETHSHARDING_TORCH_MESH_DEVICES` cards; a list of
+    devices: a mesh of those slots, `sigbackend/layout.py`), 'python',
+    'serving-<inner>' (the coalescing tier over `part(inner)`) or
+    'failover-<primary>' (a breaker over `part(primary)` with
+    `part('python')` as its fallback). `part` makes the named inner layer:
+    by default a new one on `device`; `get_backend` passes itself, so that
+    its wrappers wrap its own backends (imported only when asked for)."""
     if name not in BACKEND_NAMES:
         raise ValueError(
             f"unknown sigbackend {name!r}; choose from {sorted(BACKEND_NAMES)}")

@@ -17,6 +17,13 @@ marked infinite, so the audit rejects them.
 The backend is shared by every caller thread, so each structure is
 guarded by one lock. Keys must determine their row's points (the caller's
 contract, as in the reference).
+
+On a mesh layout (`sigbackend/layout.py`) each slot owns one cache on its
+device with an equal split of the budget (`slot_caches`, the reference's
+per-device shards): a row's table lives in the cache of the slot its row
+lands on, and the caches hold pairwise disjoint tensors (`tensors`). The
+reference also registers each shard as a devscope census owner; the port
+has no devscope yet.
 """
 
 from __future__ import annotations
@@ -63,6 +70,17 @@ class LineTableCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._tables)
+
+    def tensors(self) -> list:
+        """Every device tensor this cache holds: its tables and flags, the
+        batch memo's stacks and the zero row."""
+        with self._lock:
+            out = [t for entry in self._tables.values() for t in entry[:2]]
+            if self._memo is not None:
+                out.extend(self._memo[1])
+            if self._zero is not None:
+                out.extend(self._zero)
+        return out
 
     def resolve(self, rows, keys, bucket: int) -> LinePlan:
         """Host half: claim hits (each moves to the LRU's young end) and
@@ -145,3 +163,10 @@ class LineTableCache:
                               torch.ones((), dtype=torch.bool,
                                          device=self.device))
             return self._zero
+
+
+def slot_caches(devices, budget_bytes: int = 256 << 20) -> list:
+    """One `LineTableCache` per mesh slot, on the slot's device, each
+    under an equal split of `budget_bytes`."""
+    per_slot = max(1, budget_bytes // len(devices))
+    return [LineTableCache(dev, per_slot) for dev in devices]

@@ -1276,3 +1276,94 @@ def test_rpc_committees_on_card_equal_plain(cuda):
     with route.plain_versions():
         plain = bn.bls_aggregate_verify_committee_batch(*planes)
     assert plain.cpu()[:len(msgs)].tolist() == want
+
+
+# == the shard mesh over repeated slots of the card ===========================
+
+MESH_SLOTS = 4
+
+
+@pytest.mark.cuda
+def test_mesh_audit_on_repeated_card_equals_one_device(cuda):
+    """`TorchSigBackend` over 4 slots of the card: keyed cold and warm and
+    unkeyed audits equal one device's; one reduction a step; each slot
+    launched its audit kernels; the slots' caches share no tensor."""
+    msgs, sig_rows, pk_rows, want = _committee_period(9, 5)
+    keys = [("mesh", s) for s in range(9)]
+    slots = [torch.device("cuda", 0)] * MESH_SLOTS
+    single = TorchSigBackend(device=slots[0])
+    meshed = TorchSigBackend(device=slots)
+    for row_keys in (keys, keys, None):
+        assert single.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                            pk_row_keys=row_keys) == want
+        before = meshed.layout.mesh.reductions
+        assert meshed.bls_verify_committees(msgs, sig_rows, pk_rows,
+                                            pk_row_keys=row_keys) == want
+        info = meshed.last_mesh
+        assert meshed.layout.mesh.reductions - before == 1
+        assert info["collectives"] == 1
+        assert info["verdict_devices"] == MESH_SLOTS
+        assert info["vote_total"] == sum(want)
+        for launched in info["slot_launches"]:
+            assert launched["agg_g1"] == 1 and launched["finalexp"] == 1
+    ptrs = [{t.untyped_storage().data_ptr() for t in c.tensors()}
+            for c in meshed.line_shards]
+    for i in range(MESH_SLOTS):
+        for j in range(i + 1, MESH_SLOTS):
+            assert not ptrs[i] & ptrs[j]
+
+
+@pytest.mark.cuda
+def test_mesh_pipelines_on_repeated_card_equal_one_device(cuda):
+    """The committee period pipeline (1-D and 2 × 2) and the stress step
+    over 4 slots of the card, an uneven shard count, equal to one device
+    bit for bit."""
+    from gethsharding_tpu_torch.parallel import mesh, period, stress
+    from gethsharding_tpu_torch.params import Config
+
+    slots = [torch.device("cuda", 0)] * MESH_SLOTS
+    msgs, sig_rows, pk_rows, want = _committee_period(9, 5)
+    cfg = Config(committee_size=5, quorum_size=3)
+    one = period.CommitteePeriodPipeline(cfg, device=cuda)
+    inputs = one.build_inputs(msgs, sig_rows, pk_rows)
+    base = one.run(inputs)
+    assert base.verified.tolist() == want
+    for m in (mesh.make_mesh(devices=slots),
+              mesh.make_multihost_mesh(2, 2, slots)):
+        out = period.CommitteePeriodPipeline(cfg, mesh=m).run(inputs)
+        for name in period.PeriodOutputs._fields:
+            assert torch.equal(getattr(out, name), getattr(base, name)), name
+    s_in, pool, bh, size, _ = stress.build_stress_inputs(
+        5, votes_per_shard=3, txs_per_shard=2, committee_size=7,
+        device=cuda)
+    scfg = Config(committee_size=7, quorum_size=2)
+    want_s = stress.StressPipeline(scfg).run(s_in, pool, bh, 1, size)
+    _launches_from_zero()
+    got_s = stress.StressPipeline(scfg, mesh=mesh.make_mesh(
+        devices=slots)).run(s_in, pool, bh, 1, size)
+    launched = _launched()
+    assert launched["finalexp"] == launched["replay"] == MESH_SLOTS
+    for name in stress.StressOutputs._fields:
+        assert torch.equal(getattr(got_s, name), getattr(want_s, name)), name
+
+
+@pytest.mark.cuda
+def test_mesh_launch_failure_is_loud(cuda, monkeypatch):
+    """A kernel launch failing on one slot fails the whole mesh audit: no
+    slot's verdicts stand in for it, and nothing falls back."""
+    msgs, sig_rows, pk_rows, _ = _committee_period(9, 5)
+    meshed = TorchSigBackend(device=[torch.device("cuda", 0)] * MESH_SLOTS)
+    kernel = _build.KERNELS["finalexp"]
+    real = kernel.launch
+    calls = []
+
+    def launch(*args):
+        calls.append(1)
+        if len(calls) == 3:
+            raise RuntimeError("finalexp: kernel launch failed (injected)")
+        return real(*args)
+
+    monkeypatch.setattr(kernel, "launch", launch)
+    with pytest.raises(RuntimeError, match="injected"):
+        meshed.bls_verify_committees(msgs, sig_rows, pk_rows)
+    assert len(calls) == 3

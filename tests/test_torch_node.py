@@ -958,7 +958,7 @@ PORTED_FLAGS = ("actor", "shardid", "deposit", "datadir", "periodlength",
                 "serving_max_batch", "serving_flush_us",
                 "serving_queue_cap", "serving_policy",
                 "serving_quota_rows", "serving_watchdog_s", "chaos",
-                "soundness_rate", "password", "endpoint")
+                "soundness_rate", "password", "endpoint", "mesh_devices")
 
 
 def _sharding_actions(parser):

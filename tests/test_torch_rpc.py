@@ -1213,9 +1213,10 @@ def test_bootnode_introduction_without_a_chain():
 # == 6. the entry points ======================================================
 
 @pytest.mark.parametrize("argv,module", [
-    (["--mesh-devices", "2"], "parallel/mesh.py"),
-    (["--trace-out", "t.json"], "tracing/export.py"),
-    (["--fleettrace-export", "127.0.0.1:1"], "fleettrace/"),
+    pytest.param(["--trace-out", "t.json"], "tracing/export.py",
+                 id="argv1-tracing/export.py"),
+    pytest.param(["--fleettrace-export", "127.0.0.1:1"], "fleettrace/",
+                 id="argv2-fleettrace/"),
 ])
 def test_chain_server_refuses_unported_options_by_module(argv, module,
                                                          capsys):
