@@ -254,7 +254,15 @@ resident on the card) and the recompute path (without keys):
    it voted on in its shard DB), every canonical header in a node's DB
    is the SMC's approved record, the observer's roots equal the scalar
    replay's on the host, the journal and the mirror hold each period's
-   votes and records, and no node recorded an error. Timed: the heads,
+   votes and records, and no node recorded an error. The chunk and state
+   roots of the run took the native route (`core/mpt.py`; counted). Then,
+   with every node still up, a light node (`ShardNode(actor="light")`, no
+   device) joins the hub: the observer's last collation proven by length,
+   `availability_check(k=16)` True, four samples its bytes; a record whose
+   body only the smoke holds and a forger on the hub answering every
+   proof request with a proof over another body: no value returned,
+   `proofs_rejected` raised; counted from 0 around the light node's calls,
+   nothing launched. Timed: the heads,
    the replays, the notary's spans, every block, the last auditing head's
    kernels under the profiler with the idle share. Then the CLI in a
    process of its own (`python -m gethsharding_tpu_torch.cli sharding
@@ -277,7 +285,10 @@ resident on the card) and the recompute path (without keys):
    for its fresh candidates, one for each uncached windback period; one
    `das_samples`, or one `miller` and one `finalexp`, a call), and every
    launch inside those calls equals its plain version on the card on the
-   tensors it was given; each layout makes a windback call. Timed: the
+   tensors it was given; each layout makes a windback call. Then a light
+   node sampled (a DAS service with no store) runs `das_check` on a
+   proposer's shard (True) and on the withheld one (False), launching
+   nothing. Timed: the
    heads (whole and without the hostile candidates' fetch waits), the
    DAS spans and calls, the kernels on a head's tensors, a head's idle
    share under the profiler. Beside the devnets, the CLI, `sharding
@@ -328,7 +339,7 @@ resident on the card) and the recompute path (without keys):
    `finalexp`, `ecrecover`, `das_samples` and `keccak_fixed`; timed per
    request over the wire (median, p99) beside step 17's in-process
    request and the direct call; (2) `python -m gethsharding_tpu_torch.cli
-   devnet --notaries 1 --proposers 2 --observers 1 --quorum 1
+   devnet --notaries 1 --proposers 2 --observers 1 --lights 1 --quorum 1
    --shardcount 2 --sigbackend torch --blocktime 0.2` with a datadir,
    dialed from here: a sealed period in which the notary's vote on each
    proposed shard is the SMC's approved record, then the notary
@@ -336,8 +347,8 @@ resident on the card) and the recompute path (without keys):
    keystore), no second deposit, a vote again; at exit the notary
    child's launches (`agg_g1`, `finalexp`, `tower`, `norm`,
    `ecrecover`) and heads from its log, the chain child's vote-log
-   replay (`keccak_fixed`), the observer's canonical headers, no child
-   error;
+   replay (`keccak_fixed`), the observer's canonical headers, the light
+   child's exit line with no launch, no child error;
 19. the shard mesh (`mesh_phase`) over the distinct cards where there
    are two or more, else 4 slots of `cuda:0` (printed which): (1) step
    3's period through `TorchSigBackend(device=slots)`, keyed cold and
@@ -356,10 +367,18 @@ resident on the card) and the recompute path (without keys):
    with N one above the visible cards, which must exit non-zero with
    `requested N devices, only N-1 visible`.
 
+Beside steps 9-12, in a process of its own (`--roots-phase`), the trie
+family's roots on the host: the compiled root (`csrc/mpt.c`, `cc`) loaded
+and equal to the Python trie on the empty list, 1, 63, 64 and 127-300
+items, duplicate keys, values of 55-64 B and the replay rows' state
+tables, lists past its caps refused; `chunk_root` timed on 64 KiB by both
+routes and on 1 MiB by the native one.
+
 Prints a JSON line of per-kernel numbers, the card's name and power
 limit, and last `{"ok": true, "device": {...}}`. Exits non-zero, with no
 result line, where there is no CUDA card, the host hash did not load its
-compiled keccak, or any check fails. Imports nothing of JAX.
+compiled keccak or the trie root its compiled builder, or any check
+fails. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1750,6 +1769,9 @@ STRESS_SHARDS = 1024
 STRESS_VOTES = 2
 STRESS_TXS = 1
 REPLAY_LAUNCHES = {"ecrecover": 1, "keccak_fixed": 2, "replay": 1}
+# the warm host marshals timed a scenario (1.0-1.8 s each): cut from 7 so
+# that the light client's and the roots' checks fit the smoke's time
+REPLAY_MARSHAL_REPS = 3
 STRESS_LAUNCHES = {"keccak_fixed": 3, "agg_g1": 1, "agg_g2": 1, "miller": 1,
                    "finalexp": 1, "ecrecover": 1, "replay": 1}
 
@@ -2074,7 +2096,7 @@ def replay_phase(card: str, seed: int) -> list:
     for label, shard_txs, gens, coins in scenarios[:2]:
         inp = replay.build_replay_inputs(shard_txs, gens, coins, device=dev)
         marshal_ms = host_ms(lambda: replay.build_replay_inputs(
-            shard_txs, gens, coins, device=dev), 7)
+            shard_txs, gens, coins, device=dev), REPLAY_MARSHAL_REPS)
         device_ms = host_ms(lambda: replay.replay_batch(inp).roots.cpu(), 7)
         runs = 5
         split_ms, kept = traced_calls(
@@ -2082,8 +2104,9 @@ def replay_phase(card: str, seed: int) -> list:
             {"ecrecover_kernel": 1, "keccak_fixed_kernel": 2,
              "replay_kernel": 1})
         busy = sum(split_ms.values())
-        print(f"time replay_batch ({label}, warm, median of 7): host "
-              f"marshal {marshal_ms:.2f} ms; device path with the roots' "
+        print(f"time replay_batch ({label}, warm): host marshal "
+              f"{marshal_ms:.2f} ms (median of {REPLAY_MARSHAL_REPS}); "
+              f"device path (median of 7) with the roots' "
               f"pull {device_ms:.3f} ms, {CONFIG4_TXS / device_ms * 1e3:.0f} "
               f"txs/s ({CONFIG4_TXS / (marshal_ms + device_ms) * 1e3:.0f} "
               f"with the marshal); device time {busy:.3f} ms a call "
@@ -2138,6 +2161,147 @@ def stress_inputs(path: str, seed: int) -> int:
     torch.save({"inputs": inputs._asdict(), "pool": torch.from_numpy(pool),
                 "bh": torch.from_numpy(bh), "size": size,
                 "build_s": time.perf_counter() - t0}, path)
+    return 0
+
+
+# the trie family's roots (`core/mpt.py`, `core/derive_sha.py`,
+# `state_processor.state_trie_root`): host code by design, so a process of
+# its own from the build to step 13, beside step 13's host build
+ROOT_LENGTHS = (0, 1, 63, 64) + tuple(range(127, 301))
+ROOT_BODIES = (1 << 16, 1 << 20)     # chunk_root's timed bodies, in bytes
+
+
+def start_roots_phase(seed: int):
+    """Start the `--roots-phase` process; returns (process, start time)."""
+    import atexit
+
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--roots-phase",
+         "--seed", str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, time.perf_counter()
+
+
+def finish_roots_phase(started) -> None:
+    """Wait for the `--roots-phase` process and print what it printed;
+    fails where it failed."""
+    proc, t0 = started
+    try:
+        out, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("roots: the phase did not finish within 300 s")
+    print(out.rstrip(), flush=True)
+    if proc.returncode != 0:
+        fail(f"roots: the phase exited {proc.returncode}")
+    print(f"roots phase: {time.perf_counter() - t0:.1f} s from its start "
+          f"to its reading, beside steps 9-12", flush=True)
+
+
+def roots_phase(seed: int) -> int:
+    """The `--roots-phase` mode: the compiled trie root (`csrc/mpt.c` with
+    `csrc/keccak.c`, built by `cc` on the card's machine) loaded (fails
+    where it did not), its roots equal to the Python trie's on the lists
+    the CPU tests hold: the empty list, 1, 63 and 64 items and every
+    length from 127 to 300 (each rlp(uint) key boundary), seeded pairs
+    with duplicate keys, values of 55 to 64 bytes, and the state tables of
+    `tests/torch_replay_rows.py` before and after its scalar replay (the
+    native state root against the Python one); lists past the caps (a
+    33-byte key, a 129-byte value) refused to the Python route. Timed on
+    the host (one busy core beside it): `chunk_root` of a 64 KiB body by
+    both routes, and of a 1 MiB body by the native route."""
+    from gethsharding_tpu_torch.core import derive_sha as ds
+    from gethsharding_tpu_torch.core import mpt
+    from gethsharding_tpu_torch.core import state_processor as sp
+    from gethsharding_tpu_torch.core.trie import Trie
+    from gethsharding_tpu_torch.core.types import Transaction
+    from gethsharding_tpu_torch.crypto import secp256k1 as ecdsa
+    from gethsharding_tpu_torch.utils.hexbytes import Address20
+    from gethsharding_tpu_torch.utils.rlp import int_to_big_endian, rlp_encode
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    if not mpt.native_available():
+        fail("roots: the compiled trie root (csrc/mpt.c) did not build or "
+             "load on this machine")
+
+    def python_root(pairs) -> bytes:
+        trie = Trie()
+        for k, v in pairs:
+            trie.update(k, v)
+        return trie.root_hash()
+
+    lists = []
+    for n in ROOT_LENGTHS:
+        lists.append(([rlp_encode(int_to_big_endian(i)) for i in range(n)],
+                      [rlp_encode(i % 256) for i in range(n)]))
+    rng = np.random.default_rng(seed + 23)
+    for _ in range(3):
+        pairs = [(bytes(rng.integers(0, 256, int(rng.integers(1, 9)),
+                                     dtype=np.uint8)),
+                  bytes(rng.integers(0, 256, int(rng.integers(1, 65)),
+                                     dtype=np.uint8))) for _ in range(400)]
+        pairs += [(k, v[::-1] + b"!") for k, v in pairs[::7]]
+        lists.append(([k for k, _ in pairs], [v for _, v in pairs]))
+    for vlen in range(55, 65):
+        lists.append(([bytes([i]) for i in range(70)],
+                      [bytes([i]) * vlen for i in range(70)]))
+    for keys, vals in lists:
+        if mpt.mpt_root(keys, vals) != python_root(zip(keys, vals)):
+            fail(f"roots: the native root of a list of {len(keys)} differs "
+                 f"from the Python trie's")
+    for keys, vals in (([b"k" * 33], [b"v"]), ([b"k"], [b"v" * 129])):
+        if mpt.mpt_root(keys, vals) is not None:
+            fail("roots: a list past the caps took the native route")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_replay_rows
+
+    txs, genesis, coinbases = torch_replay_rows.batch(sp, Transaction, ecdsa,
+                                                      Address20)
+    native0 = sp.m_native_state_roots.value
+    tables = 0
+    for shard_txs, gen, coin in zip(txs, genesis, coinbases):
+        state = sp.ShardState({a: sp.AccountState(v.nonce, v.balance)
+                               for a, v in gen.items()})
+        for _ in range(2):
+            if sp.state_trie_root(state.accounts) \
+                    != sp.python_state_trie_root(state.accounts):
+                fail("roots: a native state root differs from the Python "
+                     "trie's")
+            tables += 1
+            sp.process(state, shard_txs, coin)
+    if sp.m_native_state_roots.value - native0 != tables:
+        fail("roots: a state root of the replay tables took the Python "
+             "route")
+    print(f"roots: the native route (csrc/mpt.c) equal to the Python trie "
+          f"on {len(lists)} lists (lengths 0, 1, 63, 64, 127-300, seeded "
+          f"pairs with duplicate keys, values of 55-64 B), {tables} state "
+          f"tables of tests/torch_replay_rows.py (before and after their "
+          f"replay); lists past the caps take the Python route; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    times = []
+    for size in ROOT_BODIES:
+        body = bytes(rng.integers(0, 256, size, dtype=np.uint8))
+        t0 = time.perf_counter()
+        root = ds.chunk_root(body)
+        native_s = time.perf_counter() - t0
+        line = (f"{size // 1024} KiB: native route {native_s * 1e3:.1f} ms "
+                f"(the Python lists of {size} keys and items included)")
+        if size <= 1 << 16:
+            t0 = time.perf_counter()
+            twin = ds.python_derive_sha([rlp_encode(int(b)) for b in body])
+            python_s = time.perf_counter() - t0
+            if twin != root:
+                fail(f"roots: chunk_root of {size} B differs between the "
+                     f"routes")
+            line += f", Python trie {python_s * 1e3:.1f} ms (equal roots)"
+        times.append(line)
+    print(f"time chunk_root (host of the card's machine, beside step 13's "
+          f"host build and the card's steps): {'; '.join(times)} [{card}]",
+          flush=True)
     return 0
 
 
@@ -2377,6 +2541,19 @@ def launches_of(fn):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return out, {n: c for n, c in _build.launch_counts().items() if c}
+
+
+def launches_aside(fn):
+    """`launches_of` inside a run whose own counts are read after it:
+    fn's launches counted from 0, then every count put back with fn's
+    added to it."""
+    from gethsharding_tpu_torch.ops import _build
+
+    saved = _build.launch_counts()
+    out, got = launches_of(fn)
+    for name, k in _build.KERNELS.items():
+        k.launches += saved[name]
+    return out, got
 
 
 def notary_run(mods, quorum: int, members, proposer, impostor,
@@ -2661,6 +2838,13 @@ def node_devnet(card: str, members) -> None:
 
     # the services' own spans (notary phases, proposer, txpool) say where
     # a head's host time goes
+    from gethsharding_tpu_torch.core import derive_sha as ds
+    from gethsharding_tpu_torch.core import state_processor as sp
+
+    routes = lambda: (ds.m_native_roots.value, ds.m_python_roots.value,
+                      sp.m_native_state_roots.value,
+                      sp.m_python_state_roots.value)
+    roots0 = routes()
     tracer = tracing.enable(ring_spans=1 << 16)
     tracer.clear()
     for k in _build.KERNELS.values():
@@ -2671,11 +2855,17 @@ def node_devnet(card: str, members) -> None:
                          {"sig_backend": "torch"},
                          txs_per_collation=NODE_TXS, min_proposers=4,
                          counts=_build.launch_counts, seal_with=seal_with,
-                         members=members)
+                         members=members, finale=light_finale(script, m))
         torch.cuda.synchronize()
     finally:
         tracing.disable()
     run_s = time.perf_counter() - t0
+    chunk_n, chunk_py, state_n, state_py = (
+        b - a for a, b in zip(roots0, routes()))
+    if not chunk_n or not state_n:
+        fail(f"step 15: the native root route built {chunk_n} chunk roots "
+             f"and {state_n} state roots ({chunk_py} and {state_py} in "
+             f"Python)")
     spans = tracer.recent_spans()
     total = {n: c for n, c in _build.launch_counts().items() if c}
     missing = [k for k in NODE_KERNELS if not total.get(k)]
@@ -2836,10 +3026,115 @@ def node_devnet(card: str, members) -> None:
     print("time node notary spans (count, sum ms, max ms): " + ", ".join(
         f"{k} {len(v)} {sum(v):.1f} {max(v):.1f}"
         for k, v in sorted(notary_ms.items())) + f" [{card}]", flush=True)
+    lit = out["finale"]
+    print(f"node light (step 15a): a light node (no device) on the hub "
+          f"after the last audit: shard {layout['observer']} period "
+          f"{NODE_PERIODS}'s body of {lit['light']['body_len']} B proven "
+          f"by length, available at 16 draws, 4 samples its bytes "
+          f"({lit['light']['samples_verified']} proofs verified, "
+          f"{lit['honest_s']:.2f} s); a forger's {lit['forged']} answers "
+          f"rejected ({lit['rejected']} proofs), no value returned "
+          f"({lit['forged_s']:.2f} s); 0 launches; roots in the run: "
+          f"{chunk_n} chunk and {state_n} state roots by the native route, "
+          f"{chunk_py} and {state_py} in Python [{card}]", flush=True)
     print(f"time node observer replay_collation (its own timer, mean of "
           f"{replay_timer[0]}): {replay_timer[1]:.1f} ms a collation of "
           f"{NODE_TXS} transactions (the replay's account table recovers "
           f"the senders on the host, twice) [{card}]", flush=True)
+
+
+# step 15's light node: its forger's body, which no node holds, and the
+# seconds a sample waits for a verified answer there
+FORGED_BODY = b"a body only the smoke holds, proven by nobody " * 20
+FORGER_WAIT_S = 1.0
+
+
+class Forger:
+    """A bare `P2PServer` on the hub answering every `ChunkProofRequest`,
+    on a thread of its own, with a tampered proof: one over another body,
+    so that it proves another root."""
+
+    def __init__(self, m, hub, ds):
+        import threading
+
+        self.m, self.ds = m, ds
+        self.p2p = m.P2PServer(hub)
+        self.p2p.start()
+        self.sub = self.p2p.subscribe(m.ChunkProofRequest)
+        self.answered = 0
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._answer, daemon=True)
+        self.thread.start()
+
+    def _answer(self):
+        fake = FORGED_BODY[::-1]
+        while not self.done.is_set():
+            msg = self.sub.try_get()
+            if msg is None:
+                self.done.wait(0.005)
+                continue
+            req = msg.data
+            self.p2p.send(self.m.ChunkProofResponse(
+                chunk_root=req.chunk_root, index=req.index,
+                proof=tuple(self.ds.chunk_proof(fake, req.index)),
+                body_len=len(fake)), msg.peer)
+            self.answered += 1
+
+    def close(self):
+        self.done.set()
+        self.thread.join(timeout=10)
+        self.p2p.stop()
+
+
+def light_finale(script, m):
+    """Step 15's finale (`torch_node_script.run(finale=...)`, every node
+    still up): a light node (`ShardNode(actor="light")`, no device) joins
+    the hub and, counted from 0 around its calls (`launches_aside`),
+    proves the observer's last canonical collation (`script.light_check`:
+    the proven length, `availability_check(k=16)`, four samples against
+    the body's bytes); then a record whose body only the smoke holds, and
+    a forger answering every proof request: a sample and an availability
+    check there return no value and raise `proofs_rejected`. Fails unless
+    every answer is the known one and nothing launched."""
+    from gethsharding_tpu_torch.core import derive_sha as ds
+
+    def finale(env):
+        t0 = time.perf_counter()
+        got, launched = launches_aside(lambda: script.light_check(m, env))
+        honest_s = time.perf_counter() - t0
+        if launched or got["proven_length"] != got["body_len"] \
+                or got["available"] is not True \
+                or got["samples"] != got["want"] or got["errors"] \
+                or got["proofs_rejected"]:
+            fail(f"step 15: the light node gave {got}, launches {launched}")
+        # a record of the next period whose body nobody serves
+        s, p = env.layout["observer"], env.periods + 1
+        root = m.Collation(header=m.CollationHeader(),
+                           body=FORGED_BODY).calculate_chunk_root()
+        env.chain.add_header(env.nodes["observer"].client.account(), s, p,
+                             root)
+        forger = Forger(m, env.hub, ds)
+        node = script._light_node(m, env, s)
+        try:
+            light = node.service(m.LightClient)
+            t0 = time.perf_counter()
+            (forged, avail), launched = launches_aside(lambda: (
+                light.sample(s, p, [3], timeout=FORGER_WAIT_S),
+                light.availability_check(s, p, k=4,
+                                         timeout=FORGER_WAIT_S)))
+            forged_s = time.perf_counter() - t0
+            rejected = light.proofs_rejected
+        finally:
+            node.stop()
+            forger.close()
+        if forged or avail is not False or rejected < 2 or launched \
+                or forger.answered < 2:
+            fail(f"step 15: against the forger the light node returned "
+                 f"{forged}, availability {avail}, {rejected} proofs "
+                 f"rejected of {forger.answered}, launches {launched}")
+        return {"light": got, "honest_s": honest_s, "forged_s": forged_s,
+                "rejected": rejected, "forged": forger.answered}
+    return finale
 
 
 def start_cli(args):
@@ -3011,6 +3306,24 @@ class DasCapture:
             setattr(owner, attr, fn)
 
 
+def das_light_finale(script, m, proofs: str):
+    """Step 16's finale (every node still up): a light node sampled
+    (`da_mode="sampled"`, its DAS service with no store) runs `das_check`
+    (`script.das_light_check`) on a proposer's shard and on the withheld
+    one of the last period, counted from 0 around it (`launches_aside`):
+    True, then False, and nothing launched."""
+    def finale(env):
+        t0 = time.perf_counter()
+        got, launched = launches_aside(lambda: script.das_light_check(m,
+                                                                      env))
+        if launched or got["honest"] is not True \
+                or got.get("withheld") is not False or got["errors"]:
+            fail(f"step 16 ({proofs}): the light node's das_check gave "
+                 f"{got}, launches {launched}")
+        return {**got, "s": time.perf_counter() - t0}
+    return finale
+
+
 def das_devnet(card: str, members, proofs: str) -> dict:
     """Step 16a in one proof scheme: `tests/torch_node_script.py`'s
     devnet at config 5's pool (as step 15: 100 shards, committee 135,
@@ -3070,7 +3383,8 @@ def das_devnet(card: str, members, proofs: str) -> dict:
                              counts=_build.launch_counts,
                              seal_with=seal_with, members=members,
                              da_proofs=proofs, hostile=DAS_HOSTILE[proofs],
-                             hostile_payload=DAS_PAYLOAD)
+                             hostile_payload=DAS_PAYLOAD,
+                             finale=das_light_finale(script, m, proofs))
         torch.cuda.synchronize()
     finally:
         tracing.disable()
@@ -3237,6 +3551,14 @@ def das_devnet(card: str, members, proofs: str) -> dict:
           f"launches {dict(held)}, {len(seen)} distinct inputs each equal "
           f"to its plain version on the card (max |kernel - plain| "
           f"{errs})", flush=True)
+    lit = out["finale"]
+    print(f"node light sampled, {proofs} (step 16a): a light node (no "
+          f"device, a DAS service with no store) after the last audit: "
+          f"das_check True on proposer shard {layout['proposers'][0]}, "
+          f"False on the withheld shard, period {DAS_PERIODS} "
+          f"({lit['samples_verified']} samples verified, "
+          f"{lit['proofs_rejected']} failed), 0 launches, {lit['s']:.2f} s "
+          f"[{card}]", flush=True)
     print(f"time node sampled head ({proofs}; every node's head on the "
           f"commit): blocks {', '.join(f'{b} {v:.1f} ms' for b, v in heads.items())}; "
           f"block {profile_block} (candidates, the audit of period "
@@ -4033,9 +4355,9 @@ TOPO_KERNELS = ("agg_g1", "tower", "norm", "finalexp", "ecrecover",
 DEVNET_NOTARY = ("agg_g1", "finalexp", "tower", "norm", "ecrecover")
 CHAIN_ARGS = ("--sigbackend", "torch", "--quorum", "1", "--runtime", "600")
 DEVNET_CMD = ("devnet", "--notaries", "1", "--proposers", "2",
-              "--observers", "1", "--quorum", "1", "--shardcount", "2",
-              "--sigbackend", "torch", "--blocktime", "0.2",
-              "--interval", "0.5")
+              "--observers", "1", "--lights", "1", "--quorum", "1",
+              "--shardcount", "2", "--sigbackend", "torch", "--blocktime",
+              "0.2", "--interval", "0.5")
 DEVNET_RUNTIME_S = 300          # the devnet's own limit; stopped earlier
 # the votes the notary may lose to the chain sealing their period while
 # they are in flight, per vote it cast, over both of its lives: at 1 s
@@ -4392,10 +4714,11 @@ class Devnet:
 
 def devnet_phase(card: str, net: Devnet) -> None:
     """Step 18.2: `python -m gethsharding_tpu_torch.cli devnet --notaries 1
-    --proposers 2 --observers 1 --quorum 1 --shardcount 2 --sigbackend
-    torch --blocktime 0.2` with a datadir (`Devnet`, started with step 18
-    and booted before step 18.1's measured round): a chain process and
-    four actor processes on the card. Dialing the chain from here: a
+    --proposers 2 --observers 1 --lights 1 --quorum 1 --shardcount 2
+    --sigbackend torch --blocktime 0.2` with a datadir (`Devnet`, started
+    with step 18 and booted before step 18.1's measured round): a chain
+    process and four actor processes on the card, and a light child,
+    which launches nothing. Dialing the chain from here: a
     sealed period in which the notary's vote on each proposed shard is
     the SMC's approved record, both shards approved; then the notary
     SIGKILLed: the devnet respawns it, it comes back with the same
@@ -4403,7 +4726,9 @@ def devnet_phase(card: str, net: Devnet) -> None:
     (SIGINT to the devnet, which stops its children with SIGTERM, actors
     first): the notary child's exit line counts launches of
     DEVNET_NOTARY and its heads, the chain child's counts the vote-log
-    replay's `keccak_fixed`, the observer logged the SMC's canonical
+    replay's `keccak_fixed`, the light child's counts no launch (and its
+    verified samples and rejected proofs), the observer logged the SMC's
+    canonical
     headers of its shard, no child logged a service error or a
     traceback, and the notary missed at most DEVNET_MISSED_PER_VOTE
     votes to the chain sealing their period (`notary/votes_missed`) for
@@ -4445,7 +4770,7 @@ def devnet_phase(card: str, net: Devnet) -> None:
         fail(f"step 18.2: the devnet exited {proc.returncode}:\n{out[-3000:]}")
     logs = {}
     for name in ("chain", "notary-0", "proposer-0", "proposer-1",
-                 "observer-0"):
+                 "observer-0", "light-0"):
         with open(os.path.join(datadir, "logs", f"{name}.log")) as fh:
             logs[name] = fh.read()
     bad = {name: [line for line in log.splitlines()
@@ -4456,6 +4781,10 @@ def devnet_phase(card: str, net: Devnet) -> None:
         fail(f"step 18.2: the children logged errors {bad}")
     notary = exit_line(logs["notary-0"], "node at exit:")
     chain_summary = exit_line(logs["chain"], "chain-server at exit:")
+    light = exit_line(logs["light-0"], "node at exit:")
+    if light["launches"] or "samples_verified" not in light \
+            or "actor=light" not in logs["light-0"]:
+        fail(f"step 18.2: the light child's exit line {light}")
     missing = [k for k in DEVNET_NOTARY if not notary["launches"].get(k)]
     if missing or not chain_summary["launches"].get("keccak_fixed") \
             or notary["account"].lower() != "0x" + bytes(account).hex():
@@ -4489,7 +4818,8 @@ def devnet_phase(card: str, net: Devnet) -> None:
              "shard")
     starts = logs["notary-0"].count("Starting sharding node")
     print(f"devnet of OS processes (step 18.2): {' '.join(cmd[3:-2])}: "
-          f"{len(logs)} children (chain, notary, 2 proposers, observer); "
+          f"{len(logs)} children (chain, notary, 2 proposers, observer, "
+          f"light); "
           f"period {first} voted by the notary {bytes(account).hex()} on "
           f"each proposed shard (the SMC's approved records), both shards "
           f"approved; the notary SIGKILLed in period {killed_at}, "
@@ -4498,7 +4828,8 @@ def devnet_phase(card: str, net: Devnet) -> None:
           f"period {again}; the notary child's launches at exit "
           f"{notary['launches']}; votes cast {cast} and missed {missed} "
           f"in both lives ({notary['votes']} and "
-          f"{notary['votes_missed']} in the respawned one); direct p2p "
+          f"{notary['votes_missed']} in the respawned one); the light "
+          f"child's exit line {light}; direct p2p "
           f"frames {framing}; the chain "
           f"child's {chain_summary['launches']} (the vote-log replay); the "
           f"observer saw the SMC's canonical headers of shard 0 for "
@@ -4779,9 +5110,12 @@ def exact_phase(seed: int) -> int:
             ("tower_exact", "conv_exact", "norm_exact"):
         fail("the exact form's kernels are not counted under their names")
     card = card_line()
+    laps = [("start", time.perf_counter())]
+    lap = lambda name: laps.append((name, time.perf_counter()))
     dev = torch.device("cuda")
     _build.build()
     msgs, sig_rows, pk_rows, keys, want = make_period(bls, seed)
+    lap("build and period")
     if not TorchSigBackend().precomp:
         fail("the exact form's backend is not on the precomp path")
 
@@ -4831,6 +5165,7 @@ def exact_phase(seed: int) -> int:
              "version on the crafted rows")
     edge["norm"] = max(edge["norm"], crafted_err)
 
+    lap("edges")
     # -- the recompute audit (keys, precomp off) ----------------------------
     backend = TorchSigBackend(precomp=False)
     bls.hash_to_g1.cache_clear()
@@ -4881,6 +5216,7 @@ def exact_phase(seed: int) -> int:
     print(f"exact form: {sum(got)} of {SHARDS} rows verified, hostile rows "
           f"{', '.join(map(str, HOSTILE))} rejected; plain versions agree")
 
+    lap("recompute audit")
     # -- the precomp audit (keys): cold, then warm ----------------------------
     pbackend = TorchSigBackend()
     for k in _build.KERNELS.values():
@@ -4962,15 +5298,17 @@ def exact_phase(seed: int) -> int:
     print(f"exact form: precomp path: {sum(got)} of {SHARDS} rows verified "
           f"cold and warm, hostile rows rejected; plain route agrees")
 
+    lap("precomp audit")
     votes = aggregate_votes(bls, msgs, sig_rows, pk_rows, want)
     aggregates_phase("exact form: ", bls, bn, route, _build, pbackend, votes,
                      card)
+    lap("aggregate votes")
     # the multiproof phase's hostile and infinity rows at 22 limbs
     from gethsharding_tpu_torch.das import pcs
     _, hostile, hostile_want = poly_hostile(pcs, bls, seed)
     multiproof_check("exact form: ", pcs, bn, route, _build, pbackend,
                      hostile, hostile_want)
-
+    lap("multiproofs")
     # -- times ---------------------------------------------------------------
     votes_n = SHARDS * COMMITTEE
     results = {}
@@ -5122,6 +5460,10 @@ def exact_phase(seed: int) -> int:
         "max_abs_err": max(edge["conv"], err), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})
+    lap("times")
+    print("exact form: seconds by section: " + ", ".join(
+        f"{name} {t - prev:.1f}" for (_, prev), (name, t)
+        in zip(laps, laps[1:])), flush=True)
     for entry in entries:
         print("EXACT_KERNEL " + json.dumps(entry))
     return 0
@@ -5156,11 +5498,17 @@ def main() -> int:
     parser.add_argument("--stress-inputs", default="", metavar="PATH",
                         help="build step 13's inputs on the host and save "
                              "them to PATH (as the script runs it)")
+    parser.add_argument("--roots-phase", action="store_true",
+                        help="check and time the trie roots on the host "
+                             "(as the script runs it, beside step 13's "
+                             "host build)")
     args = parser.parse_args()
     if args.exact_phase:
         return exact_phase(args.seed)
     if args.stress_inputs:
         return stress_inputs(args.stress_inputs, args.seed)
+    if args.roots_phase:
+        return roots_phase(args.seed)
     if not torch.cuda.is_available():
         fail("no CUDA device")
     t_smoke = time.perf_counter()
@@ -5180,10 +5528,11 @@ def main() -> int:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     stress_build = start_stress_build(args.seed)
-    print("step 13's host build runs in a process of its own from here "
-          "to step 13: the host times of steps 1-12 (marshal, latency "
-          "and build lines) are taken beside it, on one more busy core",
-          flush=True)
+    roots = start_roots_phase(args.seed)
+    print("step 13's host build and the trie roots' phase run in processes "
+          "of their own from here to step 13: the host times of steps 1-12 "
+          "(marshal, latency and build lines) are taken beside them, on "
+          "two more busy cores", flush=True)
     if limb.LIMB_FORM != "wide":
         fail("the main phases run in the wide limb form")
     if not keccak.native_available():
@@ -5720,6 +6069,7 @@ def main() -> int:
     marks.append(("11", time.perf_counter()))
     kernels += replay_phase(card, args.seed)
     marks.append(("12", time.perf_counter()))
+    finish_roots_phase(roots)
     stressed = stress_phase(card, args.seed, stress_build)
     marks.append(("13", time.perf_counter()))
     members = notary_phase(card, args.seed)

@@ -1,7 +1,6 @@
-"""Syncer: serves collation bodies over shardp2p (the port's copy of the
-JAX package's `actors/syncer.py`; its chunk-proof handler, the light
-client's server side, waits with `derive_sha.chunk_proof`, ROADMAP.md
-queue A).
+"""Syncer: serves collation bodies and chunk proofs over shardp2p (the
+port's copy of the JAX package's `actors/syncer.py`; its chunk-proof
+handler is the light client's server side, `actors/light.py`).
 
 Parity: `sharding/syncer/service.go` (handleCollationBodyRequests :73) and
 `handlers.go` (RespondCollationBody :19, RequestCollationBody :49):
@@ -17,11 +16,13 @@ from __future__ import annotations
 from typing import Optional
 
 from gethsharding_tpu_torch.actors.base import Service
+from gethsharding_tpu_torch.core.derive_sha import chunk_proof
 from gethsharding_tpu_torch.core.shard import Shard, ShardError
 from gethsharding_tpu_torch.core.types import CollationHeader
 from gethsharding_tpu_torch.mainchain.client import SMCClient
 from gethsharding_tpu_torch.p2p.messages import (
-    CollationBodyRequest, CollationBodyResponse)
+    ChunkProofRequest, ChunkProofResponse, CollationBodyRequest,
+    CollationBodyResponse)
 from gethsharding_tpu_torch.p2p.service import Message, P2PServer
 
 
@@ -43,6 +44,13 @@ class Syncer(Service):
     name = "syncer"
     supervisable = True
 
+    # chunk proofs are served from a per-body trie built in Python; an
+    # untrusted request stream cycling distinct large roots could pin the
+    # proof thread rebuilding O(body) tries (an LRU thrash), so proof
+    # serving is capped: a light client needing a bigger body takes the
+    # whole-body CollationBodyRequest path instead
+    PROOF_BODY_CAP = 1 << 16
+
     def __init__(self, client: SMCClient, shard: Shard, p2p: P2PServer,
                  poll_interval: float = 0.05):
         super().__init__()
@@ -52,17 +60,21 @@ class Syncer(Service):
         self.poll_interval = poll_interval
         self.responses_sent = 0
         self.bodies_stored = 0
+        self.proofs_served = 0
         self._req_sub = None
         self._resp_sub = None
+        self._proof_sub = None
 
     def on_start(self) -> None:
         self._req_sub = self.p2p.subscribe(CollationBodyRequest)
         self._resp_sub = self.p2p.subscribe(CollationBodyResponse)
+        self._proof_sub = self.p2p.subscribe(ChunkProofRequest)
         self.spawn(self._handle_requests, name="syncer-requests")
         self.spawn(self._handle_responses, name="syncer-responses")
+        self.spawn(self._handle_proof_requests, name="syncer-proofs")
 
     def on_stop(self) -> None:
-        for sub in (self._req_sub, self._resp_sub):
+        for sub in (self._req_sub, self._resp_sub, self._proof_sub):
             if sub is not None:
                 sub.unsubscribe()
 
@@ -110,6 +122,39 @@ class Syncer(Service):
         )
         self.p2p.send(response, msg.peer)
         self.responses_sent += 1
+
+    # -- on-demand chunk proofs (the les/light ODR serving side) -----------
+
+    def _handle_proof_requests(self) -> None:
+        while not self.stopped():
+            msg = self._proof_sub.try_get()
+            if msg is None:
+                if self.wait(self.poll_interval):
+                    return
+                continue
+            try:
+                self.respond_chunk_proof(msg)
+            except Exception as exc:
+                self.record_error(f"could not construct proof: {exc}")
+
+    def respond_chunk_proof(self, msg: Message) -> None:
+        """Serve a merkle proof of one body byte under its chunk root, as
+        an les/light server's ODR handler does for trie nodes
+        (`les/odr_requests.go`). The per-body proof trie is kept in
+        `derive_sha`'s LRU, so a light client sampling many indices of one
+        root builds it once."""
+        request: ChunkProofRequest = msg.data
+        try:
+            body = self.shard.body_by_chunk_root(request.chunk_root)
+        except ShardError:
+            return  # we don't have the body; another peer may
+        if request.index < 0 or len(body) > self.PROOF_BODY_CAP:
+            return
+        self.p2p.send(ChunkProofResponse(
+            chunk_root=request.chunk_root, index=request.index,
+            proof=tuple(chunk_proof(body, request.index)),
+            body_len=len(body)), msg.peer)
+        self.proofs_served += 1
 
     # -- response side -----------------------------------------------------
 

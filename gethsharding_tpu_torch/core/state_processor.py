@@ -17,9 +17,9 @@ Two state commitments:
   batched replay (`ops/replay.py`) reproduces on the device;
 - `ShardState.trie_root`: the canonical secure-MPT state root
   (`core/state/statedb.go:562`): RLP([nonce, balance, storageRoot,
-  codeHash]) keyed by keccak256(address), empty accounts absent. The
-  reference builds it natively where it can; the port uses its Python
-  trie (`core/trie.py`), which gives the same root.
+  codeHash]) keyed by keccak256(address), empty accounts absent, built
+  by the compiled builder (`core/mpt.py`) where it loaded, else by the
+  Python trie (`core/trie.py`), which gives the same root.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
+from gethsharding_tpu_torch import metrics
+from gethsharding_tpu_torch.core import mpt
 from gethsharding_tpu_torch.core.trie import EMPTY_ROOT, Trie
 from gethsharding_tpu_torch.core.types import Transaction
 from gethsharding_tpu_torch.crypto import secp256k1
@@ -112,6 +114,10 @@ class ShardState:
         return state_trie_root(self.accounts)
 
 
+# the state roots built by each route (`chip_smoke.py` reads them)
+m_native_state_roots = metrics.counter("trie/state/native_roots")
+m_python_state_roots = metrics.counter("trie/state/python_roots")
+
 EMPTY_CODE_HASH = keccak256(b"")  # no shard account carries code in phase 1
 
 
@@ -123,12 +129,32 @@ def account_rlp(nonce: int, balance: int) -> bytes:
 
 def state_trie_root(accounts: Dict[Address20, AccountState]) -> Hash32:
     """Secure-MPT root over the non-empty accounts: the commitment a geth
-    node computes at `statedb.go:562`."""
+    node computes at `statedb.go:562`. Built by the compiled builder
+    (`core/mpt.py`, 32-byte keccak keys) where it loaded; the Python trie
+    is its fallback and its twin in the tests (`python_state_trie_root`)."""
+    items = state_trie_items(accounts)
+    if not items:
+        return Hash32(EMPTY_ROOT)
+    root = mpt.mpt_root([k for k, _ in items], [v for _, v in items])
+    if root is not None:
+        m_native_state_roots.inc()
+        return Hash32(root)
+    m_python_state_roots.inc()
+    return python_state_trie_root(accounts)
+
+
+def state_trie_items(accounts: Dict[Address20, AccountState]) -> list:
+    """(keccak(address), account RLP) of the non-empty accounts."""
+    return [(keccak256(bytes(addr)), account_rlp(acct.nonce, acct.balance))
+            for addr, acct in accounts.items() if acct.nonce or acct.balance]
+
+
+def python_state_trie_root(accounts: Dict[Address20, AccountState]
+                           ) -> Hash32:
+    """`state_trie_root` built in the Python trie."""
     trie = Trie()  # keys are pre-hashed: a plain trie is the SecureTrie
-    for addr, acct in accounts.items():
-        if acct.nonce or acct.balance:
-            trie.update(keccak256(bytes(addr)),
-                        account_rlp(acct.nonce, acct.balance))
+    for key, value in state_trie_items(accounts):
+        trie.update(key, value)
     return Hash32(trie.root_hash())
 
 

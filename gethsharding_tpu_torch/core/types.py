@@ -178,6 +178,11 @@ class Collation:
         self.header.chunk_root = root
         return root
 
+    def calculate_poc(self, salt: bytes) -> Hash32:
+        from gethsharding_tpu_torch.core.derive_sha import poc_root
+
+        return Hash32(poc_root(self.body, salt))
+
     def proposer_address(self) -> Optional[Address20]:
         return self.header.proposer_address
 

@@ -16,8 +16,8 @@ topology — one chain process (`rpc/chain_server.py`), N actor processes
 With `--sigbackend torch` the chain process and every actor run the
 port's CUDA kernels on the card (several processes, one CUDA context
 each); the first of them to need the kernels builds them, under the
-build lock of `utils/filelock.py`. Light clients (`--lights`) wait for
-the port's `actors/light.py` and are refused.
+build lock of `utils/filelock.py`. Light clients (`--lights`) verify on
+the host and launch nothing.
 
 Child crash handling mirrors the service-restart contract
 (`node/service.go:78-83`: restart = fresh instance): a crashed actor is
@@ -72,9 +72,6 @@ class Devnet:
                  shard_count: Optional[int] = None,
                  sigbackend: str = "torch",
                  http_base: int = 0):
-        if lights > 0:
-            raise ValueError("--lights: the port has no actors/light.py yet "
-                             "(ROADMAP.md, queue A item 8)")
         if http_base:
             raise ValueError("--http-base: the port has no "
                              "node/http_status.py yet (ROADMAP.md, queue A "

@@ -6,17 +6,25 @@ fetchService :151-174, registerActorService :245) — services register in
 dependency order (shardDB -> p2p -> mainchain client -> state mirror ->
 netstore and DAS service (`da_mode="sampled"`) -> txpool -> actor ->
 simulator -> syncer), start in registration order, stop in reverse. The
-registry is keyed by service type with typed fetch.
+registry is keyed by service type with typed fetch. A light node
+(`actors/light.py`) holds no shard data: it runs no netstore (its DAS
+service, under `da_mode="sampled"`, has no store of its own), no
+simulator and no syncer.
 
 The node runs on `device` (None: the CUDA card, which raises where there
 is none; "cpu" runs the kernels' plain versions): the notary's
-`TorchSigBackend` and the observer's replay both take it. What the port
-has not ported yet is refused by a `ValueError` that names the missing
-module (`UNPORTED`). With `mesh_devices` above 1 (`--mesh-devices`, or
-`$GETHSHARDING_TORCH_MESH_DEVICES`) a `torch` backend audits over that
-many slots (`sigbackend/layout.py`): distinct cards, or `device` repeated;
-too few cards raise `requested N devices, only M visible`, and the node's
-own device is slot 0.
+`TorchSigBackend` and the observer's replay both take it. A light node
+verifies on the host by design and launches nothing, so it resolves no
+device (`device` and `mesh_devices` are ignored, and it starts where
+there is no card): its innermost backend is the host's `python` one
+whatever `sig_backend` names, and the wrappers asked for compose over it
+as for every actor, inert, since no service of a light node calls them.
+What the port has not ported yet is refused by a `ValueError` that names
+the missing module (`UNPORTED`). With `mesh_devices` above 1
+(`--mesh-devices`, or `$GETHSHARDING_TORCH_MESH_DEVICES`) a `torch`
+backend audits over that many slots (`sigbackend/layout.py`): distinct
+cards, or `device` repeated; too few cards raise `requested N devices,
+only M visible`, and the node's own device is slot 0.
 
 The signature backend is composed innermost first, each layer optional,
 as the JAX package composes it: device backend (`sig_backend`) -> chaos
@@ -39,6 +47,7 @@ import time
 from typing import Dict, List, Optional, Type, TypeVar
 
 from gethsharding_tpu_torch.actors.base import Service
+from gethsharding_tpu_torch.actors.light import LightClient
 from gethsharding_tpu_torch.actors.notary import Notary
 from gethsharding_tpu_torch.actors.observer import Observer
 from gethsharding_tpu_torch.actors.proposer import Proposer
@@ -65,7 +74,6 @@ S = TypeVar("S")
 # the reference's node options the port does not have yet, with the
 # module each waits for (ROADMAP.md, queue A item 8)
 UNPORTED = {
-    "actor='light'": "actors/light.py",
     "fleet_frontend": "fleet/",
     "http_port": "node/http_status.py",
 }
@@ -115,7 +123,6 @@ class ShardNode:
             raise ValueError(f"unknown da_proofs {da_proofs!r}; "
                              "pick 'merkle' or 'poly'")
         for option, given in (
-                ("actor='light'", actor == "light"),
                 ("fleet_frontend", fleet_frontend is not None),
                 ("http_port", http_port is not None)):
             if given:
@@ -132,12 +139,20 @@ class ShardNode:
         self.actor = actor
         self.shard_id = shard_id
         self.config = config
-        # no fallback: a node without a card, or with fewer cards than its
-        # mesh asks for, raises here unless the caller asked for the CPU
-        target = (resolve_slots(device, mesh_devices)
-                  if inner_name.endswith("torch") else resolve_device(device))
-        self.slots = target if isinstance(target, list) else None
-        self.device = self.slots[0] if self.slots else target
+        if actor == "light":
+            # nothing of a light node computes on a device (see the module
+            # docstring): no device, and the host's backend innermost
+            self.slots = self.device = None
+            inner_name = inner_name.replace("torch", "python")
+        else:
+            # no fallback: a node without a card, or with fewer cards than
+            # its mesh asks for, raises here unless the caller asked for
+            # the CPU
+            target = (resolve_slots(device, mesh_devices)
+                      if inner_name.endswith("torch")
+                      else resolve_device(device))
+            self.slots = target if isinstance(target, list) else None
+            self.device = self.slots[0] if self.slots else target
         self._serving_backend = None
         self.sig_backend = self._compose(inner_name, failover, serving,
                                          serving_config, chaos,
@@ -202,10 +217,13 @@ class ShardNode:
         self.da_mode = da_mode
         self.das_service: Optional[DASService] = None
         if da_mode == "sampled":
-            netstore = NetStore(p2p=p2p)
-            self._register(netstore)
+            store = None
+            if actor != "light":
+                netstore = NetStore(p2p=p2p)
+                self._register(netstore)
+                store = netstore.store
             self.das_service = DASService(
-                client=client, p2p=p2p, store=netstore.store,
+                client=client, p2p=p2p, store=store,
                 parity_ratio=da_parity, samples=da_samples, chaos=chaos,
                 proof_mode=da_proofs)
             self._register(self.das_service)
@@ -235,6 +253,11 @@ class ShardNode:
                                mirror=self.service(StateMirror),
                                journal=journal, das=das,
                                da_mode=da_mode))
+        elif actor == "light":
+            # the les/light role: no shard data, SMC-anchored proof-verified
+            # sampling over shardp2p
+            self._register_factory(
+                lambda: LightClient(client=client, p2p=p2p, das=das))
         else:
             # the observer replays where the backend runs: on the card for
             # `torch` (and its wrappers), on the host for `python`
@@ -245,15 +268,16 @@ class ShardNode:
                                          "python") else "torch"),
                                  device=self.device))
 
-        if actor != "notary":
+        if actor not in ("notary", "light"):
             # non-notary nodes run the simulator (backend.go:303)
             self._register_factory(
                 lambda: Simulator(client=client, p2p=p2p,
                                   shard_id=shard_id,
                                   tick_interval=simulator_interval))
 
-        self._register_factory(
-            lambda: Syncer(client=client, shard=shard, p2p=p2p))
+        if actor != "light":  # a light node holds no bodies to serve
+            self._register_factory(
+                lambda: Syncer(client=client, shard=shard, p2p=p2p))
 
     # -- the signature backend ---------------------------------------------
 

@@ -3,7 +3,7 @@ entry points (the port's copy of the `sharding` and `devnet` subcommands of
 the JAX package's `node/cli.py`).
 
 Parity: `cmd/geth/shardingcmd.go` (+ flags `cmd/utils/flags.go:536-549`):
-`sharding --actor {notary,proposer,observer} --shardid N --deposit
+`sharding --actor {notary,proposer,observer,light} --shardid N --deposit
 --datadir PATH --password PW`, `--mesh-devices N` (the committee audit
 over an N-card shard mesh), the data-availability flags (`--da-mode
 sampled --da-proofs merkle|poly --da-samples K --da-parity R`), the serving
@@ -16,12 +16,15 @@ shardp2p relay (`RemoteHub`) instead. `devnet` starts one chain process and
 N actor processes and supervises them (`devnet.py`). The flags are the
 reference's of the features the port has, with the same names and
 defaults; the node runs on the CUDA card and exits non-zero where there is
-none. The options the port has not ported (ROADMAP.md, queue A) are absent,
-and `--actor light` is refused by naming its module.
+none, but for a light node (`--actor light`), which verifies on the host
+and needs no card. The options the port has not ported (ROADMAP.md, queue
+A) are absent.
 
 At exit the node logs one line `node at exit: {json}`: this process's
 kernel launches by name and, for a notary, its heads (`notary/head_latency`),
-its votes and its missed votes (`notary/votes_missed`). SIGTERM stops the node as SIGINT does.
+its votes and its missed votes (`notary/votes_missed`); for a light node,
+its verified samples and rejected proofs. SIGTERM stops the node as SIGINT
+does.
 """
 
 from __future__ import annotations
@@ -50,8 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sharding.add_argument("--actor", default="observer",
                           choices=("notary", "proposer", "observer", "light"),
-                          help="what role to run (flags.go:542 ActorFlag; "
-                               "'light' is not ported yet)")
+                          help="what role to run (flags.go:542 ActorFlag)")
     sharding.add_argument("--shardid", type=int, default=0,
                           help="shard to operate on (flags.go:546)")
     sharding.add_argument("--deposit", action="store_true",
@@ -184,8 +186,8 @@ def build_parser() -> argparse.ArgumentParser:
     devnet.add_argument("--proposers", type=int, default=1)
     devnet.add_argument("--observers", type=int, default=0)
     devnet.add_argument("--lights", type=int, default=0,
-                        help="not ported: light clients wait for "
-                             "actors/light.py")
+                        help="light clients, spread round-robin over the "
+                             "shards (actors/light.py)")
     devnet.add_argument("--datadir", default="",
                         help="base dir for per-actor datadirs + logs "
                              "(empty = auto temp dir, kept after exit "
@@ -423,12 +425,18 @@ def log_exit_summary(log, node) -> None:
     name, the node's account and, for a notary, its votes, the votes the
     chain sealed the period before (`notary/votes_missed`) and its heads
     end to end (the `notary/head_latency` timer: count, median, largest,
-    in ms)."""
+    in ms); for a light node, its verified samples and rejected proofs."""
     from gethsharding_tpu_torch.ops import _build
 
     summary = {"account": node.client.account().hex_str,
                "launches": {name: n for name, n in
                             _build.launch_counts().items() if n}}
+    if node.actor == "light":
+        from gethsharding_tpu_torch.actors.light import LightClient
+
+        light = node.service(LightClient)
+        summary["samples_verified"] = light.samples_verified
+        summary["proofs_rejected"] = light.proofs_rejected
     if node.actor == "notary":
         from gethsharding_tpu_torch.actors.notary import Notary
 

@@ -1088,14 +1088,16 @@ def jax_free_run():
 def port_devnet(jax_free_run):
     return script.run(_M_PORT, script.cpu_config(_M_PORT), script.CPU_POOL,
                       PERIODS, PORT_NODE, da_proofs="merkle",
-                      hostile=HOSTILE)
+                      hostile=HOSTILE,
+                      finale=lambda env: script.das_light_check(_M_PORT, env))
 
 
 @pytest.fixture(scope="module")
 def ref_devnet():
     return script.run(_M_REF, script.cpu_config(_M_REF), script.CPU_POOL,
                       PERIODS, REF_NODE, da_proofs="merkle",
-                      hostile=HOSTILE)
+                      hostile=HOSTILE,
+                      finale=lambda env: script.das_light_check(_M_REF, env))
 
 
 def test_sampled_devnet_matches_reference_after_every_period(port_devnet,
@@ -1140,6 +1142,17 @@ def test_sampled_devnet_answers(port_devnet):
         f"collation body unavailable for shard {s} period {p}"
         for s, p in hostile]}
     assert last["observer"]["txs_replayed"] == PERIODS
+
+
+def test_sampled_devnet_light_node_das_checks(port_devnet, ref_devnet):
+    """A sampled light node joining each devnet after the last audit:
+    `das_check` True on a proposer's shard, False on the withheld one, as
+    the reference's gives."""
+    port, ref = port_devnet["finale"], ref_devnet["finale"]
+    assert port == ref
+    assert (port["honest"], port["withheld"]) == (True, False)
+    assert port["samples_verified"] > 0 and port["proofs_rejected"] > 0
+    assert port["errors"] == []
 
 
 def test_jax_free_sampled_devnet_run(jax_free_run, port_devnet):

@@ -22,10 +22,12 @@ the same seeded inputs, bytes equal:
    period; the canonical headers the notary wrote are the SMC's; the
    same devnet in a subprocess where `jax` and `gethsharding_tpu` are
    blocked (started with the in-process devnets, so it runs beside them)
-   equal to the in-process run;
+   equal to the in-process run; a light node joining each devnet proves
+   the observer's collation as the reference's does;
 5. the CLI: the ported flags and their defaults against the reference's,
-   every other reference flag absent, `--actor light` refused by module,
-   the node's loop on the CPU, and no card: a non-zero exit.
+   every other reference flag absent, `--actor light` running with no
+   device and logging its exit line, the node's loop on the CPU, and no
+   card: a non-zero exit.
 
 Blocks are sealed by explicit commits; the threaded services are waited on
 through their own counters, never a fixed sleep.
@@ -119,13 +121,15 @@ def jax_free_run():
 @pytest.fixture(scope="module")
 def port_devnet(jax_free_run):
     return script.run(PORT, script.cpu_config(PORT), script.CPU_POOL,
-                      PERIODS, PORT_NODE)
+                      PERIODS, PORT_NODE,
+                      finale=lambda env: script.light_check(PORT, env))
 
 
 @pytest.fixture(scope="module")
 def ref_devnet():
     return script.run(REF, script.cpu_config(REF), script.CPU_POOL,
-                      PERIODS, REF_NODE)
+                      PERIODS, REF_NODE,
+                      finale=lambda env: script.light_check(REF, env))
 
 
 def _names(node) -> list:
@@ -134,7 +138,8 @@ def _names(node) -> list:
 
 # == 1. the composition =======================================================
 
-@pytest.mark.parametrize("actor", ["notary", "proposer", "observer"])
+@pytest.mark.parametrize("actor", ["notary", "proposer", "observer",
+                                   "light"])
 def test_registry_composition_per_actor(actor):
     """Each actor's services, in registration order, are the reference's
     (the counterpart of tests/test_node.py)."""
@@ -171,7 +176,6 @@ def test_journal_knob_turns_the_journal_off(monkeypatch):
 
 
 _REFUSED = {
-    "actor='light'": {"actor": "light"},
     "fleet_frontend": {"fleet_frontend": "127.0.0.1:1"},
     "http_port": {"http_port": 8545},
 }
@@ -939,6 +943,18 @@ def test_devnet_canonical_headers_follow_the_smc(port_devnet):
                 node.shard.canonical_header_hash(node.shard.shard_id, period)
 
 
+def test_devnet_light_node_proves_the_observers_collation(port_devnet,
+                                                         ref_devnet):
+    """A light node joining each devnet's hub after the last audit: the
+    observer's canonical collation proven by length, available at the
+    same draws and sampled to its bytes, equal to the reference's."""
+    port, ref = port_devnet["finale"], ref_devnet["finale"]
+    assert port == ref
+    assert port["proven_length"] == port["body_len"] > 0
+    assert port["available"] is True and port["samples"] == port["want"]
+    assert port["proofs_rejected"] == 0 and port["errors"] == []
+
+
 def test_jax_free_devnet_run(jax_free_run, port_devnet):
     out, err = jax_free_run.communicate(timeout=900)
     assert jax_free_run.returncode == 0, err[-3000:]
@@ -1005,10 +1021,23 @@ def test_cli_lacks_unported_flag(dest, capsys):
     assert "unrecognized arguments" in capsys.readouterr().err
 
 
-def test_cli_refuses_light_actor_by_module(capsys):
-    assert cli.run_cli(["sharding", "--actor", "light", "--runtime",
-                        "0.1", "--verbosity", "error"]) == 2
-    assert "actors/light.py" in capsys.readouterr().err
+def test_cli_runs_the_light_actor(caplog):
+    """`sharding --actor light`, given no device and run where there may be
+    no card: the node starts, seals blocks, and logs its exit line with its
+    samples, rejected proofs and no launch."""
+    args = cli.build_parser().parse_args(
+        ["sharding", "--actor", "light", "--runtime", "0.5",
+         "--blocktime", "0.05"])
+    with caplog.at_level(logging.INFO, logger="sharding"):
+        assert cli.run_sharding_node(args) == 0
+    text = caplog.text
+    assert "actor=light" in text and "device=None" in text
+    assert "service error" not in text
+    line = [r.getMessage() for r in caplog.records
+            if r.getMessage().startswith("node at exit: ")][-1]
+    summary = json.loads(line[len("node at exit: "):])
+    assert summary["samples_verified"] == summary["proofs_rejected"] == 0
+    assert summary["launches"] == {}
 
 
 def test_cli_node_loop_on_the_cpu(caplog):

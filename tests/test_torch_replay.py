@@ -138,8 +138,16 @@ def test_trie_root_equals_reference():
             ref.update(key, value)
             port.update(key, value)
         assert port.root_hash() == ref.root_hash()
-    with pytest.raises(ValueError):
-        Trie().update(b"k", b"")
+    # an empty value deletes its key (geth's semantics), as in the reference
+    ref, port = RTrie(), Trie()
+    for trie in (ref, port):
+        trie.update(b"k", b"v")
+        trie.update(b"k2", b"w")
+        trie.update(b"k", b"")
+    assert port.root_hash() == ref.root_hash() and port.get(b"k") is None
+    empty = Trie()
+    empty.update(b"k", b"")
+    assert empty.root_hash() == RTrie().root_hash()
 
 
 def _states(mod, batch):

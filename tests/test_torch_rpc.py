@@ -29,8 +29,10 @@ held against the JAX package's, on the CPU:
    by naming its module and exits non-zero without a card under
    `--sigbackend torch`; the server's trace and profiler handlers refuse
    by module; `sharding --endpoint --password` keeps its account; the
-   client's read retries; `devnet --lights` is refused, and the devnet's
-   respawned notary keeps its account (`-m slow`).
+   client's read retries; `devnet --http-base` is refused by module,
+   `devnet --lights` spreads light children over the shards and runs one
+   as an OS process, and the devnet's respawned notary keeps its account
+   (`-m slow`).
 
 Every socket binds port 0; services are waited on through counters and
 chain state, never a fixed sleep; every child process has a timeout.
@@ -1473,14 +1475,52 @@ def test_devnet_stops_readers_then_proposers_then_chain(tmp_path):
     assert at == len(events)
 
 
-def test_devnet_refuses_lights_and_status_ports_by_module(capsys):
+def test_devnet_refuses_status_ports_by_module(capsys):
     from gethsharding_tpu_torch.node import cli
 
-    assert cli.run_cli(["devnet", "--lights", "1", "--runtime", "1"]) == 2
-    assert "no actors/light.py yet" in capsys.readouterr().err
     assert cli.run_cli(["devnet", "--http-base", "9000",
                         "--runtime", "1"]) == 2
     assert "no node/http_status.py yet" in capsys.readouterr().err
+
+
+def test_devnet_spreads_light_children_over_the_shards(tmp_path):
+    """`--lights N`: light children round-robin over the shards (as the
+    proposers and observers), without `--deposit`."""
+    from gethsharding_tpu_torch.devnet import Devnet
+
+    net = Devnet(notaries=1, proposers=1, lights=3, base_dir=str(tmp_path),
+                 shard_count=2)
+    net.endpoint = ("127.0.0.1", 1)
+    assert net.counts["light"] == 3
+    for i in range(3):
+        argv = net._actor_argv("light", i, 0)
+        at = argv.index("--actor")
+        assert argv[at + 1] == "light" and "--deposit" not in argv
+        assert argv[argv.index("--shardid") + 1] == str(i % 2)
+        assert argv[argv.index("--datadir") + 1] == str(tmp_path /
+                                                        f"light-{i}")
+
+
+def test_devnet_runs_a_light_child(tmp_path):
+    """A devnet of OS processes with a light child (`--sigbackend python`,
+    no notary): the light node starts on the chain process's endpoint,
+    logs no error, and its exit line counts no launch."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "gethsharding_tpu_torch.cli", "devnet",
+         "--notaries", "0", "--proposers", "1", "--lights", "1",
+         "--shardcount", "2", "--sigbackend", "python", "--blocktime",
+         "0.2", "--interval", "1", "--runtime", "25", "--datadir",
+         str(tmp_path)],
+        cwd=REPO, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert '"light-0": "running"' in proc.stdout
+    log = (tmp_path / "logs" / "light-0.log").read_text()
+    assert "actor=light" in log
+    assert "service error" not in log and "Traceback" not in log
+    line = [l for l in log.splitlines() if "node at exit: " in l][-1]
+    summary = json.loads(line.split("node at exit: ", 1)[1])
+    assert summary["launches"] == {}
+    assert summary["samples_verified"] == summary["proofs_rejected"] == 0
 
 
 @pytest.mark.slow

@@ -72,6 +72,7 @@ def modules(root: str) -> SimpleNamespace:
         Hub=mod("p2p.service").Hub,
         P2PServer=mod("p2p.service").P2PServer,
         Notary=mod("actors.notary").Notary,
+        LightClient=mod("actors.light").LightClient,
         Observer=mod("actors.observer").Observer,
         Proposer=mod("actors.proposer").Proposer,
         TXPool=mod("actors.txpool").TXPool,
@@ -80,6 +81,8 @@ def modules(root: str) -> SimpleNamespace:
         request_collation_body=mod("actors.syncer").request_collation_body,
         DASService=mod("das.service").DASService,
         CollationBodyRequest=mod("p2p.messages").CollationBodyRequest,
+        ChunkProofRequest=mod("p2p.messages").ChunkProofRequest,
+        ChunkProofResponse=mod("p2p.messages").ChunkProofResponse,
         Collation=types.Collation,
         CollationHeader=types.CollationHeader,
         Transaction=types.Transaction,
@@ -277,7 +280,8 @@ def _hostile_payload(m, period: int, shard: int, size: int) -> bytes:
 def run(m, cfg, pool: int, periods: int, node_kw: dict,
         txs_per_collation: int = 1, min_proposers: int = 0,
         counts=None, seal_with=None, members=None, da_proofs=None,
-        hostile=(), hostile_payload: int = 0, proposer_kw=None) -> dict:
+        hostile=(), hostile_payload: int = 0, proposer_kw=None,
+        finale=None) -> dict:
     """The devnet. `node_kw` goes to every `ShardNode` (the port's
     `sig_backend` and `device`, or the reference's `sig_backend`), and
     `proposer_kw`, where given, over it to the proposer nodes;
@@ -289,10 +293,14 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
     (else seeded ones are made); `da_proofs` ("merkle" or "poly"), where
     given, runs every node sampled with that proof scheme, with the
     `hostile` kinds of `HOSTILE_KINDS` placed by `plan`, their bodies a
-    transaction of `hostile_payload` seeded bytes (where non-zero).
+    transaction of `hostile_payload` seeded bytes (where non-zero);
+    `finale(env)`, where given, runs after the last summary with every
+    node still up (`env`: the chain, the hub, the nodes, the layout, the
+    periods and the keyword arguments every node was built with; see
+    `light_check` and `das_light_check`).
     Returns the chain, the nodes, the layout, the summaries by period
     (the last one after the final audit), the launches by period and
-    block, and each sealed block's seconds."""
+    block, each sealed block's seconds and what `finale` returned."""
     layout = plan(m, cfg, pool, periods, min_proposers or cfg.shard_count,
                   hostile)
     elig = layout["eligibility"]
@@ -552,6 +560,9 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
         while chain.block_number < (periods + 1) * plen:
             seal(periods)                      # the last period's audit
         summaries[periods + 1] = summary(periods + 1)
+        ended = None if finale is None else finale(SimpleNamespace(
+            chain=chain, hub=hub, nodes=nodes, layout=layout,
+            periods=periods, node_kw=common))
     finally:
         for node in nodes.values():
             node.stop()
@@ -561,7 +572,61 @@ def run(m, cfg, pool: int, periods: int, node_kw: dict,
             watch.stop()
     return {"chain": chain, "nodes": nodes, "layout": layout,
             "summaries": summaries, "launches": launches,
-            "block_s": block_s}
+            "block_s": block_s, "finale": ended}
+
+
+def _light_node(m, env, shard: int):
+    """A light node joining the devnet's chain and hub, started."""
+    node = m.ShardNode(actor="light", shard_id=shard, **env.node_kw)
+    node.start()
+    return node
+
+
+def light_check(m, env, k: int = 16, seed: bytes = b"devnet-light") -> dict:
+    """A `run` finale: a light node proves the observer's canonical
+    collation of the last period from the hub (the proposer's and the
+    notary's syncers serve the proofs): its proven length, an availability
+    check of `k` draws from `seed`, four samples against the body's bytes,
+    its counters and errors."""
+    s, p = env.layout["observer"], env.periods
+    body = env.nodes["observer"].shard.canonical_collation(s, p).body
+    node = _light_node(m, env, s)
+    try:
+        light = node.service(m.LightClient)
+        indices = [0, len(body) // 3, 2 * len(body) // 3, len(body) - 1]
+        return {"body_len": len(body),
+                "proven_length": light.proven_length(s, p),
+                "available": light.availability_check(s, p, k=k, seed=seed),
+                "samples": light.sample(s, p, indices),
+                "want": {i: body[i] for i in indices},
+                "samples_verified": light.samples_verified,
+                "proofs_rejected": light.proofs_rejected,
+                "errors": node.errors()}
+    finally:
+        node.stop()
+
+
+def das_light_check(m, env, seed: bytes = b"devnet-das-light") -> dict:
+    """A `run` finale of a sampled devnet: a light node (`da_mode=
+    "sampled"`, a DAS service with no store) runs `das_check` on the
+    first proposer's shard and on the withheld shard (where the layout has
+    one) of the last period, draws from `seed`."""
+    p = env.periods
+    withheld = [s for s, kind in env.layout["hostile"].items()
+                if kind == "withhold"]
+    honest = env.layout["proposers"][0]
+    node = _light_node(m, env, honest)
+    try:
+        light = node.service(m.LightClient)
+        out = {"honest": light.das_check(honest, p, seed=seed)}
+        if withheld:
+            out["withheld"] = light.das_check(withheld[0], p, seed=seed)
+        out.update(samples_verified=light.samples_verified,
+                   proofs_rejected=light.proofs_rejected,
+                   errors=node.errors())
+        return out
+    finally:
+        node.stop()
 
 
 def jsonable(summaries: dict) -> dict:
