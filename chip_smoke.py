@@ -13,7 +13,9 @@ steps 12 and 13, the notary service itself on its own chain, step
 `--da-mode sampled`, step 16, the serving and resilience plane,
 `--serving --soundness-rate --sigbackend failover-torch`, step 17, and
 the cross-process topology, a chain process serving remote callers and a
-devnet of OS processes, step 18, and the shard mesh, step 19):
+devnet of OS processes, step 18, the shard mesh, step 19, and the fleet,
+a frontend process routing the serving planes over chain processes, with
+a notary behind it, step 20):
 the precomp path (with `pk_row_keys`, the notary's default: line tables
 resident on the card) and the recompute path (without keys):
 
@@ -365,7 +367,35 @@ resident on the card) and the recompute path (without keys):
    for bit, one reduction, timed beside it; (4) the dry run twin
    (`parallel/dryrun.py`) on the slots, and `sharding --mesh-devices N`
    with N one above the visible cards, which must exit non-zero with
-   `requested N devices, only N-1 visible`.
+   `requested N devices, only N-1 visible`;
+20. the fleet (`fleet_phase`): two `chain_server --sigbackend torch`
+   replicas and two `python -m gethsharding_tpu_torch.fleet.frontend`
+   processes over them, a `--sigbackend python` chain with a proposer and
+   a `sharding --actor notary --deposit --fleet-frontend HOST:PORT --http
+   PORT` on it: (1) step 18.1's requests through a frontend from 8
+   client threads, a warm-up round and a timed one, every reply the
+   direct call's and no failover; (2) the keyed period again, one
+   request at a time: each on its rendezvous replica (a local router's
+   `route` over the same names) by the frontend's per-replica counters,
+   and that replica's call (`shard_servingStats` `last_timing`) with no
+   `agg_g2` launch and 0 G2 bytes; (3) `shard_drainReplica r0` in the
+   middle of a round, a round on r1 alone, `shard_undrainReplica` (r0
+   healthy, one re-entry), r1 SIGKILLed in the middle of a round (tripped
+   after), a `FrontendPool` over both frontends past the first one's
+   SIGKILL: no request fails; (4) `ChainServerSpawner` (`--sigbackend
+   torch`) spawns a replica, `shard_addReplica` admits it DRAINING, it
+   turns HEALTHY, serves a committee request while r0 is drained,
+   `shard_removeReplica` detaches it (epoch 2) and the spawner reclaims
+   its process, whose exit line counts `agg_g1` and `finalexp`; (5) the
+   notary's vote is the SMC's approved record of its period, its status
+   page answers `/healthz`, `/metrics?format=prom` (its counters, an
+   audit counted) and `/status`, its audits reached the frontend
+   (`shard_verifyCommittees` beyond the smoke's own), and at exit it
+   launched nothing (`device=None`); the frontend's exit line shows no
+   launch and no CUDA context; r0's exit line and r1's last
+   `shard_servingStats` count every kernel of FLEET_KERNELS; (6) timed
+   per request through the frontend (median, p99) beside step 18.1's
+   over the wire and the direct call on one request's rows.
 
 Beside steps 9-12, in a process of its own (`--roots-phase`), the trie
 family's roots on the host: the compiled root (`csrc/mpt.c`, `cc`) loaded
@@ -4368,7 +4398,7 @@ DEVNET_MISSED_PER_VOTE = 2
 DEVNET_WAIT_S = 150             # the longest wait on one devnet event
 
 
-def read_line(proc, timeout: float, what: str) -> str:
+def read_line(proc, timeout: float, what: str, step: str = "18") -> str:
     """The next stdout line of `proc`, or fail after `timeout` s."""
     import selectors
 
@@ -4376,12 +4406,12 @@ def read_line(proc, timeout: float, what: str) -> str:
     sel.register(proc.stdout, selectors.EVENT_READ)
     try:
         if not sel.select(timeout=timeout):
-            fail(f"step 18: {what}: no line within {timeout:.0f} s")
+            fail(f"step {step}: {what}: no line within {timeout:.0f} s")
         line = proc.stdout.readline()
     finally:
         sel.close()
     if not line:
-        fail(f"step 18: {what}: the process exited ({proc.poll()})")
+        fail(f"step {step}: {what}: the process exited ({proc.poll()})")
     return line
 
 
@@ -4396,10 +4426,10 @@ def stop_child(proc, sig=signal.SIGINT, timeout: float = 60.0) -> None:
             proc.wait()
 
 
-def exit_line(log: str, prefix: str) -> dict:
+def exit_line(log: str, prefix: str, step: str = "18") -> dict:
     found = re.findall(re.escape(prefix) + r" (\{.*\})", log)
     if not found:
-        fail(f"step 18: no '{prefix}' line in:\n{log[-3000:]}")
+        fail(f"step {step}: no '{prefix}' line in:\n{log[-3000:]}")
     return json.loads(found[-1])
 
 
@@ -4435,7 +4465,7 @@ def topology_jobs(period, vote, codec):
     return jobs
 
 
-def wire_round(address, jobs, rpc_client):
+def wire_round(address, jobs, rpc_client, step: str = "18.1"):
     """One round: TOPO_THREADS threads, each on its own RPCClient, send
     their share of each group at once (a barrier between the groups).
     Returns {group: [(reply, expected, seconds)]}; fails on an error."""
@@ -4469,7 +4499,7 @@ def wire_round(address, jobs, rpc_client):
     for t in threads:
         t.join(timeout=600)
     if errors or any(t.is_alive() for t in threads):
-        fail(f"step 18.1: requests failed or hung: {errors[:3]}")
+        fail(f"step {step}: requests failed or hung: {errors[:3]}")
     return out
 
 
@@ -4492,7 +4522,7 @@ def chain_votes(remote, mods, ether):
     return p
 
 
-def chain_phase(card: str, period, vote, medians, before_round) -> None:
+def chain_phase(card: str, period, vote, medians, before_round) -> dict:
     """Step 18.1: `python -m gethsharding_tpu_torch.rpc.chain_server
     --sigbackend torch --quorum 1` as a child process; from 8 client
     threads, each on its own `RPCClient`: step 3's period in 8 keyed
@@ -4507,7 +4537,8 @@ def chain_phase(card: str, period, vote, medians, before_round) -> None:
     serving request and the direct call on one request's rows. The
     chain process boots while the smoke makes the requests and the
     direct calls; `before_round()` runs between the warm-up round and
-    the measured one (step 18.2's devnet boots meanwhile)."""
+    the measured one (step 18.2's devnet boots meanwhile). Returns the
+    median over the wire of each group's requests, in ms."""
     import tempfile
 
     from gethsharding_tpu_torch.mainchain.accounts import AccountManager
@@ -4602,17 +4633,18 @@ def chain_phase(card: str, period, vote, medians, before_round) -> None:
           f"the chain process's launches at exit {launched} (the warm-up "
           f"round and the measured one, the measured one beside the "
           f"booted devnet of step 18.2) [{card}]", flush=True)
-    step17 = {"committees": "committees", "recoveries": "recoveries",
-              "samples": "samples"}
+    wire = {}
     for name in ops:
         lat_ms = [v * 1e3 for _, _, v in got[name]]
-        serve17, one17 = medians.get(step17[name], (float("nan"),) * 2)
+        wire[name] = statistics.median(lat_ms)
+        serve17, one17 = medians.get(name, (float("nan"),) * 2)
         print(f"time over the wire, {name} (step 18.1): {len(lat_ms)} "
               f"requests, per-request latency median "
-              f"{statistics.median(lat_ms):.2f} ms, p99 "
+              f"{wire[name]:.2f} ms, p99 "
               f"{pct(lat_ms, 0.99):.2f} ms; in-process serving request "
               f"(step 17.1) median {serve17:.2f} ms; the direct call on "
               f"one request's rows {one17:.2f} ms [{card}]", flush=True)
+    return wire
 
 
 def find_pids(datadir: str, role: str) -> list:
@@ -4848,14 +4880,15 @@ def devnet_phase(card: str, net: Devnet) -> None:
           f"ms [{card}]", flush=True)
 
 
-def topology_phase(card: str, period, vote, medians) -> None:
+def topology_phase(card: str, period, vote, medians) -> dict:
     """Step 18: the cross-process topology on the card: 18.2's devnet
     started first, 18.1's chain process serving the verifications while
-    it boots (the measured round once it has), then 18.2; timed."""
+    it boots (the measured round once it has), then 18.2; timed. Returns
+    18.1's medians over the wire."""
     t0 = time.perf_counter()
     net = Devnet()
     try:
-        chain_phase(card, period, vote, medians, net.boot)
+        wire = chain_phase(card, period, vote, medians, net.boot)
         t1 = time.perf_counter()
         devnet_phase(card, net)
     finally:
@@ -4865,6 +4898,7 @@ def topology_phase(card: str, period, vote, medians) -> None:
           f"process {t1 - t0:.1f} s with the devnet booting beside it, "
           f"the devnet {time.perf_counter() - t0:.1f} s from its start)",
           flush=True)
+    return wire
 
 
 MESH_SLOTS = 4          # slots of cuda:0 where the machine has one card
@@ -5087,6 +5121,428 @@ def mesh_checks(card: str, period, built, slots, what: str) -> None:
     summary = dryrun_multichip(slots)
     print(f"mesh dry run: {summary} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+# step 20: the fleet on the card: a frontend process routing the serving
+# planes over two chain_server replicas, drained, failed over, grown and
+# shrunk at run time, and a notary whose verifications go through it
+FLEET_KERNELS = ("agg_g1", "tower", "norm", "finalexp", "ecrecover",
+                 "das_samples")
+FLEET_FRONTEND = ("--replica-timeout", "600", "--runtime", "600")
+FLEET_CHAIN = ("--sigbackend", "python", "--quorum", "1", "--shardcount",
+               "1", "--blocktime", "0.2", "--runtime", "600")
+FLEET_WAIT_S = 90               # the longest wait on one fleet event
+
+
+def fleet_wait(pred, what: str, timeout: float = FLEET_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        value = pred()
+        if value:
+            return value
+        time.sleep(0.05)
+    fail(f"step 20: {what} did not happen within {timeout:.0f} s")
+
+
+class FleetChildren:
+    """Step 20's child processes: each started with its stderr in a log
+    file of its own and, where it prints an endpoint, its stdout piped."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip-fleet-")
+        self.procs = {}
+        self.cwd = os.path.dirname(os.path.abspath(__file__))
+
+    def start(self, name: str, args, banner: bool = True) -> None:
+        with open(self.log_path(name), "w") as err:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", *args], cwd=self.cwd,
+                stdout=subprocess.PIPE if banner else subprocess.DEVNULL,
+                stderr=err, text=True)
+
+    def endpoint(self, name: str) -> str:
+        line = read_line(self.procs[name], 120, f"{name}'s endpoint",
+                         step="20")
+        addr = json.loads(line)
+        return f"{addr['host']}:{addr['port']}"
+
+    def log_path(self, name: str) -> str:
+        return os.path.join(self.dir, f"{name}.log")
+
+    def log(self, name: str) -> str:
+        with open(self.log_path(name)) as fh:
+            return fh.read()
+
+    def stop(self, name: str) -> int:
+        proc = self.procs[name]
+        stop_child(proc)
+        return proc.returncode
+
+    def stop_all(self) -> None:
+        for name in list(self.procs)[::-1]:
+            self.stop(name)
+
+
+def host_port(endpoint: str):
+    host, port = endpoint.rsplit(":", 1)
+    return host, int(port)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def routed(client) -> dict:
+    return {name: r["routed"] for name, r in client.call(
+        "shard_fleetStatus")["replicas"].items()}
+
+
+def fleet_round(address, jobs, rpc_client, what: str):
+    """One `wire_round` through the frontend, every reply checked against
+    the direct call's. Returns {group: [seconds]}."""
+    got = wire_round(address, jobs, rpc_client, step=f"20 ({what})")
+    for name, rows in got.items():
+        bad = [i for i, (reply, want_i, _) in enumerate(rows)
+               if reply != want_i]
+        if bad:
+            fail(f"step 20 ({what}): {name}: routed replies differ from "
+                 f"the direct call's at requests {bad}")
+    return {name: [v for _, _, v in rows] for name, rows in got.items()}
+
+
+def fleet_phase(card: str, period, vote, medians, wire) -> None:
+    """Step 20: the fleet (`python -m gethsharding_tpu_torch.fleet.frontend`)
+    on the card. Two port `chain_server` replicas (`--sigbackend torch`)
+    and two frontends over them, each a process of its own; beside them a
+    chain process (`--sigbackend python`), a proposer and a notary
+    (`sharding --actor notary --deposit --fleet-frontend HOST:PORT --http
+    PORT`) on it. (1) Step 18.1's requests (step 3's period as 8 keyed
+    committee requests, 32 recoveries, step 10's samples in 8 requests)
+    from 8 client threads through a frontend: every reply the direct
+    call's, a warm-up round then a timed one; (2) the keyed period again,
+    one request at a time: each lands on its rendezvous replica (the
+    router's per-replica counters; the first round had no failover), and
+    that replica's call launched no `agg_g2` and shipped no G2 bytes
+    (its `shard_servingStats`); (3) `shard_drainReplica r0` in the middle
+    of a round, a round with r0 drained (all on r1), `shard_undrainReplica`
+    (r0 re-enters on the health sweep's read), r1 SIGKILLed in the middle
+    of a round (the router retries on r0), and a `FrontendPool` over both
+    frontends surviving the first one's SIGKILL: no request fails; (4)
+    `ChainServerSpawner` spawns a `--sigbackend torch` replica,
+    `shard_addReplica` admits it (DRAINING, then HEALTHY), it serves a
+    committee request while r0 is drained, `shard_removeReplica` detaches
+    it and the spawner reclaims its process, whose exit line counts the
+    audit kernels; (5) the notary's vote is the SMC's approved record, its
+    audits went to the frontend, its status page answers `/healthz`,
+    `/metrics?format=prom` (with its counters) and `/status`, and at exit
+    it launched nothing; the frontend's exit line shows no launch and no
+    CUDA context, and the replicas launched every kernel of
+    FLEET_KERNELS. (6) Timed per request through the frontend (median,
+    p99) beside step 18.1's over the wire and the direct call."""
+    import urllib.request
+
+    from gethsharding_tpu_torch import metrics
+    from gethsharding_tpu_torch.fleet.autoscaler import ChainServerSpawner
+    from gethsharding_tpu_torch.fleet.router import FleetRouter, Replica
+    from gethsharding_tpu_torch.rpc import codec
+    from gethsharding_tpu_torch.rpc.client import (FrontendPool,
+                                                   RemoteMainchain,
+                                                   RPCClient)
+    from gethsharding_tpu_torch.sigbackend import PythonSigBackend
+
+    t0 = time.perf_counter()
+    marks = []
+    kids = FleetChildren()
+    jobs = topology_jobs(period, vote, codec)
+    spawner = ChainServerSpawner(
+        sigbackend="torch", extra_args=["--quorum", "1", "--runtime",
+                                        "600"],
+        spawn_timeout_s=120, log_dir=os.path.join(kids.dir, "spawned"))
+    clients = []
+    try:
+        for name in ("r0", "r1"):
+            kids.start(name, ["gethsharding_tpu_torch.rpc.chain_server",
+                              *CHAIN_ARGS])
+        kids.start("chain", ["gethsharding_tpu_torch.rpc.chain_server",
+                             *FLEET_CHAIN])
+        replicas = [kids.endpoint("r0"), kids.endpoint("r1")]
+        for name in ("fe", "spare"):
+            kids.start(name, ["gethsharding_tpu_torch.fleet.frontend",
+                              "--replica", replicas[0], "--replica",
+                              replicas[1], *FLEET_FRONTEND])
+        chain_ep = kids.endpoint("chain")
+        kids.start("proposer", [
+            "gethsharding_tpu_torch.cli", "sharding", "--actor", "proposer",
+            "--endpoint", chain_ep, "--shardid", "0", "--sigbackend",
+            "python", "--datadir", os.path.join(kids.dir, "proposer"),
+            "--password", "devnet"], banner=False)
+        fe, spare = kids.endpoint("fe"), kids.endpoint("spare")
+        http_port = free_port()
+        kids.start("notary", [
+            "gethsharding_tpu_torch.cli", "sharding", "--actor", "notary",
+            "--deposit", "--endpoint", chain_ep, "--fleet-frontend", fe,
+            "--http", str(http_port), "--datadir",
+            os.path.join(kids.dir, "notary"), "--password", "devnet"],
+            banner=False)
+        marks.append(("boot", time.perf_counter()))
+        client = RPCClient(*host_port(fe), timeout=600)
+        clients.append(client)
+        reps = [RPCClient(*host_port(e), timeout=600) for e in replicas]
+        clients.extend(reps)
+
+        # (1) the routed planes: a warm-up round, then the timed one
+        fleet_round(host_port(fe), jobs, RPCClient, "warm-up round")
+        timed = fleet_round(host_port(fe), jobs, RPCClient, "timed round")
+        metrics0 = client.call("shard_metrics")
+        if metrics0["fleet/router/failovers"]["count"] != 0:
+            fail(f"step 20: the healthy rounds failed over "
+                 f"{metrics0['fleet/router/failovers']}")
+        sent = {"committees": 2 * len(jobs["committees"])}
+        marks.append(("routed rounds", time.perf_counter()))
+
+        # (2) affinity: each committee request on its rendezvous replica,
+        # warm (no agg_g2, no G2 bytes)
+        probe = FleetRouter([Replica(n, PythonSigBackend(), probe=None,
+                                     registry=metrics.Registry())
+                             for n in ("r0", "r1")],
+                            health_interval_s=0.0,
+                            registry=metrics.Registry())
+        keys = period[3]
+        cuts = [round(i * SHARDS / TOPO_THREADS)
+                for i in range(TOPO_THREADS + 1)]
+        landed = []
+        for i, (method, params, want_i) in enumerate(jobs["committees"]):
+            expect = probe.route(repr(keys[cuts[i]]))[0].name
+            rep = reps[int(expect[1:])]
+            for _ in range(6):      # a notary's call may land between
+                before, stats0 = routed(client), rep.call(
+                    "shard_servingStats")
+                reply = client.call(method, *params)
+                after, stats1 = routed(client), rep.call(
+                    "shard_servingStats")
+                sent["committees"] += 1
+                if reply != want_i:
+                    fail(f"step 20 (affinity): request {i}'s reply differs")
+                moved = {n for n in after if after[n] != before.get(n)}
+                if expect not in moved:
+                    fail(f"step 20 (affinity): request {i} landed on "
+                         f"{moved}, its rendezvous replica is {expect}")
+                if moved == {expect} and sum(stats1["dispatches"].values()) \
+                        - sum(stats0["dispatches"].values()) == 1:
+                    break
+            else:
+                fail(f"step 20 (affinity): request {i} never had {expect} "
+                     f"to itself")
+            timing = stats1["last_timing"]
+            if timing["launches"].get("agg_g2") or timing["g2_wire_bytes"]:
+                fail(f"step 20 (affinity): request {i} on {expect} was not "
+                     f"warm: {timing}")
+            landed.append((expect, timing["hit_rows"]))
+        probe.close()
+        marks.append(("affinity", time.perf_counter()))
+
+        # (3) drain mid-round, drained round, undrain, SIGKILL mid-round,
+        # FrontendPool over two frontends surviving one's SIGKILL
+        import threading
+
+        def mid_round(action, what):
+            start = routed(client)
+            done = {}
+            thread = threading.Thread(target=lambda: done.update(
+                fleet_round(host_port(fe), jobs, RPCClient, what)))
+            thread.start()
+            fleet_wait(lambda: routed(client)["r0"] > start["r0"]
+                       or not thread.is_alive(), f"{what}'s first r0 call")
+            action()
+            thread.join(timeout=600)
+            if not done:
+                fail(f"step 20 ({what}): the round did not finish")
+            return done
+
+        mid_round(lambda: client.call("shard_drainReplica", "r0"),
+                  "drain mid-round")
+        before = routed(client)
+        fleet_round(host_port(fe), jobs, RPCClient, "r0 drained")
+        after = routed(client)
+        sent["committees"] += 2 * len(jobs["committees"])
+        asked = sum(len(g) for g in jobs.values())
+        if after["r0"] != before["r0"] \
+                or after["r1"] - before["r1"] < asked:
+            fail(f"step 20 (r0 drained): routed {before} -> {after}")
+        state = client.call("shard_undrainReplica", "r0")
+        if state["state"] != "healthy" or state["reentries"] != 1:
+            fail(f"step 20: r0 after shard_undrainReplica: {state}")
+        r1_stats = reps[1].call("shard_servingStats")
+        mid_round(lambda: os.kill(kids.procs["r1"].pid, signal.SIGKILL),
+                  "r1 SIGKILLed mid-round")
+        sent["committees"] += len(jobs["committees"])
+        status = client.call("shard_fleetStatus")["replicas"]
+        if status["r1"]["state"] != "tripped":
+            fail(f"step 20: r1 after its SIGKILL: {status['r1']}")
+        pool = FrontendPool([spare, fe], timeout=600)
+        (digests, sigs65, want_addr) = vote[0]
+        if pool.ecrecover_addresses(digests[:4], sigs65[:4]) \
+                != want_addr[:4] or pool.primary() != spare:
+            fail("step 20 (pool): the first frontend's reply differs")
+        os.kill(kids.procs["spare"].pid, signal.SIGKILL)
+        msgs, sig_rows, pk_rows, pkeys, want = period
+        got = pool.bls_verify_committees(msgs[:12], sig_rows[:12],
+                                         pk_rows[:12],
+                                         pk_row_keys=pkeys[:12])
+        sent["committees"] += 1
+        if got != want[:12] or pool.failovers < 1 or pool.primary() != fe:
+            fail(f"step 20 (pool): after the SIGKILL: failovers "
+                 f"{pool.failovers}, primary {pool.primary()}")
+        pool.close()
+        marks.append(("drain and failover", time.perf_counter()))
+
+        # (4) a spawned replica admitted, serving, removed and reclaimed
+        new = spawner.spawn()
+        added = client.call("shard_addReplica", new)
+        if added["state"] != "draining" or added["epoch"] != 1:
+            fail(f"step 20: shard_addReplica {new}: {added}")
+        fleet_wait(lambda: client.call("shard_fleetStatus")["replicas"]
+                   .get(new, {}).get("state") == "healthy",
+                   "the spawned replica's promotion")
+        client.call("shard_drainReplica", "r0")
+        before = routed(client)
+        method, params, want_i = jobs["committees"][0]
+        if client.call(method, *params) != want_i:
+            fail("step 20: the spawned replica's reply differs")
+        sent["committees"] += 1
+        after = routed(client)
+        if after[new] <= before[new]:
+            fail(f"step 20: the request went elsewhere: {before} -> {after}")
+        client.call("shard_undrainReplica", "r0")
+        removed = client.call("shard_removeReplica", new)
+        fleet_wait(lambda: new not in client.call(
+            "shard_fleetStatus")["replicas"], "the spawned replica's detach")
+        status = client.call("shard_fleetStatus")
+        if removed["state"] != "draining" \
+                or status["membership"]["epoch"] != 2:
+            fail(f"step 20: shard_removeReplica {new}: {removed}, "
+                 f"{status['membership']}")
+        spawned_log = spawner.logs[new]
+        spawner.retire(new)
+        if spawner.spawned():
+            fail(f"step 20: the spawner still holds {spawner.spawned()}")
+        with open(spawned_log) as fh:
+            spawned = exit_line(fh.read(), "chain-server at exit:",
+                                step="20")
+        if any(not spawned["launches"].get(k)
+               for k in ("agg_g1", "finalexp")):
+            fail(f"step 20: the spawned replica launched "
+                 f"{spawned['launches']}")
+        marks.append(("spawned replica", time.perf_counter()))
+
+        # (5) the notary through the fleet
+        chain = RemoteMainchain.dial(*host_port(chain_ep))
+        clients.append(chain.rpc)
+        account = fleet_wait(lambda: chain.notary_by_pool_index(0),
+                             "the notary's deposit")
+        voted = fleet_wait(lambda: voted_period(chain, account, 0, 1),
+                           "a period voted by the notary")
+
+        def page(path):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{http_port}{path}",
+                    timeout=30) as resp:
+                return resp.status, resp.read().decode()
+
+        def audited():
+            text = page("/metrics?format=prom")[1]
+            found = re.findall(r"gethsharding_notary_period_audit_latency"
+                               r"_count (\d+)", text)
+            return text if found and int(found[0]) > 0 else None
+
+        prom = fleet_wait(audited, "the notary's first audit")
+        health = json.loads(page("/healthz")[1])
+        status_page = json.loads(page("/status")[1])
+        if "gethsharding_notary_votes_submitted_total" not in prom \
+                or health["status"] != "ok" \
+                or status_page["actor"] != "notary":
+            fail(f"step 20: the notary's status page: {health}, "
+                 f"{status_page.get('actor')}")
+        marks.append(("notary", time.perf_counter()))
+    finally:
+        for c in clients:
+            c.close()
+        spawner.close()
+        codes = {}
+        for name in ("notary", "proposer", "fe", "spare", "chain", "r0",
+                     "r1"):
+            if name in kids.procs:
+                codes[name] = kids.stop(name)
+    if any(codes[n] != 0 for n in ("notary", "proposer", "fe", "chain",
+                                   "r0")):
+        fail(f"step 20: exit codes {codes}; logs in {kids.dir}")
+    notary = exit_line(kids.log("notary"), "node at exit:", step="20")
+    front = exit_line(kids.log("fe"), "frontend at exit:", step="20")
+    r0 = exit_line(kids.log("r0"), "chain-server at exit:", step="20")
+    bad = {n: [line for line in kids.log(n).splitlines()
+               if "service error" in line or "Traceback" in line]
+           for n in ("notary", "proposer", "fe", "r0")}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad:
+        fail(f"step 20: the children logged errors {bad}")
+    if notary["launches"] or notary["votes"] < 1 \
+            or "device=None" not in kids.log("notary"):
+        fail(f"step 20: the notary's exit line {notary}")
+    if front["launches"] or front["cuda_initialized"]:
+        fail(f"step 20: the frontend launched {front['launches']}, CUDA "
+             f"context {front['cuda_initialized']}")
+    notary_audits = front["methods"]["shard_verifyCommittees"] \
+        - sent["committees"]
+    if notary_audits < 1:
+        fail(f"step 20: the frontend served "
+             f"{front['methods']['shard_verifyCommittees']} committee "
+             f"requests, the smoke sent {sent['committees']}")
+    launched = {k: r0["launches"].get(k, 0)
+                + r1_stats["launches"].get(k, 0) for k in FLEET_KERNELS}
+    missing = [k for k, n in launched.items() if not n]
+    if missing:
+        fail(f"step 20: the replicas launched {r0['launches']} and "
+             f"{r1_stats['launches']}; none of {missing}")
+    prev, parts = t0, []
+    for name, t in marks:
+        parts.append(f"{name} {t - prev:.1f}")
+        prev = t
+    print(f"fleet (step 20): 2 chain_server replicas (--sigbackend torch), "
+          f"2 frontends over them, a chain process, a proposer and a "
+          f"notary with --fleet-frontend and --http, each a process of its "
+          f"own; step 18.1's {asked} requests from {TOPO_THREADS} client "
+          f"threads through a frontend, twice, every reply the direct "
+          f"call's; the keyed period again one request at a time: each on "
+          f"its rendezvous replica ({[n for n, _ in landed]}), warm (no "
+          f"agg_g2, 0 G2 bytes, hit rows {[h for _, h in landed]}); r0 "
+          f"drained mid-round, a round on r1 alone, r0 back on the health "
+          f"sweep, r1 SIGKILLed mid-round, a FrontendPool past the first "
+          f"frontend's SIGKILL: no request failed; a spawned replica "
+          f"admitted, serving, removed at epoch 2 and reclaimed (its "
+          f"launches {spawned['launches']}); the notary's vote in period "
+          f"{voted} the SMC's approved record, {notary_audits} of its "
+          f"audits through the frontend, its status page answering, its "
+          f"launches {notary['launches']}; the frontend's launches "
+          f"{front['launches']}, CUDA context {front['cuda_initialized']}; "
+          f"the replicas' launches {launched} [{card}]", flush=True)
+    for name in ("committees", "recoveries", "samples"):
+        lat_ms = [v * 1e3 for v in timed[name]]
+        one = medians.get(name, (float("nan"),) * 2)[1]
+        print(f"time through the frontend, {name} (step 20): "
+              f"{len(lat_ms)} requests, per-request latency median "
+              f"{statistics.median(lat_ms):.2f} ms, p99 "
+              f"{pct(lat_ms, 0.99):.2f} ms; over the wire to one chain "
+              f"process (step 18.1) median {wire.get(name, float('nan')):.2f}"
+              f" ms; the direct call on one request's rows {one:.2f} ms "
+              f"[{card}]", flush=True)
+    print(f"step 20: {time.perf_counter() - t0:.1f} s in all "
+          f"({', '.join(parts)} s)", flush=True)
 
 
 def exact_phase(seed: int) -> int:
@@ -6081,11 +6537,14 @@ def main() -> int:
     vote, medians = serving_phase(
         card, args.seed, (msgs, sig_rows, pk_rows, keys, want), members)
     marks.append(("17", time.perf_counter()))
-    topology_phase(card, (msgs, sig_rows, pk_rows, keys, want), vote,
-                   medians)
+    wire = topology_phase(card, (msgs, sig_rows, pk_rows, keys, want),
+                          vote, medians)
     marks.append(("18", time.perf_counter()))
     mesh_phase(card, (msgs, sig_rows, pk_rows, keys, want), stressed)
     marks.append(("19", time.perf_counter()))
+    fleet_phase(card, (msgs, sig_rows, pk_rows, keys, want), vote, medians,
+                wire)
+    marks.append(("20", time.perf_counter()))
     prev, parts = t_smoke, []
     for name, t in marks:
         parts.append(f"{name} {t - prev:.1f}")

@@ -17,7 +17,8 @@ With `--sigbackend torch` the chain process and every actor run the
 port's CUDA kernels on the card (several processes, one CUDA context
 each); the first of them to need the kernels builds them, under the
 build lock of `utils/filelock.py`. Light clients (`--lights`) verify on
-the host and launch nothing.
+the host and launch nothing. `--http-base P` gives actor i (in spawn
+order) a status page on port P + i (`node/http_status.py`).
 
 Child crash handling mirrors the service-restart contract
 (`node/service.go:78-83`: restart = fresh instance): a crashed actor is
@@ -72,10 +73,6 @@ class Devnet:
                  shard_count: Optional[int] = None,
                  sigbackend: str = "torch",
                  http_base: int = 0):
-        if http_base:
-            raise ValueError("--http-base: the port has no "
-                             "node/http_status.py yet (ROADMAP.md, queue A "
-                             "item 8)")
         self.counts = {"notary": notaries, "proposer": proposers,
                        "observer": observers, "light": lights}
         if not base_dir:

@@ -1,6 +1,6 @@
 """Metrics: counters, gauges, fixed-bucket histograms and timers behind a
-registry (the port's copy of the core of the JAX package's `metrics.py`;
-its exporters wait).
+registry, and the registry's Prometheus text exposition (the port's copy of
+the JAX package's `metrics.py`; its push reporters wait).
 
 Parity: the go-metrics registry (`metrics.go:22-39`) scoped to what the
 notary needs: aggregate signature verifications, collation validate and
@@ -124,6 +124,10 @@ class Histogram:
     @property
     def count(self) -> int:
         return self._count
+
+    @property
+    def bounds(self) -> tuple:
+        return self._bounds
 
     def read(self) -> tuple:
         """One consistent locked read: (per-slot counts, count, total), so
@@ -294,3 +298,62 @@ def timer(name: str) -> Timer:
 
 def histogram(name: str, buckets=None) -> Histogram:
     return DEFAULT_REGISTRY.histogram(name, buckets=buckets)
+
+
+# -- Prometheus text exposition (scrape without Telegraf) -------------------
+
+
+def _prom_name(name: str, namespace: str) -> str:
+    """Metric path -> a legal Prometheus metric name."""
+    import re
+
+    flat = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    return f"{namespace}_{flat}" if namespace else flat
+
+
+def prometheus_text(registry: Registry = DEFAULT_REGISTRY,
+                    namespace: str = "gethsharding") -> str:
+    """The registry as Prometheus text exposition format (0.0.4) — the
+    ``GET /metrics?format=prom`` payload, so a node is scrapeable with
+    no Telegraf/Influx hop:
+
+    - Counter   -> ``<name>_total`` counter (+ ``<name>_rate_1m`` gauge)
+    - Gauge     -> gauge
+    - Timer     -> summary (quantiles 0.5/0.95/0.99, ``_count``/``_sum``)
+    - Histogram -> histogram (cumulative ``_bucket{le=...}``,
+      ``le="+Inf"`` == ``_count``, plus ``_sum``)
+    """
+    with registry._lock:
+        items = sorted(registry._metrics.items())
+    lines: List[str] = []
+    for name, metric in items:
+        prom = _prom_name(name, namespace)
+        if isinstance(metric, Counter):
+            lines += [f"# TYPE {prom}_total counter",
+                      f"{prom}_total {metric.value}",
+                      f"# TYPE {prom}_rate_1m gauge",
+                      f"{prom}_rate_1m {metric.rate_1m():g}"]
+        elif isinstance(metric, Gauge):
+            lines += [f"# TYPE {prom} gauge", f"{prom} {metric.value:g}"]
+        elif isinstance(metric, Timer):
+            lines.append(f"# TYPE {prom} summary")
+            for q in (0.5, 0.95, 0.99):
+                lines.append(
+                    f'{prom}{{quantile="{q:g}"}} {metric.percentile(q):g}')
+            lines += [f"{prom}_count {metric.count}",
+                      f"{prom}_sum {metric.mean() * metric.count:g}"]
+        elif isinstance(metric, Histogram):
+            lines.append(f"# TYPE {prom} histogram")
+            # ONE locked read: +Inf bucket, _count and _sum must agree
+            # even when a scrape races observe()
+            counts, count, total = metric.read()
+            running = 0
+            for i, bound in enumerate(metric.bounds):
+                running += counts[i]
+                lines.append(f'{prom}_bucket{{le="{bound:g}"}} {running}')
+            lines += [f'{prom}_bucket{{le="+Inf"}} {running + counts[-1]}',
+                      f"{prom}_count {count}",
+                      f"{prom}_sum {total:g}"]
+    # never empty: a scraper (or the observability smoke step) reading
+    # zero bytes cannot tell "no metrics yet" from a broken endpoint
+    return "\n".join(lines) + "\n" if lines else "# empty registry\n"

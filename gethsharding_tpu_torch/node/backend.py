@@ -19,9 +19,15 @@ device (`device` and `mesh_devices` are ignored, and it starts where
 there is no card): its innermost backend is the host's `python` one
 whatever `sig_backend` names, and the wrappers asked for compose over it
 as for every actor, inert, since no service of a light node calls them.
-What the port has not ported yet is refused by a `ValueError` that names
-the missing module (`UNPORTED`). With `mesh_devices` above 1
-(`--mesh-devices`, or `$GETHSHARDING_TORCH_MESH_DEVICES`) a `torch`
+With `fleet_frontend` (``HOST:PORT``, or a comma list of them) the
+actor's whole verification plane goes over the wire to a fleet frontend
+(`fleet/frontend.py`), whose replicas run the kernels: one endpoint gives
+an `RpcReplicaBackend`, a list a `FrontendPool` failing over between
+them; the node composes no backend of its own, and a notary, proposer or
+light node then resolves no device and launches nothing (an observer
+still replays on its device). `http_port` registers the status page
+(`node/http_status.py`, port 0 picks a free one). With `mesh_devices`
+above 1 (`--mesh-devices`, or `$GETHSHARDING_TORCH_MESH_DEVICES`) a `torch`
 backend audits over that many slots (`sigbackend/layout.py`): distinct
 cards, or `device` repeated; too few cards raise `requested N devices,
 only M visible`, and the node's own device is slot 0.
@@ -71,20 +77,6 @@ from gethsharding_tpu_torch.storage.netstore import NetStore
 
 S = TypeVar("S")
 
-# the reference's node options the port does not have yet, with the
-# module each waits for (ROADMAP.md, queue A item 8)
-UNPORTED = {
-    "fleet_frontend": "fleet/",
-    "http_port": "node/http_status.py",
-}
-
-
-def refuse(option: str) -> ValueError:
-    return ValueError(
-        f"{option}: the port has no {UNPORTED[option]} yet (ROADMAP.md, "
-        f"queue A item 8)")
-
-
 class ShardNode:
     """One sharding node: an actor plus its support services."""
 
@@ -122,11 +114,6 @@ class ShardNode:
         if da_proofs not in PROOF_MODES:
             raise ValueError(f"unknown da_proofs {da_proofs!r}; "
                              "pick 'merkle' or 'poly'")
-        for option, given in (
-                ("fleet_frontend", fleet_frontend is not None),
-                ("http_port", http_port is not None)):
-            if given:
-                raise refuse(option)
         if sig_backend not in BACKEND_NAMES:
             raise ValueError(f"unknown sigbackend {sig_backend!r}; choose "
                              f"from {BACKEND_NAMES}")
@@ -139,7 +126,10 @@ class ShardNode:
         self.actor = actor
         self.shard_id = shard_id
         self.config = config
-        if actor == "light":
+        if fleet_frontend is not None and actor != "observer":
+            # the frontend's replicas verify; nothing here runs a kernel
+            self.slots = self.device = None
+        elif actor == "light":
             # nothing of a light node computes on a device (see the module
             # docstring): no device, and the host's backend innermost
             self.slots = self.device = None
@@ -154,9 +144,16 @@ class ShardNode:
             self.slots = target if isinstance(target, list) else None
             self.device = self.slots[0] if self.slots else target
         self._serving_backend = None
-        self.sig_backend = self._compose(inner_name, failover, serving,
-                                         serving_config, chaos,
-                                         soundness_rate)
+        self.soundness_backend = None
+        self._frontend_backend = None
+        if fleet_frontend is not None:
+            self.sig_backend = self._frontend_backend = dial_frontend(
+                fleet_frontend)
+            self._composed = True
+        else:
+            self.sig_backend = self._compose(inner_name, failover, serving,
+                                             serving_config, chaos,
+                                             soundness_rate)
         self._services: Dict[Type, object] = {}
         self._order: List[object] = []
         self._factories: Dict[Type, object] = {}
@@ -279,6 +276,12 @@ class ShardNode:
             self._register_factory(
                 lambda: Syncer(client=client, shard=shard, p2p=p2p))
 
+        if http_port is not None:
+            # the observability endpoint (dashboard/ethstats/expvar analog)
+            from gethsharding_tpu_torch.node.http_status import StatusServer
+
+            self._register(StatusServer(self, port=http_port))
+
     # -- the signature backend ---------------------------------------------
 
     def _compose(self, inner_name, failover, serving, serving_config,
@@ -309,6 +312,7 @@ class ShardNode:
                 SpotCheckSigBackend)
 
             composed = SpotCheckSigBackend(composed, rate=soundness_rate)
+            self.soundness_backend = composed
         if failover:
             from gethsharding_tpu_torch.resilience.breaker import (
                 FailoverSigBackend)
@@ -365,6 +369,8 @@ class ShardNode:
         if self._serving_backend is not None:
             # after the consumers: a draining actor must still resolve
             self._serving_backend.close()
+        if self._frontend_backend is not None:
+            self._frontend_backend.close()
 
     # -- supervision (failure detection / elastic recovery) ----------------
 
@@ -470,3 +476,18 @@ class Supervisor(Service):
                 self.restarts_performed += 1
                 self.log.warning("restarted crashed service %s "
                                  "(fresh instance)", name)
+
+
+def dial_frontend(spec: str):
+    """The verification plane of a node behind a fleet frontend: one
+    ``HOST:PORT`` gives an `RpcReplicaBackend` (dialed now), a comma list
+    a `FrontendPool` (each frontend dialed on first use), which fails
+    over between them on the typed draining / connection-lost taxonomy."""
+    if "," in spec:
+        from gethsharding_tpu_torch.rpc.client import FrontendPool
+
+        return FrontendPool.dial(spec)
+    from gethsharding_tpu_torch.fleet.router import RpcReplicaBackend
+
+    host, port = spec.rsplit(":", 1)
+    return RpcReplicaBackend.dial(host, int(port))

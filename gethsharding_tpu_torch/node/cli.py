@@ -8,17 +8,23 @@ Parity: `cmd/geth/shardingcmd.go` (+ flags `cmd/utils/flags.go:536-549`):
 over an N-card shard mesh), the data-availability flags (`--da-mode
 sampled --da-proofs merkle|poly --da-samples K --da-parity R`), the serving
 and resilience flags (`--serving` and its `--serving-*` knobs, `--chaos
-SPEC`, `--soundness-rate R`, `--sigbackend failover-torch`), plus the
-dev-mode flags that run an in-process simulated mainchain with automatic
-block production, or `--endpoint HOST:PORT`, which dials a running chain
-process (`rpc/chain_server.py`) for the chain (`RemoteMainchain`) and the
-shardp2p relay (`RemoteHub`) instead. `devnet` starts one chain process and
-N actor processes and supervises them (`devnet.py`). The flags are the
+SPEC`, `--soundness-rate R`, `--sigbackend failover-torch`), the fleet
+and status flags (`--fleet-frontend HOST:PORT[,...]`, which hands every
+verification to a fleet frontend's replicas, and `--http PORT`, the
+status page), plus the dev-mode flags that run an in-process simulated
+mainchain with automatic block production, or `--endpoint HOST:PORT`,
+which dials a running chain process (`rpc/chain_server.py`) for the chain
+(`RemoteMainchain`) and the shardp2p relay (`RemoteHub`) instead. `devnet`
+starts one chain process and N actor processes and supervises them
+(`devnet.py`). The flags are the
 reference's of the features the port has, with the same names and
 defaults; the node runs on the CUDA card and exits non-zero where there is
 none, but for a light node (`--actor light`), which verifies on the host
-and needs no card. The options the port has not ported (ROADMAP.md, queue
-A) are absent.
+and needs no card, and for a notary, proposer or light node behind
+`--fleet-frontend`, which verifies nothing itself. `--fleet-frontend`
+refuses `--serving`, `--chaos`, `--soundness-rate` and `failover-*`: that
+composition lives in the frontend's replicas. The options the port has
+not ported (ROADMAP.md, queue A) are absent.
 
 At exit the node logs one line `node at exit: {json}`: this process's
 kernel launches by name and, for a notary, its heads (`notary/head_latency`),
@@ -169,6 +175,21 @@ def build_parser() -> argparse.ArgumentParser:
                                "GETHSHARDING_TORCH_SOUNDNESS_RATE; pair "
                                "with --sigbackend failover-* so a "
                                "mismatch trips the breaker)")
+    sharding.add_argument("--fleet-frontend", default="",
+                          metavar="HOST:PORT[,HOST:PORT...]",
+                          help="dial a standalone fleet frontend "
+                               "(python -m gethsharding_tpu_torch.fleet."
+                               "frontend) for ALL signature/DAS "
+                               "verification instead of composing a "
+                               "local backend: the actor's committee "
+                               "audits and sample verdicts go over the "
+                               "wire to the routed, hedged replica "
+                               "fleet, whose replicas run the kernels on "
+                               "their cards; a comma-separated list names "
+                               "replicated frontends — the actor fails "
+                               "over between them (rpc.client."
+                               "FrontendPool) on the typed draining/"
+                               "connection-lost taxonomy")
     sharding.add_argument("--verbosity", default="info",
                           choices=("debug", "info", "warning", "error"))
     sharding.add_argument("--endpoint", default="",
@@ -177,6 +198,10 @@ def build_parser() -> argparse.ArgumentParser:
                                "hosting an in-process dev chain (the "
                                "`geth sharding [endpoint]` topology: N "
                                "actor processes, one mainchain)")
+    sharding.add_argument("--http", type=int, default=None, metavar="PORT",
+                          help="serve /healthz /metrics /status on this "
+                               "port (dashboard/ethstats analog; 0 picks "
+                               "a free one)")
 
     devnet = sub.add_parser(
         "devnet", help="spin up a whole network as OS processes: one "
@@ -202,8 +227,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "signature backend (torch: the port's CUDA "
                              "kernels on the card)")
     devnet.add_argument("--http-base", type=int, default=0,
-                        help="not ported: actor status servers wait for "
-                             "node/http_status.py")
+                        help="give actor i a status server on port "
+                             "http-base + i (0 = none)")
     devnet.add_argument("--runtime", type=float, default=0.0,
                         help="seconds before automatic shutdown "
                              "(0 = until SIGINT)")
@@ -248,6 +273,21 @@ def run_sharding_node(args, device=None) -> int:
     from gethsharding_tpu_torch.node.backend import ShardNode
     from gethsharding_tpu_torch.smc.chain import SimulatedMainchain
 
+    if args.fleet_frontend:
+        local = [flag for flag, on in (
+            ("--serving", args.serving), ("--chaos", bool(args.chaos)),
+            ("--soundness-rate", float(
+                args.soundness_rate if args.soundness_rate is not None
+                else os.environ.get("GETHSHARDING_TORCH_SOUNDNESS_RATE",
+                                    "0") or 0) > 0),
+            (f"--sigbackend {args.sigbackend}",
+             args.sigbackend.startswith("failover-"))) if on]
+        if local:
+            print(f"sharding: --fleet-frontend replaces the local "
+                  f"verification composition; {', '.join(local)} apply "
+                  f"inside the frontend's replicas, not this actor",
+                  file=sys.stderr)
+            return 2
     if device is None and args.sigbackend.endswith("python"):
         device = "cpu"
     config = Config(period_length=args.periodlength,
@@ -374,8 +414,10 @@ def run_sharding_node(args, device=None) -> int:
             chaos=chaos_schedule,
             soundness_rate=soundness_rate,
             mesh_devices=args.mesh_devices,
+            fleet_frontend=args.fleet_frontend or None,
+            http_port=args.http,
         )
-    except (ValueError, RuntimeError) as exc:
+    except (ValueError, RuntimeError, OSError) as exc:
         print(f"sharding: {exc}", file=sys.stderr)
         if hub is not None:
             hub.close()

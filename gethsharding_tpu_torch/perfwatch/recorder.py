@@ -106,6 +106,11 @@ class FlightRecorder:
         if suppressed:
             _M_SUPPRESSED.inc()
 
+    def describe(self) -> dict:
+        """The status page's view: events buffered and bundles dumped."""
+        with self._lock:
+            return {"events": len(self._events), "bundles": self._seq}
+
     # -- the post-mortem dump ----------------------------------------------
 
     def _dump_safe(self, reason: str, base: str) -> None:

@@ -4,8 +4,9 @@
 - ``errors.py``    — `TransientError`, `FetchAborted`, and the serving
   tier's and the breaker's `ResilienceError`, `DeadlineExceeded`,
   `DispatcherClosed`, `SoundnessViolation`;
-- ``policy.py``    — `RetryPolicy` (with its deadline), `RetryExecutor`,
-  `poll_probe`, `DEFAULT_RETRYABLE`;
+- ``policy.py``    — `RetryPolicy` (with its deadline and seeded
+  jitter), `RetryExecutor`, `retry_call`, `poll_probe`,
+  `DEFAULT_RETRYABLE`;
 - ``journal.py``   — `VoteJournal`: (shard, period) votes and the audit
   high-water mark through `db/kv`, replayed on notary start;
 - ``breaker.py``   — `FailoverSigBackend`: the card's backend behind a
@@ -14,8 +15,9 @@
 - ``watchdog.py``  — `DispatchWatchdog`: a hung serving dispatch fails
   its batch with `DeadlineExceeded` and the dispatcher restarts;
 - ``chaos.py``     — seeded, replayable failure schedules at the
-  backend-op, dispatch, mainchain-call and DAS seams (``--chaos``),
-  including the silent-corruption ``mode=corrupt`` rules;
+  backend-op, dispatch, mainchain-call, DAS and fleet-transport seams
+  (``--chaos``), including the silent-corruption ``mode=corrupt`` rules
+  and the transport's ``delay``/``partition`` modes;
 - ``soundness.py`` — `SpotCheckSigBackend`: a sampled re-verification of
   the device's rows against the scalar reference plus an always-on
   verdict-plane invariant check (``--soundness-rate``).
@@ -42,6 +44,7 @@ _LAZY = {
     "RetryExecutor": ("policy", "RetryExecutor"),
     "RetryPolicy": ("policy", "RetryPolicy"),
     "poll_probe": ("policy", "poll_probe"),
+    "retry_call": ("policy", "retry_call"),
     "VoteJournal": ("journal", "VoteJournal"),
     "CircuitBreaker": ("breaker", "CircuitBreaker"),
     "FailoverSigBackend": ("breaker", "FailoverSigBackend"),
@@ -50,6 +53,8 @@ _LAZY = {
     "ChaosSigBackend": ("chaos", "ChaosSigBackend"),
     "InjectedFault": ("chaos", "InjectedFault"),
     "parse_spec": ("chaos", "parse_spec"),
+    "TransportChaos": ("chaos", "TransportChaos"),
+    "transport_disturb": ("chaos", "transport_disturb"),
     "unwired_seams": ("chaos", "unwired_seams"),
     "wrap": ("chaos", "wrap"),
     "SpotCheckSigBackend": ("soundness", "SpotCheckSigBackend"),

@@ -571,7 +571,7 @@ def breaker_of(backend):
     the serving, soundness and chaos wrappers). None when the composition
     has no breaker. (The port's copy of the JAX package's
     `fleet/router.py::breaker_of`, which the chain process's
-    `shard_health` reads; the rest of `fleet/` waits.)"""
+    `shard_health` reads and `fleet/router.py` re-exports.)"""
     probe, hops = backend, 0
     while probe is not None and hops < 8:
         breaker = getattr(probe, "breaker", None)

@@ -1,8 +1,5 @@
 """Deterministic chaos injection: seeded failure schedules at the seams
-(the port's copy of the JAX package's `resilience/chaos.py`, without the
-``fleet.transport`` injectors, whose only caller is the unported
-`fleet/`; a spec naming that seam parses as in the JAX package and
-`unwired_seams` reports it).
+(the port's copy of the JAX package's `resilience/chaos.py`).
 
 One reusable injection surface driven by a seeded, replayable schedule:
 
@@ -23,6 +20,11 @@ One reusable injection surface driven by a seeded, replayable schedule:
 - **DAS seams** — `das/service.py` fires ``das.commitment_fetch``,
   ``das.sample_fetch``, ``das.multiproof_fetch`` per fetch attempt and
   ``das.parity_publish`` per publish;
+- **fleet-transport seam** — ``fleet.transport`` rules with
+  ``mode=delay`` stall the router's wire call to a replica for
+  ``delay_s``, ``mode=partition`` refuses it (`transport_disturb`,
+  consulted by `fleet.router.RpcReplicaBackend` before every wire call
+  and by `TransportChaos` in front of an in-process replica);
 - the schedule itself is pure decision logic: per-seam call counters
   plus a seed, so the SAME spec replays the SAME failure timeline in
   tests and in a devnet node booted with ``--chaos`` — no `random`
@@ -52,12 +54,15 @@ class InjectedFault(ConnectionError):
 # a seam rule's failure mode: "fault" raises InjectedFault (the loud
 # default), "corrupt" silently perturbs the result (backend.* seams
 # only — the silent-corruption chaos the soundness audit must catch),
-# "delay" and "partition" are the JAX package's ``fleet.transport``
-# modes (accepted on that seam only; the port has no transport to act
-# on them yet)
+# "delay" stalls the wire call for `delay_s` before letting it through
+# and "partition" makes the wire unreachable (both on the
+# ``fleet.transport`` seam only: the tail-latency and network-split
+# failure classes request hedging and the router's trip path exist for)
 MODES = ("fault", "corrupt", "delay", "partition")
 
-# the one seam with a wire to delay or partition
+# the one seam with a wire to delay or partition: the router-side
+# transport in front of a replica (fleet/router.py TransportChaos /
+# RpcReplicaBackend)
 TRANSPORT_SEAM = "fleet.transport"
 
 
@@ -82,8 +87,8 @@ class ChaosSchedule:
     failure mode from `MODES`; unmapped seams default to ``"fault"``.
     The schedule stays pure decision logic — `mode_for` only REPORTS
     the mode, the injector at the seam acts on it. ``delay_s`` is the
-    stall of a ``mode=delay`` transport rule, kept with the schedule as
-    the JAX package parses it.
+    stall a ``mode=delay`` transport injector applies per scheduled
+    call (the schedule carries it so one spec replays one timeline).
     """
 
     def __init__(self, seed: int = 0, rules: Optional[Dict] = None,
@@ -201,7 +206,8 @@ def parse_spec(spec: str) -> ChaosSchedule:
     no rule of its own defaults the seam's rule to every-call. A seam
     written ``backend.*`` is the bare prefix ``backend`` (every op
     under it). ``delay_s=`` names the transport-delay stall for
-    ``fleet.transport:mode=delay`` entries.
+    ``fleet.transport:mode=delay`` entries
+    (``"fleet.transport=0.3,fleet.transport:mode=delay,delay_s=0.1"``).
     Malformed mode entries fail fast with the offending
     token — a typo'd mode silently injecting nothing (or loudly
     instead of silently) would test less than the operator asked for.
@@ -246,6 +252,61 @@ def parse_spec(spec: str) -> ChaosSchedule:
         rules.setdefault(seam, True)
     return ChaosSchedule(seed=seed, rules=rules, modes=modes,
                          delay_s=delay_s)
+
+
+def transport_disturb(schedule: Optional[ChaosSchedule]) -> None:
+    """Consume one ``fleet.transport`` slot and act on it: ``delay``
+    stalls the calling (wire) thread `schedule.delay_s` seconds before
+    letting the call proceed — the slow-link tail the router's hedging
+    exists to cut; ``partition`` (and plain ``fault``) raise
+    `InjectedFault`, the unreachable-replica failure the router's
+    consecutive-transport-failure trip absorbs. One seam, both the
+    in-process `TransportChaos` front and `RpcReplicaBackend`'s real
+    wire consult it, so an in-process fleet and a cross-process fleet replay
+    the same timeline from the same spec."""
+    if schedule is None or not schedule.has_rule(TRANSPORT_SEAM):
+        return
+    inject, idx = schedule.decide(TRANSPORT_SEAM)
+    if not inject:
+        return
+    mode = schedule.mode_for(TRANSPORT_SEAM)
+    if mode == "delay":
+        time.sleep(schedule.delay_s)
+        return
+    raise InjectedFault(
+        f"chaos: transport {mode} at {TRANSPORT_SEAM} "
+        f"(call {idx}, seed {schedule.seed})")
+
+
+class TransportChaos:
+    """A transport-seam front for an IN-PROCESS replica backend: every
+    public call first consults the ``fleet.transport`` schedule
+    (`transport_disturb`) — a delay stalls it, a partition refuses it
+    with the retryable `InjectedFault` — then passes through. Gives a
+    hermetic test fleet the same wire weather a real
+    `RpcReplicaBackend` sees, without sockets."""
+
+    def __init__(self, target, schedule: ChaosSchedule):
+        self._target = target
+        self._schedule = schedule
+        self.name = f"transport-chaos+{getattr(target, 'name', '?')}"
+
+    @property
+    def inner(self):
+        """Wrapper-chain hop (breaker_of / serving nesting guard)."""
+        return self._target
+
+    def __getattr__(self, name: str):
+        attr = getattr(self._target, name)
+        if name.startswith("_") or name == "close" or not callable(attr):
+            return attr  # lifecycle/local reads never cross the wire
+        schedule = self._schedule
+
+        def over_wire(*args, **kwargs):
+            transport_disturb(schedule)
+            return attr(*args, **kwargs)
+
+        return over_wire
 
 
 class _ChaosProxy:

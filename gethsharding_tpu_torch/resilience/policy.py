@@ -18,6 +18,9 @@ everything else propagates on the first throw — a revert or a
 programming error must never be hammered. Writes are never routed
 through an executor (a connection error mid-write is ambiguous;
 retrying could double-submit a vote).
+
+Jitter is seedable so chaos tests replay the exact same backoff
+timeline run after run.
 """
 
 from __future__ import annotations
@@ -37,10 +40,9 @@ DEFAULT_RETRYABLE: Tuple[Type[BaseException], ...] = (
     ConnectionError, TimeoutError, OSError, TransientError)
 
 # OSError subclasses that are deterministic configuration errors, not
-# weather, carved out of every policy's retryable classes and re-raised
-# on the first throw: retrying a missing socket path or a permission
-# failure only delays the inevitable and masks the misconfiguration
-NON_RETRYABLE: Tuple[Type[BaseException], ...] = (
+# weather: retrying a missing socket path or a permission failure only
+# delays the inevitable and masks the misconfiguration
+DEFAULT_NON_RETRYABLE: Tuple[Type[BaseException], ...] = (
     FileNotFoundError, PermissionError, IsADirectoryError,
     NotADirectoryError)
 
@@ -50,35 +52,47 @@ class RetryPolicy:
 
     - ``attempts``: total tries (1 = no retry);
     - ``base_s`` / ``cap_s``: the backoff ladder — try k sleeps
-      ``min(cap_s, base_s * 2**k)``, scaled down into ``[0.5, 1]`` of
-      itself by the jitter draw;
+      ``min(cap_s, base_s * 2**k)``, scaled down into
+      ``[1 - jitter, 1]`` of itself by the jitter draw;
     - ``deadline_s``: optional wall-clock budget across ALL attempts;
       a retry never starts past it (the sleep is also clipped to the
       remaining budget);
-    - ``retryable``: exception classes worth retrying (less
-      `NON_RETRYABLE`).
+    - ``retryable``: exception classes worth retrying;
+    - ``non_retryable``: subclasses carved OUT of `retryable` (the
+      deterministic OSError children by default) — re-raised on the
+      first throw;
+    - ``seed``: fixes the jitter stream (deterministic chaos replays).
     """
 
-    __slots__ = ("attempts", "base_s", "cap_s", "deadline_s", "retryable",
-                 "_rng")
+    __slots__ = ("attempts", "base_s", "cap_s", "deadline_s", "jitter",
+                 "retryable", "non_retryable", "_rng")
 
     def __init__(self, attempts: int = 4, base_s: float = 0.02,
                  cap_s: float = 1.0, deadline_s: Optional[float] = None,
-                 retryable: Tuple[Type[BaseException], ...] =
-                 DEFAULT_RETRYABLE):
+                 jitter: float = 0.5,
+                 retryable: Tuple[Type[BaseException], ...] = DEFAULT_RETRYABLE,
+                 non_retryable: Tuple[Type[BaseException], ...] =
+                 DEFAULT_NON_RETRYABLE,
+                 seed: Optional[int] = None):
         if attempts < 1:
             raise ValueError(f"attempts must be >= 1, got {attempts}")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError(f"jitter must be in [0, 1], got {jitter}")
         self.attempts = attempts
         self.base_s = base_s
         self.cap_s = cap_s
         self.deadline_s = deadline_s
+        self.jitter = jitter
         self.retryable = tuple(retryable)
-        self._rng = random.Random()
+        self.non_retryable = tuple(non_retryable)
+        self._rng = random.Random(seed)
 
     def backoff_s(self, attempt: int) -> float:
         """Sleep before retry number `attempt` (0-based)."""
         delay = min(self.cap_s, self.base_s * (2 ** attempt))
-        return delay * (1.0 - 0.5 * self._rng.random())
+        if self.jitter:
+            delay *= 1.0 - self.jitter * self._rng.random()
+        return delay
 
 
 class RetryExecutor:
@@ -93,6 +107,7 @@ class RetryExecutor:
     """
 
     def __init__(self, seam: str, policy: Optional[RetryPolicy] = None,
+                 registry: metrics.Registry = metrics.DEFAULT_REGISTRY,
                  sleep: Callable[[float], None] = time.sleep,
                  abort: Optional[
                      Callable[[], Optional[BaseException]]] = None):
@@ -100,9 +115,9 @@ class RetryExecutor:
         self.policy = policy or RetryPolicy()
         self._sleep = sleep
         self._abort = abort
-        self._m_retries = metrics.counter(
+        self._m_retries = registry.counter(
             f"resilience/retry/{seam}/retries")
-        self._m_giveups = metrics.counter(
+        self._m_giveups = registry.counter(
             f"resilience/retry/{seam}/giveups")
 
     def _check_abort(self, cause: BaseException) -> None:
@@ -122,7 +137,7 @@ class RetryExecutor:
             try:
                 return fn(*args, **kwargs)
             except policy.retryable as exc:
-                if isinstance(exc, NON_RETRYABLE):
+                if isinstance(exc, policy.non_retryable):
                     raise
                 if attempt == policy.attempts - 1:
                     self._m_giveups.inc()
@@ -140,6 +155,12 @@ class RetryExecutor:
                     self._sleep(delay)
                 self._check_abort(exc)
         raise AssertionError("unreachable")  # pragma: no cover
+
+
+def retry_call(fn: Callable, *args, seam: str = "adhoc",
+               policy: Optional[RetryPolicy] = None, **kwargs):
+    """One-shot form for call sites without a long-lived executor."""
+    return RetryExecutor(seam, policy).call(fn, *args, **kwargs)
 
 
 # sentinel: poll_probe exhausted its polls without an answer — the

@@ -14,7 +14,10 @@ composed device → (chaos) → serving → (soundness) → (failover) as the
 node composes it. `--sigbackend torch` puts the port's CUDA kernels under
 it and exits non-zero where there is no card; `--mesh-devices N` lays them
 over an N-card shard mesh (`sigbackend/layout.py`) and exits non-zero
-where fewer cards are visible; `python` serves from the host. The
+where fewer cards are visible; `python` serves from the host.
+`GETHSHARDING_TORCH_DEVICE=cpu` in the environment asks a `torch` chain
+for the kernels' plain versions on the host (the fleet's tests start
+replicas so; a fleet's spawner passes its own environment on). The
 vote-log replay runs where the backend runs (slot 0 of a mesh).
 
 Prints one JSON line {"host": ..., "port": ...} on stdout once listening,
@@ -226,7 +229,9 @@ def main(argv=None) -> int:
     # backend
     try:
         if args.sigbackend.endswith("torch"):
-            target = resolve_slots(None, args.mesh_devices)
+            target = resolve_slots(
+                os.environ.get("GETHSHARDING_TORCH_DEVICE") or None,
+                args.mesh_devices)
         else:
             target = resolve_device("cpu")
         composed, serving = compose(args, target)

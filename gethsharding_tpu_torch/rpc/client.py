@@ -1,6 +1,6 @@
-"""RPC client + RemoteMainchain: dial a chain process and act on it (the
-port's copy of the JAX package's `rpc/client.py`; its `FrontendPool` waits
-for the port's `fleet/`).
+"""RPC client + RemoteMainchain: dial a chain process and act on it, and
+`FrontendPool`: an actor's failover across a fleet of frontends (the
+port's copy of the JAX package's `rpc/client.py`).
 
 Parity: `ethclient` + `sharding/mainchain/utils.go:17-22` (dialRPC).
 `RemoteMainchain` implements the same backend surface as
@@ -274,6 +274,141 @@ class RPCClient:
                 hook(payload)
             except Exception:  # noqa: BLE001
                 log.exception("notification hook %s failed", method)
+
+
+class FrontendPool:
+    """Actor-side failover across a fleet OF frontends.
+
+    `ShardNode --fleet-frontend` used to pin an actor to ONE frontend
+    process — its single point of failure. The pool dials every
+    ``HOST:PORT`` in `endpoints` (lazily: a frontend still coming up
+    joins on first use) and serves the full `SigBackend` verification
+    surface, failing over between frontends EXACTLY like the router
+    fails over between replicas — on the typed "replica draining" /
+    connection-lost taxonomy that `fleet.router.RpcReplicaBackend`
+    already folds into `ConnectionError`, plus per-call timeouts.
+
+    The primary is STICKY: all calls go to one frontend until it fails,
+    then the pool advances and stays there (a recovered frontend is a
+    redial away whenever the rotation comes back around). A frontend
+    stopping gracefully answers the drain-notice window with the typed
+    refusal, so failover costs one round trip, not a burned retry on a
+    connection reset."""
+
+    def __init__(self, endpoints: List[str], timeout: float = 30.0):
+        from gethsharding_tpu_torch.fleet.router import RpcReplicaBackend
+
+        if not endpoints:
+            raise ValueError("FrontendPool needs at least one endpoint")
+        self.endpoints = [str(e) for e in endpoints]
+        # a backend's name (the notary reads it to tell a device backend
+        # from a remote one; the JAX package's pool has none)
+        self.name = f"frontends[{','.join(self.endpoints)}]"
+        self._backends = []
+        for endpoint in self.endpoints:
+            host, port = endpoint.rsplit(":", 1)
+            self._backends.append(RpcReplicaBackend.dial_lazy(
+                host, int(port), timeout=timeout))
+        self._primary = 0
+        self._lock = threading.Lock()
+        self.failovers = 0
+
+    @classmethod
+    def dial(cls, spec: str, timeout: float = 30.0) -> "FrontendPool":
+        """Build from the CLI's comma-separated ``HOST:PORT[,...]``."""
+        endpoints = [e.strip() for e in spec.split(",") if e.strip()]
+        return cls(endpoints, timeout=timeout)
+
+    def _rotation(self):
+        with self._lock:
+            start = self._primary
+        n = len(self._backends)
+        return [(start + i) % n for i in range(n)]
+
+    def _advance(self, from_index: int) -> None:
+        with self._lock:
+            if self._primary == from_index:
+                self._primary = (from_index + 1) % len(self._backends)
+                self.failovers += 1
+
+    def _failover(self, fn):
+        """Run `fn(backend)` against the sticky primary, advancing
+        through the rotation on the retryable taxonomy; the LAST error
+        propagates once every frontend has refused."""
+        last_exc = None
+        for index in self._rotation():
+            backend = self._backends[index]
+            try:
+                return fn(backend)
+            except (ConnectionError, TimeoutError) as exc:
+                log.warning("frontend %s unavailable (%s); failing over",
+                            backend.name, type(exc).__name__)
+                self._advance(index)
+                last_exc = exc
+        raise last_exc
+
+    # -- the SigBackend verification surface -------------------------------
+
+    def ecrecover_addresses(self, digests, sigs65):
+        return self._failover(
+            lambda b: b.ecrecover_addresses(digests, sigs65))
+
+    def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
+        return self._failover(
+            lambda b: b.bls_verify_aggregates(messages, agg_sigs,
+                                              agg_pks))
+
+    def bls_verify_committees(self, messages, sig_rows, pk_rows,
+                              pk_row_keys=None):
+        return self._failover(
+            lambda b: b.bls_verify_committees(messages, sig_rows,
+                                              pk_rows,
+                                              pk_row_keys=pk_row_keys))
+
+    def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
+                                    pk_row_keys=None):
+        from gethsharding_tpu_torch.sigbackend import VerdictFuture
+
+        out = self.bls_verify_committees(messages, sig_rows, pk_rows,
+                                         pk_row_keys=pk_row_keys)
+        future = VerdictFuture(lambda: out)
+        future.result()
+        return future
+
+    def das_verify_samples(self, chunks, indices, proofs, roots):
+        return self._failover(
+            lambda b: b.das_verify_samples(chunks, indices, proofs,
+                                           roots))
+
+    def das_verify_multiproofs(self, commitments, index_rows, eval_rows,
+                               proofs, ns):
+        return self._failover(
+            lambda b: b.das_verify_multiproofs(commitments, index_rows,
+                                               eval_rows, proofs, ns))
+
+    # -- control plane -----------------------------------------------------
+
+    def call(self, method: str, *params):
+        """A raw control-plane RPC (``shard_fleetStatus``,
+        ``shard_addReplica``, ...) with the same failover."""
+        return self._failover(lambda b: b._call(method, *params))
+
+    def health(self) -> dict:
+        return self._failover(lambda b: b.health())
+
+    def metrics(self) -> dict:
+        return self._failover(lambda b: b.metrics())
+
+    def primary(self) -> str:
+        with self._lock:
+            return self.endpoints[self._primary]
+
+    def close(self) -> None:
+        for backend in self._backends:
+            try:
+                backend.close()
+            except Exception:  # noqa: BLE001 - already dead
+                pass
 
 
 class RemoteMainchain:

@@ -60,6 +60,97 @@ CONN_CONCURRENCY = int(os.environ.get(
     "GETHSHARDING_RPC_CONN_CONCURRENCY", "64"))
 
 
+def serve_connection(handler, dispatch, note_inflight,
+                     name: str = "rpc-conn-worker") -> None:
+    """The connection loop of the port's JSON-RPC servers (`RPCServer` and
+    the fleet frontend): one newline-delimited request a line, each
+    dispatched on a worker of its own so one slow call never serializes
+    the connection. `dispatch(raw, write_lock)` returns the response dict
+    (None for a notification) and may write on the socket itself under
+    `write_lock`; `note_inflight(+1 / -1)` brackets each request."""
+    write_lock = threading.Lock()
+    slots = threading.BoundedSemaphore(max(1, CONN_CONCURRENCY))
+    workers = []
+
+    def serve_one(raw: bytes) -> None:
+        try:
+            try:
+                response = dispatch(raw, write_lock)
+            finally:
+                note_inflight(-1)
+            if response is not None:
+                with write_lock:
+                    handler.wfile.write(
+                        (json.dumps(response) + "\n").encode())
+                    handler.wfile.flush()
+        except (OSError, ValueError):
+            pass  # peer gone mid-response: its client already knows
+        finally:
+            slots.release()
+
+    try:
+        for raw in handler.rfile:
+            raw = raw.strip()
+            if not raw:
+                continue
+            note_inflight(+1)
+            # concurrent dispatch, bounded: responses multiplex back by
+            # request id (the client's pending map reorders), and once
+            # CONN_CONCURRENCY requests are in flight the read loop
+            # blocks here — TCP backpressure to the sender
+            slots.acquire()
+            worker = threading.Thread(target=serve_one, args=(raw,),
+                                      daemon=True, name=name)
+            workers.append(worker)
+            worker.start()
+            if len(workers) > CONN_CONCURRENCY:
+                workers = [w for w in workers if w.is_alive()]
+    except (OSError, ValueError):
+        pass
+    finally:
+        # drain in-flight workers briefly (shared deadline, not
+        # per-thread): their responses are undeliverable now, and they
+        # are daemons — this just keeps teardown orderly
+        deadline = time.monotonic() + 1.0
+        for worker in workers:
+            worker.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+def traced_call(req: dict, method: str, fn, params):
+    """Run one handler under its ``rpc/<method>`` span. An inbound `trace`
+    envelope (`RPCClient.call` attaches the caller's span context) is
+    adopted: the handler span joins the remote trace and parents under
+    the remote span, stitching a router-traced request into this
+    process's spans. Returns (result, (trace_id, span_id) of the handler
+    span, or None while tracing is off)."""
+    inbound = req.get("trace")
+    ctx = None
+    if isinstance(inbound, dict):
+        ctx = (inbound.get("trace_id"), inbound.get("span_id"))
+    with tracing.span(f"rpc/{method}", ctx=ctx) as handler_span:
+        result = fn(*params)
+    trace_id = getattr(handler_span, "trace_id", None)
+    if trace_id is None:
+        return result, None
+    return result, (trace_id, handler_span.span_id)
+
+
+def envelope(rid, result, handler_ctx) -> Optional[dict]:
+    """The response frame (None for a notification). Extra envelope keys
+    are legal JSON-RPC (clients read `result`/`error` only): the handler
+    span's trace id rides back as `trace`, and the full context as
+    `traceCtx`, whose span_id stitches this exact request/response pair
+    (a trace id alone is ambiguous under retries and hedges)."""
+    if rid is None:
+        return None
+    response = {"jsonrpc": "2.0", "id": rid, "result": result}
+    if handler_ctx is not None:
+        response["trace"] = handler_ctx[0]
+        response["traceCtx"] = {"trace_id": handler_ctx[0],
+                                "span_id": handler_ctx[1]}
+    return response
+
+
 class RPCServer:
     """Threaded JSON-RPC server over TCP (host, port) — port 0 picks a
     free one (`server.address` reports the bound endpoint)."""
@@ -199,55 +290,13 @@ class RPCServer:
     # -- connection loop ---------------------------------------------------
 
     def _handle_connection(self, handler) -> None:
-        write_lock = threading.Lock()
-        slots = threading.BoundedSemaphore(max(1, CONN_CONCURRENCY))
-        workers = []
-
-        def serve_one(raw: bytes) -> None:
-            try:
-                try:
-                    response = self._dispatch(raw, handler, write_lock)
-                finally:
-                    with self._sub_lock:
-                        self._inflight -= 1
-                if response is not None:
-                    with write_lock:
-                        handler.wfile.write(
-                            (json.dumps(response) + "\n").encode())
-                        handler.wfile.flush()
-            except (OSError, ValueError):
-                pass  # peer gone mid-response: its client already knows
-            finally:
-                slots.release()
-
         try:
-            for raw in handler.rfile:
-                raw = raw.strip()
-                if not raw:
-                    continue
-                with self._sub_lock:
-                    self._inflight += 1
-                # concurrent dispatch, bounded: responses multiplex back
-                # by request id (the client's pending map reorders), and
-                # once CONN_CONCURRENCY requests are in flight the read
-                # loop blocks here — TCP backpressure to the sender
-                slots.acquire()
-                worker = threading.Thread(target=serve_one, args=(raw,),
-                                          daemon=True,
-                                          name="rpc-conn-worker")
-                workers.append(worker)
-                worker.start()
-                if len(workers) > CONN_CONCURRENCY:
-                    workers = [w for w in workers if w.is_alive()]
-        except (OSError, ValueError):
-            pass
+            serve_connection(
+                handler,
+                lambda raw, write_lock: self._dispatch(raw, handler,
+                                                       write_lock),
+                self._note_inflight)
         finally:
-            # drain in-flight workers briefly (shared deadline, not
-            # per-thread): their responses are undeliverable now, and
-            # they are daemons — this just keeps teardown orderly
-            deadline = time.monotonic() + 1.0
-            for worker in workers:
-                worker.join(timeout=max(0.0, deadline - time.monotonic()))
             with self._sub_lock:
                 self._subscribers.pop(handler.wfile, None)
                 self._p2p_challenges.pop(handler.wfile, None)
@@ -256,6 +305,10 @@ class RPCServer:
                 for pid in dead:
                     self._p2p_peers.pop(pid, None)
                     self._p2p_meta.pop(pid, None)
+
+    def _note_inflight(self, delta: int) -> None:
+        with self._sub_lock:
+            self._inflight += delta
 
     def _dispatch(self, raw: bytes, handler, write_lock) -> Optional[dict]:
         try:
@@ -266,8 +319,7 @@ class RPCServer:
         rid = req.get("id")
         method = req.get("method", "")
         params = req.get("params", [])
-        trace_id = None
-        handler_span_id = None
+        handler_ctx = None
         with self._sub_lock:
             self.method_calls[method] = self.method_calls.get(method, 0) + 1
         try:
@@ -312,30 +364,15 @@ class RPCServer:
                                       "message": f"unknown method {method}"}}
                 # per-request handler span: parents any serving-tier
                 # request spans the handler submits (the cross-process
-                # attribution seam), and its trace id rides back to the
-                # client on the response envelope. Extra envelope keys
-                # are legal JSON-RPC: clients read `result`/`error` only.
-                # An inbound `trace` envelope (RPCClient.call attaches
-                # the caller's span context) is ADOPTED: the handler
-                # span joins the remote trace and parents under the
-                # remote span, stitching a router-traced request into
-                # this replica's spans.
+                # attribution seam); see `traced_call` and `envelope`
                 if method in codec.TRACE_PLANE_METHODS:
                     # the trace plane is invisible to tracing (see
                     # codec.TRACE_PLANE_METHODS): no handler span, no
                     # trace fields on the response envelope
                     result = fn(*params)
                 else:
-                    inbound = req.get("trace")
-                    ctx = None
-                    if isinstance(inbound, dict):
-                        ctx = (inbound.get("trace_id"),
-                               inbound.get("span_id"))
-                    with tracing.span(f"rpc/{method}",
-                                      ctx=ctx) as handler_span:
-                        result = fn(*params)
-                    trace_id = handler_span.trace_id
-                    handler_span_id = handler_span.span_id
+                    result, handler_ctx = traced_call(req, method, fn,
+                                                      params)
         except SMCRevert as exc:
             return {"jsonrpc": "2.0", "id": rid,
                     "error": {"code": REVERT_CODE, "message": str(exc),
@@ -344,18 +381,7 @@ class RPCServer:
             log.exception("rpc %s failed", method)
             return {"jsonrpc": "2.0", "id": rid,
                     "error": {"code": INTERNAL_ERROR, "message": str(exc)}}
-        if rid is None:
-            return None  # notification
-        response = {"jsonrpc": "2.0", "id": rid, "result": result}
-        if trace_id is not None:
-            response["trace"] = trace_id
-            # the full handler context alongside the bare id (kept for
-            # older clients): span_id lets the caller and the fleet
-            # collector stitch THIS request/response pair exactly —
-            # a trace id alone is ambiguous under retries and hedges
-            response["traceCtx"] = {"trace_id": trace_id,
-                                    "span_id": handler_span_id}
-        return response
+        return envelope(rid, result, handler_ctx)
 
     # -- method surface (shard_* namespace) --------------------------------
     # views
@@ -699,13 +725,28 @@ class RPCServer:
 
     def rpc_servingStats(self):
         """Dispatch/coalescing counters of the serving tier (None until
-        the first submit builds it)."""
+        the first submit builds it), and the port's own: this process's
+        kernel launches by name so far and the device backend's
+        `last_timing` (its last call's launches, G2 bytes shipped, hit
+        rows), which a fleet's caller reads to see what a replica ran."""
         with self._sub_lock:
             serving = self._sig_serving
         if serving is None or not hasattr(serving, "batcher"):
             return None
+        from gethsharding_tpu_torch.ops import _build
+
+        probe, hops, timing = serving, 0, None
+        while probe is not None and hops < 8 and timing is None:
+            timing = getattr(probe, "last_timing", None)
+            probe, hops = getattr(probe, "inner", None), hops + 1
+        if timing is not None:
+            timing = {k: (v.item() if hasattr(v, "item") else v)
+                      for k, v in timing.items()}
         return {"dispatches": dict(serving.batcher.dispatch_counts),
-                "shed": serving.batcher.shed_counts()}
+                "shed": serving.batcher.shed_counts(),
+                "launches": {name: n for name, n in
+                             _build.launch_counts().items() if n},
+                "last_timing": timing}
 
     # -- data-availability sampling (the light-client sample surface) ------
 

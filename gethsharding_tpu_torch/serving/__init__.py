@@ -15,10 +15,12 @@ concurrent callers' small batches become aggregate dispatches on the card.
 - ``pipeline.py`` — double-buffered dispatch: host-side aggregation of
   batch N+1 overlaps the dispatch of batch N, on one dispatch thread;
 - ``backend.py``  — ``ServingSigBackend``: the drop-in `SigBackend`
-  wrapper plus the async ``submit()`` future API.
+  wrapper plus the async ``submit()`` future API, and
+  ``ClassedSigBackend``, its fixed-class view.
 """
 
 from gethsharding_tpu_torch.serving.backend import (  # noqa: F401
+    ClassedSigBackend,
     ServingConfig,
     ServingSigBackend,
 )

@@ -1,7 +1,6 @@
-"""ServingSigBackend: the drop-in `SigBackend` over the serving tier (the
-port's copy of the JAX package's `serving/backend.py`, without its
-`ClassedSigBackend` view, which no caller in the port takes: the
-`serving.classes.admission_class` context tags a thread's calls).
+"""ServingSigBackend: the drop-in `SigBackend` over the serving tier, and
+`ClassedSigBackend`, its fixed-class view that fleet tenants take (the
+port's copy of the JAX package's `serving/backend.py`).
 
 Two faces on one coalescing core:
 
@@ -183,6 +182,16 @@ class ServingSigBackend(SigBackend):
         return self.submit("bls_verify_committees", messages, sig_rows,
                            pk_rows, pk_row_keys=pk_row_keys)
 
+    # -- class tagging -----------------------------------------------------
+
+    def classed(self, klass: str, tenant: str = "") -> "ClassedSigBackend":
+        """A fixed-class view over this serving backend: the same
+        `SigBackend` surface with every call admitted under `klass`
+        (and `tenant`'s quota bucket). For call trees that pass through
+        wrapper compositions the caller does not control, prefer the
+        `serving.classes.admission_class` context: it rides the thread."""
+        return ClassedSigBackend(self, klass, tenant)
+
     # -- lifecycle / observability -----------------------------------------
 
     def close(self) -> None:
@@ -195,3 +204,64 @@ class ServingSigBackend(SigBackend):
         the coalescing ratio."""
         return sum(self.batcher.dispatch_counts.values())
 
+
+class ClassedSigBackend(SigBackend):
+    """A thin fixed-(class, tenant) facade over a `ServingSigBackend`:
+    drop-in `SigBackend` whose every call coalesces under one admission
+    class — hand one to a service whose whole traffic is one class
+    (a catch-up replayer, a bulk re-verifier)."""
+
+    def __init__(self, serving: ServingSigBackend, klass: str,
+                 tenant: str = ""):
+        from gethsharding_tpu_torch.serving.classes import check_class
+
+        self.inner = serving
+        self.klass = check_class(klass)
+        self.tenant = tenant
+        self.name = f"{serving.name}[{klass}]"
+
+    def submit(self, op: str, *args, pk_row_keys=None,
+               klass: Optional[str] = None,
+               tenant: Optional[str] = None) -> Future:
+        return self.inner.submit(op, *args, pk_row_keys=pk_row_keys,
+                                 klass=klass or self.klass,
+                                 tenant=self.tenant if tenant is None
+                                 else tenant)
+
+    def _await(self, future):
+        out = future.result()
+        observe_future_wake(future)
+        return out
+
+    def ecrecover_addresses(self, digests, sigs65):
+        return self._await(self.submit("ecrecover_addresses", digests,
+                                       sigs65))
+
+    def bls_verify_aggregates(self, messages, agg_sigs, agg_pks):
+        return self._await(self.submit("bls_verify_aggregates", messages,
+                                       agg_sigs, agg_pks))
+
+    def bls_verify_committees(self, messages, sig_rows, pk_rows,
+                              pk_row_keys=None):
+        return self._await(self.submit("bls_verify_committees", messages,
+                                       sig_rows, pk_rows,
+                                       pk_row_keys=pk_row_keys))
+
+    def das_verify_samples(self, chunks, indices, proofs, roots):
+        return self._await(self.submit("das_verify_samples", chunks,
+                                       indices, proofs, roots))
+
+    def das_verify_multiproofs(self, commitments, index_rows, eval_rows,
+                               proofs, ns):
+        return self._await(self.submit("das_verify_multiproofs",
+                                       commitments, index_rows, eval_rows,
+                                       proofs, ns))
+
+    def bls_verify_committees_async(self, messages, sig_rows, pk_rows,
+                                    pk_row_keys=None):
+        return self.submit("bls_verify_committees", messages, sig_rows,
+                           pk_rows, pk_row_keys=pk_row_keys)
+
+    def close(self) -> None:
+        """Classed views never own the serving tier; closing one is a
+        no-op so a per-service shutdown can't kill shared serving."""

@@ -18,6 +18,7 @@ from gethsharding_tpu_torch.slo.tracker import (  # noqa: F401
     INTEGRITY,
     Objective,
     SLOTracker,
+    active,
     default_objectives,
     record,
     tracker,

@@ -1,6 +1,6 @@
 """Rolling multi-window SLO burn-rate tracking, the SRE workbook shape (the
 port's copy of the JAX package's `slo/tracker.py`, without its breach
-hooks and sweep, which have no caller in the port).
+hooks, which have no caller in the port).
 
 An objective owns an ERROR BUDGET: ``1 - availability`` of events may
 be bad (failed, or slower than the latency target) before the SLO is
@@ -260,6 +260,21 @@ class SLOTracker:
         slow = (sb / (sg + sb)) / budget if sg + sb else 0.0
         return fast, slow, fg + fb, sg + sb
 
+    def burn_rate(self, name: str, window: str = "fast",
+                  now: Optional[float] = None) -> float:
+        now = time.monotonic() if now is None else now
+        fast, slow, _, _ = self._burns(self._series[name], now)
+        return fast if window == "fast" else slow
+
+    def budget_remaining(self, name: str,
+                         now: Optional[float] = None) -> float:
+        """Fraction of the slow-window error budget left at the current
+        slow burn: 1.0 = untouched, 0.0 = a full slow window at burn >= 1
+        (the SLO is being missed outright)."""
+        now = time.monotonic() if now is None else now
+        _, slow, _, _ = self._burns(self._series[name], now)
+        return max(0.0, 1.0 - slow)
+
     # -- gauges + breach ----------------------------------------------------
 
     def _refresh(self, series: _Series, now: float) -> None:
@@ -299,6 +314,16 @@ class SLOTracker:
                 "%.1fx) over %d/%d events", name, fast,
                 BREACH_FAST, slow, BREACH_SLOW,
                 fast_n, slow_n)
+
+    def sweep(self, now: Optional[float] = None) -> None:
+        """Recompute every objective's gauges now (the fleet router's
+        health sweep calls this, so an idle class's burn decays on the
+        exposition instead of freezing at its last recorded value)."""
+        now = time.monotonic() if now is None else now
+        for series in self._series.values():
+            with series.lock:
+                series.last_gauge = now
+            self._refresh(series, now)
 
     # -- introspection ------------------------------------------------------
 
@@ -352,3 +377,10 @@ def record(name: str, ok: bool = True,
     """Record one event on the process tracker (see
     `SLOTracker.record`)."""
     tracker().record(name, ok=ok, latency_s=latency_s)
+
+
+def active() -> Optional[SLOTracker]:
+    """The process tracker if anything built it yet, else None: the
+    status page's probe, which must not conjure objectives on an idle
+    node."""
+    return TRACKER

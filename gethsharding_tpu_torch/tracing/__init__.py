@@ -11,4 +11,5 @@ from gethsharding_tpu_torch.tracing.tracer import (  # noqa: F401
     enable,
     request_context,
     span,
+    tag_current,
 )

@@ -199,6 +199,22 @@ class Tracer:
             spans = list(self._ring)
         return spans if limit is None else spans[-limit:]
 
+    def recent_traces(self, limit: int = 100) -> List[dict]:
+        """Finished spans grouped into traces, newest trace first (the
+        status page's ``/trace``)."""
+        by_trace: Dict[int, List[dict]] = {}
+        for record in self.recent_spans():
+            by_trace.setdefault(record["trace"], []).append(record)
+        traces = sorted(
+            by_trace.items(),
+            key=lambda item: max(r["end"] for r in item[1]), reverse=True)
+        return [{"trace_id": trace_id,
+                 "duration_us": round(
+                     (max(r["end"] for r in spans)
+                      - min(r["start"] for r in spans)) * 1e6, 1),
+                 "spans": spans}
+                for trace_id, spans in traces[:limit]]
+
 
 # the process tracer: instrumented code records here; `enable()` turns
 # collection on
@@ -223,6 +239,17 @@ def span(name: str, ctx: Optional[Tuple[int, int]] = None, **tags):
     if not TRACER.enabled:
         return NOOP_SPAN
     return TRACER.start(name, tags or None, ctx=ctx)
+
+
+def tag_current(**tags) -> None:
+    """Set tags on the context's innermost active span, last writer wins
+    (the fleet router names a hedge's winner this way). No-op when
+    tracing is off or no span is open."""
+    if not TRACER.enabled:
+        return
+    stack = _SPAN_STACK.get()
+    if stack:
+        stack[-1].tags.update(tags)
 
 
 def request_context() -> Optional[Tuple[int, int]]:

@@ -1367,3 +1367,48 @@ def test_mesh_launch_failure_is_loud(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="injected"):
         meshed.bls_verify_committees(msgs, sig_rows, pk_rows)
     assert len(calls) == 3
+
+
+@pytest.mark.cuda
+def test_fleet_routed_committees_on_card_equal_direct(cuda):
+    """A keyed period routed by `FleetRouter` over two in-process replicas,
+    each a `ServingSigBackend(TorchSigBackend())` on cuda:0: every verdict
+    is the direct call's, the repeat lands on the replica that held the key
+    before, and that replica's warm repeat launches no `agg_g2`."""
+    from gethsharding_tpu_torch import metrics
+    from gethsharding_tpu_torch.fleet import (FleetRouter, Replica,
+                                              RouterSigBackend)
+    from gethsharding_tpu_torch.serving import ServingSigBackend
+
+    msgs, sig_rows, pk_rows, want = _committee_period(12, 5)
+    keys = [("cuda-fleet", s) for s in range(12)]
+    assert TorchSigBackend().bls_verify_committees(
+        msgs, sig_rows, pk_rows, pk_row_keys=keys) == want
+    registry = metrics.Registry()
+    servings = [ServingSigBackend(TorchSigBackend(), registry=registry)
+                for _ in range(2)]
+    router = FleetRouter([Replica(f"r{i}", s, probe=None,
+                                  registry=registry)
+                          for i, s in enumerate(servings)],
+                         health_interval_s=0.0, registry=registry)
+    routed = RouterSigBackend(router)
+    try:
+        first = [routed.bls_verify_committees(
+            msgs[i:i + 3], sig_rows[i:i + 3], pk_rows[i:i + 3],
+            pk_row_keys=keys[i:i + 3]) for i in range(0, 12, 3)]
+        assert sum(first, []) == want
+        counts = {n: r["routed"] for n, r in router.states().items()}
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        again = [routed.bls_verify_committees(
+            msgs[i:i + 3], sig_rows[i:i + 3], pk_rows[i:i + 3],
+            pk_row_keys=keys[i:i + 3]) for i in range(0, 12, 3)]
+        assert sum(again, []) == want
+        assert {n: r["routed"] for n, r in router.states().items()} == {
+            n: 2 * c for n, c in counts.items()}
+        assert _build.KERNELS["agg_g2"].launches == 0
+        assert _build.KERNELS["finalexp"].launches == 4
+    finally:
+        router.close()
+        for serving in servings:
+            serving.close()

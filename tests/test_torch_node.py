@@ -72,7 +72,7 @@ from gethsharding_tpu_torch.db.kv import MemoryKV
 from gethsharding_tpu_torch.db.shard_db import ShardDB
 from gethsharding_tpu_torch.mainchain import mirror
 from gethsharding_tpu_torch.node import cli
-from gethsharding_tpu_torch.node.backend import UNPORTED, ShardNode
+from gethsharding_tpu_torch.node.backend import ShardNode
 from gethsharding_tpu_torch.resilience.journal import VoteJournal
 
 torch.set_num_threads(2)
@@ -175,18 +175,46 @@ def test_journal_knob_turns_the_journal_off(monkeypatch):
     assert node.service(PORT.Notary).journal is None
 
 
-_REFUSED = {
-    "fleet_frontend": {"fleet_frontend": "127.0.0.1:1"},
-    "http_port": {"http_port": 8545},
-}
+_REFUSED = ("fleet_frontend", "http_port")
 
 
 @pytest.mark.parametrize("option", sorted(_REFUSED))
 def test_unported_options_refuse_by_module(option):
-    assert set(_REFUSED) == set(UNPORTED)
-    kw = {**PORT_NODE, **_REFUSED[option]}
-    with pytest.raises(ValueError, match=f"no {UNPORTED[option]} yet"):
-        ShardNode(backend=PORT.SimulatedMainchain(), **kw)
+    """The two node options that waited for their modules (`fleet/` and
+    `node/http_status.py`) are taken now, as the reference takes them:
+    `fleet_frontend` dials the frontend (one endpoint an
+    `RpcReplicaBackend`, a comma list a `FrontendPool`) and resolves no
+    device for a notary, so no card is needed; `http_port` registers the
+    status page."""
+    import socket
+
+    from gethsharding_tpu_torch.fleet.router import RpcReplicaBackend
+    from gethsharding_tpu_torch.node.http_status import StatusServer
+    from gethsharding_tpu_torch.rpc.client import FrontendPool
+
+    if option == "http_port":
+        node = ShardNode(backend=PORT.SimulatedMainchain(), http_port=0,
+                         **PORT_NODE)
+        status = node.service(StatusServer)
+        assert node.services[-1] is status and status.port == 0
+        return
+    with socket.socket() as listener:
+        listener.bind(("127.0.0.1", 0))
+        listener.listen(4)
+        endpoint = "127.0.0.1:%d" % listener.getsockname()[1]
+        for spec, kind in ((endpoint, RpcReplicaBackend),
+                           (f"{endpoint},127.0.0.1:1", FrontendPool)):
+            node = ShardNode(actor="notary",
+                             backend=PORT.SimulatedMainchain(),
+                             fleet_frontend=spec)
+            try:
+                assert isinstance(node.sig_backend, kind)
+                assert node.device is None and node.soundness_backend is None
+                # the notary's audit reads the backend's name (the JAX
+                # package's pool has none)
+                assert node.sig_backend.name != "torch"
+            finally:
+                node.sig_backend.close()
 
 
 def test_unknown_actor_and_backend_rejected():
@@ -974,7 +1002,8 @@ PORTED_FLAGS = ("actor", "shardid", "deposit", "datadir", "periodlength",
                 "serving_max_batch", "serving_flush_us",
                 "serving_queue_cap", "serving_policy",
                 "serving_quota_rows", "serving_watchdog_s", "chaos",
-                "soundness_rate", "password", "endpoint", "mesh_devices")
+                "soundness_rate", "password", "endpoint", "mesh_devices",
+                "fleet_frontend", "http")
 
 
 def _sharding_actions(parser):

@@ -1475,12 +1475,32 @@ def test_devnet_stops_readers_then_proposers_then_chain(tmp_path):
     assert at == len(events)
 
 
-def test_devnet_refuses_status_ports_by_module(capsys):
+def test_devnet_refuses_status_ports_by_module(tmp_path):
+    """`devnet --http-base P`, which waited for `node/http_status.py`, is
+    taken now as the reference takes it: actor i (in spawn order) gets a
+    status page on port P + i, and each actor's argv is one the port's
+    `sharding` parser accepts."""
+    from gethsharding_tpu.devnet import Devnet as RDevnet
+    from gethsharding_tpu_torch.devnet import Devnet
     from gethsharding_tpu_torch.node import cli
 
-    assert cli.run_cli(["devnet", "--http-base", "9000",
-                        "--runtime", "1"]) == 2
-    assert "no node/http_status.py yet" in capsys.readouterr().err
+    argvs = {}
+    for kind in (Devnet, RDevnet):
+        net = kind(notaries=1, proposers=2, base_dir=str(tmp_path),
+                   http_base=9000)
+        net.endpoint = ("127.0.0.1", 1)
+        argvs[kind] = [net._actor_argv(role, i, 9000 + k)
+                       for k, (role, i) in enumerate(
+                           [("notary", 0), ("proposer", 0),
+                            ("proposer", 1)])]
+    for k, argv in enumerate(argvs[Devnet]):
+        at = argv.index("--http")
+        assert argv[at + 1] == str(9000 + k)
+        args = cli.build_parser().parse_args(argv[argv.index("sharding"):])
+        assert args.http == 9000 + k
+    assert [a[a.index("--http"):a.index("--http") + 2]
+            for a in argvs[Devnet]] == [
+        a[a.index("--http"):a.index("--http") + 2] for a in argvs[RDevnet]]
 
 
 def test_devnet_spreads_light_children_over_the_shards(tmp_path):

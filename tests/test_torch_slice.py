@@ -163,3 +163,19 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(modules) >= 30
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """`chip_smoke.py` runs where there is no JAX: no import of it, at the
+    top or inside a phase (the fleet's among them), names `jax` or the JAX
+    package."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.module]
+    roots = {name.split(".")[0] for name in names}
+    assert "gethsharding_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "gethsharding_tpu"}, roots
